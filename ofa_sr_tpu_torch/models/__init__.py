@@ -1,0 +1,22 @@
+from .arch import (
+    SearchSpace,
+    SubnetConfig,
+    max_subnet,
+    sample_subnet,
+    subnet_seed,
+    uniform_subnet,
+)
+from .materialize import StaticSubnet, get_active_subnet
+from .ofa_s4 import OFAMobileNetS4
+
+__all__ = [
+    "OFAMobileNetS4",
+    "SearchSpace",
+    "StaticSubnet",
+    "SubnetConfig",
+    "get_active_subnet",
+    "max_subnet",
+    "sample_subnet",
+    "subnet_seed",
+    "uniform_subnet",
+]

@@ -1,0 +1,111 @@
+"""Layer modules: the static ConvLayer and the elastic MBConv block.
+
+Counterpart of ofa_sr_tpu/models/layers.py. The JAX package runs every
+subnet at max shape with masks so that one jit program serves them all; its
+tests prove that equal to slicing. PyTorch runs eagerly, so the port's
+forward slices the weight banks the way the reference did
+(`_sliced_mbconv_branch` in the JAX package is the statement of it).
+
+Module and parameter names give the reference state_dict layout:
+`conv.weight` (OIHW), `bn.{weight,bias,running_mean,running_var}` and, for
+the elastic depthwise conv, `conv.7to5_matrix` / `conv.5to3_matrix`.
+
+Only eval-mode BN is ported: the forwards normalize with running statistics.
+"""
+
+from __future__ import annotations
+
+from torch import nn
+
+from ..ops.activations import relu6
+from ..ops.conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init
+from ..ops.elastic import transform_kernel_chain, transform_matrices_init
+from ..ops.norm import batch_norm
+from ..ops.pixelshuffle import pixel_shuffle
+from .arch import SearchSpace
+
+
+class ConvWeight(nn.Module):
+    """A `conv` slot: the OIHW weight and, for an elastic depthwise conv,
+    the kernel-transform matrices ('<K>to<k>_matrix')."""
+
+    def __init__(self, weight, matrices=None):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+        self.matrix_names = sorted(matrices or {})
+        for name in self.matrix_names:
+            self.register_parameter(name + "_matrix", nn.Parameter(matrices[name]))
+
+    def matrices(self):
+        return {n: getattr(self, n + "_matrix") for n in self.matrix_names}
+
+
+def bn_eval(y, bn: nn.BatchNorm2d, n=None):
+    """Eval-mode BN with the first `n` channels of `bn` (all if None)."""
+    return batch_norm(y, bn.weight[:n], bn.bias[:n], bn.running_mean[:n],
+                      bn.running_var[:n], eps=bn.eps)
+
+
+class ConvBN(nn.Module):
+    """`conv` + `bn` pair (the reference's conv/bn sub-block)."""
+
+    def __init__(self, weight, *, matrices=None):
+        super().__init__()
+        self.conv = ConvWeight(weight, matrices)
+        self.bn = nn.BatchNorm2d(weight.shape[0])
+
+
+class ConvLayer(ConvBN):
+    """Static conv -> BN -> [PixelShuffle(2)] (the shuffle takes the
+    reference's activation slot, after conv + BN; the S4 net has no other
+    activation there)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, *, generator):
+        super().__init__(conv_init(kernel_size, in_ch, out_ch, generator=generator))
+
+    def forward(self, x, *, shuffle=False):
+        y = bn_eval(conv2d(x, self.conv.weight), self.bn)
+        return pixel_shuffle(y, 2) if shuffle else y
+
+
+class DynamicMBConvLayer(nn.Module):
+    """Elastic MBConv: 1x1 expand -> BN -> relu6 -> k x k depthwise (elastic
+    kernel) -> BN -> relu6 -> 1x1 project -> BN. Banks at max shape."""
+
+    def __init__(self, space: SearchSpace, *, generator):
+        super().__init__()
+        self.ks_list = list(space.ks_list)
+        c = space.width
+        mid = round(c * space.max_expand)
+        self.inverted_bottleneck = ConvBN(conv_init(1, c, mid, generator=generator))
+        mats = (transform_matrices_init(space.ks_list)
+                if len(space.ks_list) > 1 else None)
+        self.depth_conv = ConvBN(
+            depthwise_conv_init(space.max_ks, mid, generator=generator),
+            matrices=mats)
+        self.point_linear = ConvBN(conv_init(1, mid, c, generator=generator))
+
+    def active_depthwise(self, ks):
+        """The effective ks x ks depthwise bank [mid_max, 1, ks, ks]."""
+        conv = self.depth_conv.conv
+        mats = conv.matrices()
+        return transform_kernel_chain(conv.weight, mats, self.ks_list, ks,
+                                      use_transform=bool(mats))
+
+    def forward(self, x, ks, mid):
+        ib, dw, pl = self.inverted_bottleneck, self.depth_conv, self.point_linear
+        y = relu6(bn_eval(conv2d(x, ib.conv.weight[:mid]), ib.bn, mid))
+        y = depthwise_conv2d(y, self.active_depthwise(ks)[:mid])
+        y = relu6(bn_eval(y, dw.bn, mid))
+        return bn_eval(conv2d(y, pl.conv.weight[:, :mid]), pl.bn)
+
+
+class MobileInvertedResidualBlock(nn.Module):
+    """MBConv with the identity shortcut."""
+
+    def __init__(self, mobile_inverted_conv: DynamicMBConvLayer):
+        super().__init__()
+        self.mobile_inverted_conv = mobile_inverted_conv
+
+    def forward(self, x, ks, mid):
+        return self.mobile_inverted_conv(x, ks, mid) + x

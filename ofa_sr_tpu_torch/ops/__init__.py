@@ -1,0 +1,19 @@
+from .activations import apply_act, relu6
+from .conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init
+from .elastic import transform_kernel_chain, transform_matrices_init
+from .norm import batch_norm
+from .pixelshuffle import pixel_shuffle, pixel_unshuffle
+
+__all__ = [
+    "apply_act",
+    "batch_norm",
+    "conv2d",
+    "conv_init",
+    "depthwise_conv2d",
+    "depthwise_conv_init",
+    "pixel_shuffle",
+    "pixel_unshuffle",
+    "relu6",
+    "transform_kernel_chain",
+    "transform_matrices_init",
+]

@@ -1,0 +1,60 @@
+"""Elastic-kernel transform chain (counterpart of ofa_sr_tpu/ops/elastic.py
+:47-86).
+
+The port slices weights per subnet, as the reference did, so only the
+kernel-transform chain is needed: the effective k x k depthwise kernel is
+produced from the max-size bank through learned (k^2 x k^2) matrices applied
+largest to smallest, K5 = reshape(vec(center5(K7)) @ M_7to5.T) and so on
+(torch F.linear's `v @ M.T`). Depthwise banks are in the torch layout
+[C, 1, K, K]; the matmul runs in full float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.common import sub_filter_start_end
+
+
+def transform_matrices_init(ks_list):
+    """Identity-initialized transform matrices keyed '%dto%d' like the
+    reference parameter names."""
+    ks_set = sorted(set(ks_list))
+    mats = {}
+    for i in range(len(ks_set) - 1):
+        small, larger = ks_set[i], ks_set[i + 1]
+        mats["%dto%d" % (larger, small)] = torch.eye(small * small)
+    return mats
+
+
+def _center_slice(w, target_ks):
+    """Center target_ks x target_ks window of a [C, I, K, K] kernel."""
+    start, end = sub_filter_start_end(w.shape[-1], target_ks)
+    return w[:, :, start:end, start:end]
+
+
+def _apply_transform(w, mat):
+    """v @ M.T over each channel's row-major flattened (ky, kx) taps."""
+    c, i, k, _ = w.shape
+    v = w.reshape(c * i, k * k)
+    v = torch.matmul(v.float(), mat.float().T)
+    return v.reshape(c, i, k, k)
+
+
+def transform_kernel_chain(weight, matrices, ks_list, target_ks, use_transform=True):
+    """The reference get_active_filter: the effective target_ks kernel from
+    the max-size bank `weight` [C, 1, K, K]."""
+    ks_set = sorted(set(ks_list))
+    max_ks = max(ks_set)
+    if target_ks == max_ks:
+        return weight
+    if not use_transform:
+        return _center_slice(weight, target_ks)
+    w = weight
+    for i in range(len(ks_set) - 1, 0, -1):
+        src_ks = ks_set[i]
+        if src_ks <= target_ks:
+            break
+        tgt_ks = ks_set[i - 1]
+        w = _apply_transform(_center_slice(w, tgt_ks), matrices["%dto%d" % (src_ks, tgt_ks)])
+    return w
