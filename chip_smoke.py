@@ -7,7 +7,10 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    the build of the hand-written kernels from csrc/ (nvcc, one per source,
    in parallel).
 2. Kernel parity on the card: each kernel against its plain PyTorch version
-   on the same inputs, at the serving path's shapes and a few odd ones.
+   on the same inputs, at the serving and training paths' shapes and a few
+   ragged ones; train-mode BN through the BN-statistics kernels
+   (`bn_train_fused`) against the plain autograd branch: y, dx, dscale,
+   dbias.
 3. Serving: a full-width OFAMobileNetS4 (seeded he_fout weights, random BN
    statistics) materialized as the ks7/e6/d2/pixel_d 2 subnet serves 8 LR
    180x320 frames (720p out) through `entry.serve`, with every kernel's
@@ -16,9 +19,24 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    against the same subnet on the CPU. Frame times from CUDA events; device
    time by kernel and the idle share from torch.profiler.
 4. The supernet eval forward of `entry.entry` (bs16, 48x48, pixel_d 1),
-   held against the same forward on the CPU.
-5. One JSON line of per-kernel numbers, the nvidia-smi line, and the result
-   line {"ok": true, "device": {...}}.
+   held against the same forward on the CPU; then training through
+   `entry.train` on the full-width supernet (bs16, 96x96 HR, Adam, weight
+   decay 3e-5): 8 one-subnet steps (both pixel_d among their subnets) and 2
+   steps of 4 subnets with KD, each BN-statistics wrapper's launches read
+   around each run and held to 3*sum(d) + pixel_d + 4 a subnet (the
+   teacher's eval forward launches none). Then, outside the counted runs:
+   kernel path against plain path (`use_kernels=False`) on the card from the
+   same weights (SGD: per-step losses, params after one step), a small step
+   card against CPU, ms per step of both paths (CUDA events, in the order
+   plain, kernels, kernels, plain), and (profiled in phase 5) the device's
+   idle share and top kernels.
+5. Per-kernel numbers at the paths' shapes (kernel, plain version, the
+   card's least time, and for the BN kernels one PyTorch call computing the
+   same function as a yardstick the port never calls). Then the
+   torch.profiler sessions of phases 3 and 4, last, because a profiler
+   session leaves the launch path slower for the rest of the process. One
+   JSON line of all of it, the nvidia-smi line, and the result line
+   {"ok": true, "device": {...}}.
 
 Float32 throughout with TF32 off, so the card's numbers compare with the
 CPU's. Exits non-zero when no CUDA device is present.
@@ -26,25 +44,45 @@ CPU's. Exits non-zero when no CUDA device is present.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from ofa_sr_tpu_torch.entry import entry, serve  # noqa: E402
+from ofa_sr_tpu_torch.entry import (  # noqa: E402
+    entry,
+    kd_teacher,
+    serve,
+    step_subnets,
+    synthetic_batch,
+    train,
+)
 from ofa_sr_tpu_torch.models import OFAMobileNetS4, SearchSpace, get_active_subnet  # noqa: E402
 from ofa_sr_tpu_torch.models.arch import uniform_subnet  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels import _build  # noqa: E402
+from ofa_sr_tpu_torch.ops.kernels.bn import bn_train_fused  # noqa: E402
+from ofa_sr_tpu_torch.ops.kernels.bn_stats import (  # noqa: E402
+    bn_bwd_sums,
+    bn_bwd_sums_reference,
+    bn_moments,
+    bn_moments_reference,
+    col_sums2,
+    col_sums2_reference,
+)
 from ofa_sr_tpu_torch.ops.kernels.mbconv import fused_mbconv_infer, mbconv_reference  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.shuffle_tail import (  # noqa: E402
     fused_shuffle_tail,
     shuffle_tail_reference,
 )
+from ofa_sr_tpu_torch.ops.norm import batch_norm_train  # noqa: E402
+from ofa_sr_tpu_torch.train import SRTrainer  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and HBM3 bandwidth; the kernels use FP32 FMA only
@@ -52,8 +90,25 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOL = dict(rtol=1e-4, atol=1e-4)      # kernel vs plain, float32, other sum order
 FRAME_TOL = dict(rtol=1e-3, atol=1e-3)  # whole frames: errors compound over ~14 layers
+# column sums of float32 rows (kernel vs plain, each summing ~100 terms in
+# sequence at most): |err| <= SUM_RTOL * sum|terms| per column, twice a
+# worst-case float32 bound
+SUM_RTOL = 2e-5
+MOMENT_TOL = dict(rtol=1e-4, atol=5e-5)   # mean / biased var of O(1) data
+STEP_TOL = dict(rtol=1e-4, atol=1e-5)     # params after one SGD step, kernels vs plain
+# params after one SGD step (lr 0.01), card vs CPU: the convs' weight
+# gradients are sums over the batch in cuDNN's order and the CPU's
+DEVICE_STEP_TOL = dict(rtol=1e-4, atol=1e-4)
 LR_HW = (180, 320)                    # 720p output at 4x
 N_FRAMES = 8
+BS, HR = 16, 96                       # the training envelope of the JAX bench
+TRAIN_STEPS = 8                       # one-subnet steps; steps 0-7 sample both pixel_d
+KD_STEPS = 2                          # steps of 4 subnets with KD
+STEP_ROUNDS = 3                       # rounds of (plain, kernels, kernels, plain) timing
+BN_KERNELS = (col_sums2, bn_moments, bn_bwd_sums)
+# the __global__ functions of csrc/*.cu, as the profiler names them
+PORT_KERNELS = ("col_partials_kernel", "finish_kernel", "mbconv_kernel", "shuffle_tail_kernel")
+DEVICE = "cuda"                       # the card; a CPU rehearsal sets "cpu"
 
 
 def fail(msg):
@@ -94,11 +149,11 @@ def bound_ms(flops, nbytes):
     return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def bound_of(launches):
-    """Least time of a list of (ops ms, bytes ms) launches, and what bounds
-    the larger share of it."""
-    total = sum(max(t) for t in launches)
-    ops = sum(t[0] for t in launches if t[0] >= t[1])
+def bound_of(weighted):
+    """Least time of launches given as [((ops ms, bytes ms), count)], and what
+    bounds the larger share of it."""
+    total = sum(max(t) * k for t, k in weighted)
+    ops = sum(t[0] * k for t, k in weighted if t[0] >= t[1])
     return total, "operations" if 2 * ops >= total else "bytes"
 
 
@@ -106,8 +161,8 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def randn(g, *shape, scale=1.0, device="cuda"):
-    return (scale * torch.randn(*shape, generator=g)).to(device)
+def randn(g, *shape, scale=1.0, device=None):
+    return (scale * torch.randn(*shape, generator=g)).to(device or DEVICE)
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -162,6 +217,111 @@ def kernel_parity(g):
         if shape[0] == 1 and shape[-1] == 64 and shape[1] >= LR_HW[0]:
             errs["shuffle_tail"] = max(errs["shuffle_tail"], err)
     return errs
+
+
+def check_sums(name, got, ref, terms):
+    """Column sums: |got - ref| <= SUM_RTOL * sum|terms|, per column."""
+    err = float((got - ref).abs().max())
+    bound = SUM_RTOL * terms.abs().sum(0)
+    ok = bool(torch.isfinite(got).all()) and bool(((got - ref).abs() <= bound).all())
+    print("  %-58s max_abs_err %.3e  (%.0e * sum|terms|)  %s"
+          % (name, err, SUM_RTOL, "ok" if ok else "FAIL"), flush=True)
+    if not ok:
+        fail("%s disagrees with its reference (max abs err %.3e)" % (name, err))
+    return err
+
+
+def bn_train_shapes(space, cfg):
+    """NHWC shapes of every train-mode BN of one subnet's forward at batch
+    BS and HR frames of HR x HR, in order."""
+    bs, hr = BS, HR
+    lr = hr // 2 ** cfg.pixel_d
+    trunk = (bs, lr, lr, space.width)
+    shapes = [trunk]
+    for stage in range(space.n_stages):
+        for i in range(cfg.d[stage]):
+            mid = space.mid_channels(cfg.e[stage * space.max_depth + i])
+            shapes += [(bs, lr, lr, mid)] * 2 + [trunk]
+    shapes += [trunk] * 2
+    shapes += [(bs, lr * 2 ** i, lr * 2 ** i, 4 * space.width) for i in range(cfg.pixel_d)]
+    return shapes + [(bs, hr, hr, 3)]
+
+
+def path_bn_shapes():
+    """The training path's distinct BN shapes (the 1-subnet steps' subnets)."""
+    space = SearchSpace()
+    cfgs = [step_subnets(space, i, 1)[0] for i in range(TRAIN_STEPS)]
+    return sorted({s for c in cfgs for s in bn_train_shapes(space, c)})
+
+
+def bn_parity(g):
+    """The three BN-statistics wrappers against their plain versions at the
+    training path's shapes and ragged ones; returns {kernel: max abs err
+    at the path's shapes} (of the moments for col_sums2, as the path uses
+    it)."""
+    errs = {"col_sums2": 0.0, "bn_bwd_sums": 0.0}
+    cases = [(s, True) for s in path_bn_shapes()]
+    cases += [((n, 1, 1, c), False) for n in (1000, 37) for c in (3, 17, 48)]
+    for shape, on_path in cases:
+        n, c = int(np.prod(shape[:3])), shape[3]
+        a = randn(g, n, c)
+        b = randn(g, n, c, scale=0.5) + 0.25
+        got = launched(col_sums2, lambda: col_sums2(a, b))
+        torch.cuda.synchronize()
+        for k, (u, v, terms) in enumerate(zip(got, col_sums2_reference(a, b), (a, a * b))):
+            check_sums("col_sums2 s%d %s" % (k + 1, (n, c)), u, v, terms)
+        x = (1.5 * randn(g, *shape) + 0.3).contiguous()
+        got = launched(bn_moments, lambda: bn_moments(x))
+        torch.cuda.synchronize()
+        for k, (u, v) in enumerate(zip(got, bn_moments_reference(x))):
+            err = check_close("bn_moments %s %s" % (("mean", "var")[k], shape), u, v, MOMENT_TOL)
+            if on_path:
+                errs["col_sums2"] = max(errs["col_sums2"], err)
+        dy, xf = randn(g, n, c), x.view(n, c)
+        mean, var = bn_moments_reference(x)
+        inv = torch.rsqrt(var + 1e-5)
+        got = launched(bn_bwd_sums, lambda: bn_bwd_sums(dy, xf, mean, inv))
+        torch.cuda.synchronize()
+        xhat = (xf - mean) * inv
+        for k, (u, v, terms) in enumerate(zip(got, bn_bwd_sums_reference(dy, xf, mean, inv),
+                                              (dy, dy * xhat))):
+            err = check_sums("bn_bwd_sums s%d %s" % (k + 1, (n, c)), u, v, terms)
+            if on_path:
+                errs["bn_bwd_sums"] = max(errs["bn_bwd_sums"], err)
+    return errs
+
+
+def bn_grad_check(g):
+    """Train-mode BN through the kernels (bn_train_fused) against the plain
+    autograd branch on the card: y, dx, dscale, dbias, running stats."""
+    for shape in [(BS, 48, 48, 64), (BS, 48, 48, 384), (BS, HR, HR, 3), (BS, 24, 24, 256),
+                  (2, 5, 7, 17)]:
+        c = shape[-1]
+        x0 = 1.5 * randn(g, *shape) + 0.3
+        w = randn(g, *shape)
+        scale0, bias0 = 0.5 + torch.rand(c, generator=g), 0.2 * torch.randn(c, generator=g)
+        rm0, rv0 = 0.2 * torch.randn(c, generator=g), 0.5 + torch.rand(c, generator=g)
+        out = {}
+        for uk in (True, False):
+            x = x0.clone().requires_grad_()
+            scale, bias = (t.to(x0.device).requires_grad_() for t in (scale0, bias0))
+            rm, rv = rm0.to(x0.device), rv0.to(x0.device)
+            before = bn_bwd_sums.launches
+            y = batch_norm_train(x, scale, bias, rm, rv, use_kernels=uk)
+            (y * w).sum().backward()
+            if uk and x.is_cuda and bn_bwd_sums.launches != before + 1:
+                fail("bn_train_fused's backward did not launch bn_bwd_sums")
+            out[uk] = (y.detach(), x.grad, scale.grad, bias.grad, rm, rv)
+        torch.cuda.synchronize()
+        (y, dx, ds, db, rm, rv), (y_p, dx_p, ds_p, db_p, rm_p, rv_p) = out[True], out[False]
+        name = "bn_train_fused %s" % (shape,)
+        check_close(name + " y", y, y_p, TOL)
+        check_close(name + " dx", dx, dx_p, TOL)
+        xhat = ((x0 - x0.mean((0, 1, 2))) * torch.rsqrt(x0.var((0, 1, 2), correction=0) + 1e-5))
+        check_sums(name + " dscale", ds, ds_p, (w * xhat).reshape(-1, c))
+        check_sums(name + " dbias", db, db_p, w.reshape(-1, c))
+        check_close(name + " running_mean", rm, rm_p, MOMENT_TOL)
+        check_close(name + " running_var", rv, rv_p, MOMENT_TOL)
 
 
 # -- phase 3: serving --------------------------------------------------------
@@ -234,82 +394,235 @@ def serving(net, net_cpu, cfg):
             times[name] = time_ms(lambda: [sub(x) for x in xs], iters=3, warmup=1) / N_FRAMES
     print("  frame ms (CUDA events, mean of %d frames x 3): %s"
           % (N_FRAMES, {k: round(v, 4) for k, v in times.items()}), flush=True)
-    profiles = [frame_profile("kernels", sub_k, xs, times["kernels"]),
-                frame_profile("plain_fold_tail", sub_f, xs, times["plain_fold_tail"])]
+    # profiled at the end of the run (see main)
+    profiles = [("kernels", lambda: [sub_k(x) for x in xs], N_FRAMES, times["kernels"]),
+                ("plain_fold_tail", lambda: [sub_f(x) for x in xs], N_FRAMES,
+                 times["plain_fold_tail"])]
     return counts, times, profiles
 
 
-def frame_profile(name, sub, xs, frame_ms):
-    """Device time per frame by kernel (torch.profiler), and the device's
-    idle share of the frame time measured with CUDA events (`frame_ms`)."""
+def device_profile(name, run, n, unit_ms, unit):
+    """Device time per `unit` (frame, step) by kernel from torch.profiler over
+    run() (n units), and the device's idle share of the time per unit
+    measured with CUDA events (`unit_ms`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with torch.inference_mode(), profile(
+    with torch.inference_mode(unit == "frame"), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for x in xs:
-            sub(x)
+        run()
         torch.cuda.synchronize()
-    n = len(xs)
+    # ranges such as "Optimizer.step#Adam.step" show on the device timeline
+    # around the kernels they hold; count only the kernels
+    ranges = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or e.key in ranges:
             continue
         us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
         if us > 0:
-            rows.append({"kernel": e.key[:90], "calls_per_frame": e.count / n,
-                         "ms_per_frame": us / 1e3 / n})
-    rows.sort(key=lambda r: -r["ms_per_frame"])
-    busy = sum(r["ms_per_frame"] for r in rows)
+            rows.append({"kernel": e.key[:90], "calls_per_%s" % unit: e.count / n,
+                         "ms_per_%s" % unit: us / 1e3 / n})
+    key = "ms_per_%s" % unit
+    rows.sort(key=lambda r: -r[key])
+    busy = sum(r[key] for r in rows)
     if not rows:
         print("  %s: device time not measured (the profiler recorded no CUDA kernel)"
               % name, flush=True)
-        return {"path": name, "busy_ms_per_frame": None, "idle_share": None, "top": []}
-    print("  %s: device busy %.4f of %.4f ms per frame (idle share %.3f)"
-          % (name, busy, frame_ms, 1 - busy / frame_ms), flush=True)
-    for r in rows[:10]:
-        print("    %8.4f ms  x%-5.1f %s" % (r["ms_per_frame"], r["calls_per_frame"],
-                                          r["kernel"]), flush=True)
-    return {"path": name, "busy_ms_per_frame": busy, "idle_share": 1 - busy / frame_ms,
-            "top": rows[:10]}
+        return {"path": name, "busy_ms_per_%s" % unit: None, "idle_share": None, "top": []}
+    print("  %s: device busy %.4f of %.4f ms per %s (idle share %.3f)"
+          % (name, busy, unit_ms, unit, 1 - busy / unit_ms), flush=True)
+    ours = [r for r in rows if any(k in r["kernel"] for k in PORT_KERNELS)]
+    for r in rows[:10] + [r for r in ours if r not in rows[:10]]:
+        print("    %8.4f ms  x%-5.1f %s" % (r[key], r["calls_per_%s" % unit], r["kernel"]),
+              flush=True)
+    return {"path": name, "busy_ms_per_%s" % unit: busy, "idle_share": 1 - busy / unit_ms,
+            "top": rows[:10], "port_kernels": ours}
+
+
+# -- phase 4: training -------------------------------------------------------
+
+def bn_launches_expected(cfgs):
+    """Launches of each BN-statistics wrapper for a step over `cfgs`: one per
+    train-mode BN, 3*sum(d) + pixel_d + 4 a subnet."""
+    return sum(3 * sum(c.d) + c.pixel_d + 4 for c in cfgs)
+
+
+def counted_train(steps, **kw):
+    """entry.train with the BN-statistics counters read around it: the main
+    path's run. Returns (metrics, {kernel: launches})."""
+    for k in BN_KERNELS:
+        k.launches = 0
+    bn_train_fused.layout_copies = 0
+    metrics = train(steps, device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in BN_KERNELS}
+    counts["layout_copies"] = bn_train_fused.layout_copies
+    return metrics, counts
+
+
+def training_main_path():
+    """The two training envelopes through entry.train, counted."""
+    space = SearchSpace()
+    runs = {}
+    for label, steps, kw in (("1 subnet", TRAIN_STEPS, {}),
+                             ("4 subnets + KD", KD_STEPS, dict(n_subnets=4, kd_ratio=1.0))):
+        cfgs = [c for i in range(steps) for c in step_subnets(space, i, kw.get("n_subnets", 1))]
+        metrics, counts = counted_train(steps, **kw)
+        expect = bn_launches_expected(cfgs)
+        print("  entry.train(%d steps, %s): BN-kernel launches %s (expected %d each), "
+              "pixel_d %s, losses %s" % (steps, label, counts, expect,
+                                         sorted({c.pixel_d for c in cfgs}),
+                                         [round(m["loss"], 5) for m in metrics]), flush=True)
+        if any(counts[k.__name__] != expect for k in BN_KERNELS):
+            fail("the training path did not launch each BN kernel once per train-mode BN")
+        if not all(np.isfinite(m["loss"]) and np.isfinite(m["psnr"]) for m in metrics):
+            fail("non-finite training metrics: %s" % metrics)
+        runs[label] = {"steps": steps, "launches": counts, "expected": expect,
+                       "metrics": metrics}
+    if {c.pixel_d for i in range(TRAIN_STEPS) for c in step_subnets(space, i, 1)} != {1, 2}:
+        fail("the one-subnet steps did not sample both pixel_d")
+    return runs
+
+
+def train_net(device, seed=0):
+    return OFAMobileNetS4(SearchSpace(), device=device,
+                          generator=torch.Generator().manual_seed(seed))
+
+
+def sgd_steps(device, use_kernels, batch, cfg_lists, lr=0.01):
+    """SGD steps from seed-0 weights; (losses, params after the first)."""
+    net = train_net(device)
+    tr = SRTrainer(net, opt_type="sgd", weight_decay=3e-5, use_kernels=use_kernels)
+    losses, first = [], None
+    for cfgs in cfg_lists:
+        losses.append(tr.train_step(batch, cfgs, lr)["loss"])
+        if first is None:
+            first = {n: p.detach().clone() for n, p in net.named_parameters()}
+    return torch.stack(losses), first
+
+
+def training_checks():
+    """Kernel path vs plain path on the card; a small step card vs CPU."""
+    space = SearchSpace()
+    cfgs = [step_subnets(space, i, 1)[0] for i in (0, 6)]  # pixel_d 1 and 2
+    batch = synthetic_batch(BS, HR, DEVICE)
+    lk, pk = sgd_steps(DEVICE, True, batch, [[cfgs[0]], [cfgs[1]], [cfgs[0]]])
+    lp, pp = sgd_steps(DEVICE, False, batch, [[cfgs[0]], [cfgs[1]], [cfgs[0]]])
+    check_close("3 SGD steps, losses: kernel path vs plain path", lk, lp, STEP_TOL)
+    err = max(float((pk[n] - pp[n]).abs().max()) for n in pk)
+    for n in pk:
+        if not bool(torch.isclose(pk[n], pp[n], **STEP_TOL).all()):
+            check_close("params after one SGD step: " + n, pk[n], pp[n], STEP_TOL)
+    print("  params after one SGD step, kernel path vs plain path: max_abs_err %.3e  ok"
+          % err, flush=True)
+    small = synthetic_batch(2, 32, "cpu", seed=1)
+    lc, pc = sgd_steps(DEVICE, None, {k: v.to(DEVICE) for k, v in small.items()}, [cfgs])
+    lh, ph = sgd_steps("cpu", None, small, [cfgs])
+    check_close("2-subnet step at bs2 32x32: loss, card kernels vs CPU", lc.cpu(), lh,
+                DEVICE_STEP_TOL)
+    err = max(float((pc[n].cpu() - ph[n]).abs().max()) for n in pc)
+    for n in pc:
+        if not bool(torch.isclose(pc[n].cpu(), ph[n], **DEVICE_STEP_TOL).all()):
+            check_close("params, card vs CPU: " + n, pc[n].cpu(), ph[n], DEVICE_STEP_TOL)
+    print("  params after that step, card vs CPU: max_abs_err %.3e  ok" % err, flush=True)
+
+
+def timed_steps(run, n_steps):
+    """(ms per step on the device timeline from CUDA events, ms per step the
+    host spent enqueueing) of one run(); equal when the host is the limit."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    return start.elapsed_time(end) / n_steps, host_ms / n_steps
+
+
+def step_times():
+    """ms per step of the kernel and plain paths for both envelopes, in
+    STEP_ROUNDS rounds of the order plain, kernels, kernels, plain; and the
+    runs of the one-subnet steps on each path, to profile at the end."""
+    space = SearchSpace()
+    batch = synthetic_batch(BS, HR, DEVICE)
+    envelopes = {"1 subnet": ([step_subnets(space, i, 1) for i in range(TRAIN_STEPS)], {}),
+                 "4 subnets + KD": ([step_subnets(space, i, 4) for i in range(KD_STEPS)],
+                                    dict(kd_ratio=1.0))}
+    teacher = kd_teacher(space, DEVICE)
+    out, profiles = {}, []
+    for env, (steps, kw) in envelopes.items():
+        trainers = {uk: SRTrainer(train_net(DEVICE), use_kernels=uk,
+                                  teacher=teacher if kw else None, **kw)
+                    for uk in (True, False)}
+
+        def run(uk, trainers=trainers, steps=steps):  # bound now: profiled later
+            for cfgs in steps:
+                trainers[uk].train_step(batch, cfgs, 1e-4)
+
+        for uk in (True, False):
+            run(uk)  # warm: cuDNN's algorithm choice, the allocator
+        times = {True: [], False: []}
+        for uk in (False, True, True, False) * STEP_ROUNDS:
+            times[uk].append(timed_steps(lambda: run(uk), len(steps)))
+        out[env] = {}
+        for uk, name in ((True, "kernels"), (False, "plain")):
+            ev, host = zip(*times[uk])
+            out[env][name] = {"ms": list(ev), "host_enqueue_ms": list(host),
+                              "median_ms": float(np.median(ev))}
+            print("  %s, %s: ms per step (CUDA events) %s, median %.4f; host enqueue %s"
+                  % (env, name, [round(t, 3) for t in ev], np.median(ev),
+                     [round(t, 3) for t in host]), flush=True)
+        if env == "1 subnet":
+            profiles += [("train %s" % ("kernels" if uk else "plain"),
+                          functools.partial(run, uk), len(steps),
+                          out[env][name]["median_ms"])
+                         for uk, name in ((True, "kernels"), (False, "plain"))]
+    return out, profiles
 
 
 # -- phase 5: per-kernel numbers at the path's shapes ------------------------
 
-def measure_shape(kernel, plain, flops, nbytes_, launches_per_frame, **info):
-    """Kernel and plain ms per launch at one shape, beside its bound."""
+def measure_shape(kernel, plain, flops, nbytes_, launches, unit="frame", library=None,
+                  **info):
+    """Kernel, plain and (where given) library ms per launch at one shape,
+    beside its bound; `launches` per `unit` (frame or step)."""
     t = bound_ms(flops, nbytes_)
-    return dict(info, launches_per_frame=launches_per_frame,
+    return dict(info, **{"launches_per_" + unit: launches},
                 ms_per_launch=time_ms(kernel), plain_ms_per_launch=time_ms(plain),
+                library_ms_per_launch=time_ms(library) if library else None,
                 bound_ms_per_launch=max(t), flop=flops, bytes=nbytes_, _t=t)
 
 
-def kernel_row(name, source, replaces, launches, err, shapes):
-    """One kernel's line: per-frame sums over its launches at the path's
+def kernel_row(name, source, replaces, launches, err, shapes, unit="frame"):
+    """One kernel's line: sums per `unit` over its launches at the path's
     shapes."""
-    times = [s.pop("_t") for s in shapes]
-    bound, by = bound_of([t for t, s in zip(times, shapes)
-                          for _ in range(s["launches_per_frame"])])
-    frame = lambda key: sum(s[key] * s["launches_per_frame"] for s in shapes)  # noqa: E731
+    per = "launches_per_" + unit
+    bound, by = bound_of([(s.pop("_t"), s[per]) for s in shapes])
+    total = lambda key: sum(s[key] * s[per] for s in shapes)  # noqa: E731
+    lib = all(s["library_ms_per_launch"] is not None for s in shapes)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches,
-            "launches_per_frame": sum(s["launches_per_frame"] for s in shapes),
-            "max_abs_err": err, "ms": frame("ms_per_launch"),
-            "plain_ms": frame("plain_ms_per_launch"), "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "per_shape": shapes}
+            "launches": launches, per: sum(s[per] for s in shapes),
+            "max_abs_err": err, "ms": total("ms_per_launch"),
+            "plain_ms": total("plain_ms_per_launch"), "bound_ms": bound, "bound_by": by,
+            "library_ms": total("library_ms_per_launch") if lib else None,
+            "per": unit, "per_shape": shapes}
 
 
 def kernel_numbers(g, cfg, counts, errs):
-    """Per kernel: time per frame of all its launches at the path's shapes
-    (kernel, plain version), with the card's least time for the same work.
-    No single PyTorch call computes either function: library_ms is null."""
+    """Per serving kernel: time per frame of all its launches at the path's
+    shapes (kernel, plain version), with the card's least time for the same
+    work. No single PyTorch call computes either function: library_ms is
+    null."""
     c, m, ks = 64, SearchSpace().mid_channels(6), 7
     x, w = mbconv_case(g, (1,) + LR_HW + (c,), m, ks)
     mb = measure_shape(
         lambda: fused_mbconv_infer(x, **w), lambda: mbconv_reference(x, **w),
         flops=2 * (x.numel() // c) * (c * m + ks * ks * m + m * c),
-        nbytes_=nbytes(x, *w.values()) + nbytes(x), launches_per_frame=sum(cfg.d),
+        nbytes_=nbytes(x, *w.values()) + nbytes(x), launches=sum(cfg.d),
         shape=list(x.shape), mid=m, ks=ks)
     tail = []
     for i in range(cfg.pixel_d):
@@ -317,13 +630,67 @@ def kernel_numbers(g, cfg, counts, errs):
         tail.append(measure_shape(
             lambda: fused_shuffle_tail(x, wt, b), lambda: shuffle_tail_reference(x, wt, b),
             flops=2 * x.numel() * 25 * 4 * c, nbytes_=nbytes(x, wt, b) + 4 * nbytes(x),
-            launches_per_frame=1, shape=list(x.shape)))
+            launches=1, shape=list(x.shape)))
     return [kernel_row("fused_mbconv_infer", "ofa_sr_tpu_torch/csrc/mbconv.cu",
                        "ofa_sr_tpu/ops/pallas/mbconv.py:155", counts["mbconv"],
                        errs["mbconv"], [mb]),
             kernel_row("fused_shuffle_tail", "ofa_sr_tpu_torch/csrc/shuffle_tail.cu",
                        "ofa_sr_tpu/ops/pallas/shuffle_tail.py:121", counts["shuffle_tail"],
                        errs["shuffle_tail"], tail)]
+
+
+def bn_kernel_numbers(g, launches, errs):
+    """Per BN-statistics kernel: time per one-subnet training step of its
+    launches at the path's shapes (the subnets of the counted one-subnet
+    steps, launches averaged per step), against its plain version, the
+    card's least time (bytes), and one PyTorch call computing the same
+    function: torch.var_mean for the moments, and
+    aten.native_batch_norm_backward (grad_weight = sum dy*xhat, grad_bias =
+    sum dy) on the channels-last NCHW view for the backward sums, checked
+    here to return the plain version's two sums."""
+    space = SearchSpace()
+    per_step = {}
+    for i in range(TRAIN_STEPS):
+        for shp in bn_train_shapes(space, step_subnets(space, i, 1)[0]):
+            per_step[shp] = per_step.get(shp, 0) + 1.0 / TRAIN_STEPS
+    mom, bwd = [], []
+    for shp in sorted(per_step):
+        n, c = int(np.prod(shp[:3])), shp[3]
+        x = (1.5 * randn(g, *shp) + 0.3).contiguous()
+        mom.append(measure_shape(
+            lambda: bn_moments(x), lambda: bn_moments_reference(x),
+            flops=3 * n * c, nbytes_=nbytes(x) + 2 * c * 4, launches=per_step[shp],
+            unit="step", library=lambda: torch.var_mean(x, dim=(0, 1, 2), correction=0),
+            shape=list(shp)))
+        dy = randn(g, *shp)
+        mean, var = bn_moments_reference(x)
+        inv = torch.rsqrt(var + 1e-5)
+        dyf, xf = dy.view(n, c), x.view(n, c)
+        nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731  channels-last NCHW view
+        weight = torch.ones(c, device=x.device)
+
+        def library():
+            return torch.ops.aten.native_batch_norm_backward(
+                nchw(dy), nchw(x), weight, None, None, mean, inv, True, 1e-5,
+                [False, True, True])
+
+        _, lib_s2, lib_s1 = library()
+        ref = bn_bwd_sums_reference(dyf, xf, mean, inv)
+        xhat = (xf - mean) * inv
+        check_sums("native_batch_norm_backward sum dy %s" % (shp,), lib_s1, ref[0], dyf)
+        check_sums("native_batch_norm_backward sum dy*xhat %s" % (shp,), lib_s2, ref[1],
+                   dyf * xhat)
+        bwd.append(measure_shape(
+            lambda: bn_bwd_sums(dyf, xf, mean, inv),
+            lambda: bn_bwd_sums_reference(dyf, xf, mean, inv),
+            flops=5 * n * c, nbytes_=nbytes(dy, x) + 4 * c * 4, launches=per_step[shp],
+            unit="step", library=library, shape=list(shp)))
+    return [kernel_row("col_sums2", "ofa_sr_tpu_torch/csrc/bn_stats.cu",
+                       "ofa_sr_tpu/ops/pallas/bn_stats.py:94", launches["col_sums2"],
+                       errs["col_sums2"], mom, unit="step"),
+            kernel_row("bn_bwd_sums", "ofa_sr_tpu_torch/csrc/bn_stats.cu",
+                       "ofa_sr_tpu/ops/pallas/bn_stats.py:196", launches["bn_bwd_sums"],
+                       errs["bn_bwd_sums"], bwd, unit="step")]
 
 
 def main():
@@ -350,6 +717,8 @@ def main():
     g = torch.Generator().manual_seed(1234)
     print("phase 2: kernel parity on the card", flush=True)
     errs = kernel_parity(g)
+    errs.update(bn_parity(g))
+    bn_grad_check(g)
 
     print("phase 3: serving %d frames of %dx%d LR" % ((N_FRAMES,) + LR_HW), flush=True)
     net = build_net(dev)
@@ -367,15 +736,34 @@ def main():
     check_close("entry forward: card vs CPU", y.cpu(), fn_cpu(*args_cpu), FRAME_TOL)
     entry_ms = time_ms(lambda: fn(*args), iters=5, warmup=1)
     print("  entry forward ms: %.4f" % entry_ms, flush=True)
+    del fn, args, y
+    print("phase 4: entry.train, bs%d %dx%d HR, full-width supernet" % (BS, HR, HR), flush=True)
+    train_runs = training_main_path()
+    bn_counts = {k.__name__: sum(r["launches"][k.__name__] for r in train_runs.values())
+                 for k in BN_KERNELS}
+    training_checks()
+    step_ms, train_runs_to_profile = step_times()
 
     print("phase 5: per-kernel numbers", flush=True)
-    rows = kernel_numbers(g, cfg, counts, errs)
+    rows = kernel_numbers(g, cfg, counts, errs) + bn_kernel_numbers(g, bn_counts, errs)
     for r in rows:
-        print("  %-20s %d launches  %.4f ms/frame  plain %.4f  bound %.4f (%s)"
-              % (r["name"], r["launches"], r["ms"], r["plain_ms"], r["bound_ms"],
-                 r["bound_by"]), flush=True)
+        print("  %-20s %d launches  %.4f ms/%s  plain %.4f  bound %.4f (%s)  library %s"
+              % (r["name"], r["launches"], r["ms"], r["per"], r["plain_ms"], r["bound_ms"],
+                 r["bound_by"], r["library_ms"]), flush=True)
+    # last: a torch.profiler session leaves the launch path slower for the
+    # rest of the process, so every timing above comes first, and the steps
+    # are timed once more after the profiles to show by how much
+    print("phase 5: device profiles", flush=True)
+    profiles = [device_profile(*p, "frame") for p in profiles]
+    train_profiles = [device_profile(*p, "step") for p in train_runs_to_profile]
+    for prof, (name, run, n, _) in zip(train_profiles, train_runs_to_profile):
+        after = timed_steps(run, n)
+        prof["ms_after_profiling"], prof["host_enqueue_ms_after_profiling"] = after
+        print("  %s after the profiles: %.4f ms per step (CUDA events), host enqueue %.4f"
+              % ((name,) + after), flush=True)
     print(json.dumps({"kernels": rows, "frame_ms": frame_ms, "frame_profile": profiles,
-                      "entry_ms": entry_ms, "build_s": build_s, "gpu": smi_line}))
+                      "entry_ms": entry_ms, "train_runs": train_runs, "step_ms": step_ms,
+                      "step_profile": train_profiles, "build_s": build_s, "gpu": smi_line}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,14 @@ of a sampled subnet at batch 16, 48x48 LR, pixel_d 1.
 frames one at a time, like the JAX package's
 `cli/eval_ofa_net_sr.py --materialize`.
 
-Both run on the GPU unless the caller passes `device="cpu"`.
+`train(steps, ...)` is the training path: the bench's training envelopes
+(`bench.py` of the JAX package) on the full-width supernet, batch 16 of
+96x96 HR frames with their 2x / 4x LR inputs made from a numpy seed, one or
+more sampled subnets a step under the reference's seed contract, Adam with
+weight decay 3e-5 and, with `kd_ratio > 0`, KD against the bench's teacher
+(ks5/e3/d2/pixel_d 1).
+
+All three run on the GPU unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -19,10 +26,19 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
-from .models.arch import SearchSpace, SubnetConfig, sample_subnet, uniform_subnet
+from .models.arch import (
+    SearchSpace,
+    SubnetConfig,
+    sample_subnet,
+    subnet_seed,
+    uniform_subnet,
+)
 from .models.materialize import get_active_subnet
 from .models.ofa_s4 import OFAMobileNetS4
+from .train.train_step import SRTrainer
 from .utils.device import resolve_device
+
+N_BATCH = 50  # steps per epoch in the subnet seeds: DIV2K's 800 images / 16
 
 
 def entry(device="cuda"):
@@ -67,3 +83,49 @@ def serve(frames: Iterable, *, net: Optional[OFAMobileNetS4] = None,
                 x = x[None]
             out.append(subnet(x.contiguous()))
     return out
+
+
+def step_subnets(space: SearchSpace, step: int, n_subnets: int) -> List[SubnetConfig]:
+    """The subnets of training step `step` (epoch 0), in the reference's
+    seed contract."""
+    return [sample_subnet(space, seed=subnet_seed(0, N_BATCH, step, k))
+            for k in range(n_subnets)]
+
+
+def synthetic_batch(batch_size, hr_size, device, seed=0):
+    """{"image", "x2", "x4"}: uniform [0, 1) NHWC frames from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    sizes = {"image": hr_size, "x2": hr_size // 2, "x4": hr_size // 4}
+    return {k: torch.from_numpy(rng.rand(batch_size, s, s, 3).astype(np.float32)).to(device)
+            for k, s in sizes.items()}
+
+
+def kd_teacher(space: SearchSpace, device):
+    """The bench's KD teacher at the student's width and stage count:
+    (net, its ks5/e3/d2/pixel_d 1 subnet, pixel_d), weights from seed 7."""
+    t_space = SearchSpace(ks_list=[5], expand_list=[3], depth_list=[2], pixel_d_list=[1],
+                          n_stages=space.n_stages, width=space.width)
+    t_net = OFAMobileNetS4(t_space, device=device, generator=torch.Generator().manual_seed(7))
+    return t_net, uniform_subnet(t_space, 5, 3, 2, 1), 1
+
+
+def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda",
+          net: Optional[OFAMobileNetS4] = None, batch_size: int = 16, hr_size: int = 96,
+          lr: float = 1e-4, use_kernels: Optional[bool] = None) -> List[dict]:
+    """Train `net` (default: a seed-0 full-width OFAMobileNetS4 on `device`)
+    for `steps` optimizer steps of `n_subnets` subnets each, on one
+    synthetic batch. On a CUDA net train-mode BN runs the BN-statistics
+    kernels unless `use_kernels=False`. Returns each step's {"loss",
+    "psnr"} as floats."""
+    dev = resolve_device(device)
+    if net is None:
+        net = OFAMobileNetS4(SearchSpace(), device=dev)
+    elif net.device != dev:
+        raise ValueError("net is on %s, train was asked for %s" % (net.device, dev))
+    teacher = kd_teacher(net.space, dev) if kd_ratio > 0 else None
+    trainer = SRTrainer(net, opt_type="adam", weight_decay=3e-5, kd_ratio=kd_ratio,
+                        teacher=teacher, use_kernels=use_kernels)
+    batch = synthetic_batch(batch_size, hr_size, dev)
+    metrics = [trainer.train_step(batch, step_subnets(net.space, i, n_subnets), lr)
+               for i in range(steps)]
+    return [{k: float(v) for k, v in m.items()} for m in metrics]

@@ -10,7 +10,10 @@ Module and parameter names give the reference state_dict layout:
 `conv.weight` (OIHW), `bn.{weight,bias,running_mean,running_var}` and, for
 the elastic depthwise conv, `conv.7to5_matrix` / `conv.5to3_matrix`.
 
-Only eval-mode BN is ported: the forwards normalize with running statistics.
+Every forward takes `bn_training` (train-mode BN: batch moments, running
+statistics updated in place; otherwise the running statistics normalize,
+which is eval mode and the SR trainer's frozen BN) and `use_kernels` (train
+mode through the BN-statistics kernels, `ops/kernels/bn.py`).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from torch import nn
 from ..ops.activations import relu6
 from ..ops.conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init
 from ..ops.elastic import transform_kernel_chain, transform_matrices_init
-from ..ops.norm import batch_norm
+from ..ops.norm import batch_norm, batch_norm_train
 from ..ops.pixelshuffle import pixel_shuffle
 from .arch import SearchSpace
 
@@ -40,8 +43,14 @@ class ConvWeight(nn.Module):
         return {n: getattr(self, n + "_matrix") for n in self.matrix_names}
 
 
-def bn_eval(y, bn: nn.BatchNorm2d, n=None):
-    """Eval-mode BN with the first `n` channels of `bn` (all if None)."""
+def bn_apply(y, bn: nn.BatchNorm2d, n=None, *, bn_training=False, use_kernels=False):
+    """BN with the first `n` channels of `bn` (all if None): train mode
+    (updating that prefix of the running statistics) when `bn_training`,
+    else normalized with the running statistics."""
+    if bn_training:
+        return batch_norm_train(y, bn.weight[:n], bn.bias[:n], bn.running_mean[:n],
+                                bn.running_var[:n], momentum=bn.momentum, eps=bn.eps,
+                                use_kernels=use_kernels)
     return batch_norm(y, bn.weight[:n], bn.bias[:n], bn.running_mean[:n],
                       bn.running_var[:n], eps=bn.eps)
 
@@ -63,8 +72,9 @@ class ConvLayer(ConvBN):
     def __init__(self, in_ch, out_ch, kernel_size, *, generator):
         super().__init__(conv_init(kernel_size, in_ch, out_ch, generator=generator))
 
-    def forward(self, x, *, shuffle=False):
-        y = bn_eval(conv2d(x, self.conv.weight), self.bn)
+    def forward(self, x, *, shuffle=False, bn_training=False, use_kernels=False):
+        y = bn_apply(conv2d(x, self.conv.weight), self.bn, bn_training=bn_training,
+                     use_kernels=use_kernels)
         return pixel_shuffle(y, 2) if shuffle else y
 
 
@@ -92,12 +102,13 @@ class DynamicMBConvLayer(nn.Module):
         return transform_kernel_chain(conv.weight, mats, self.ks_list, ks,
                                       use_transform=bool(mats))
 
-    def forward(self, x, ks, mid):
+    def forward(self, x, ks, mid, *, bn_training=False, use_kernels=False):
         ib, dw, pl = self.inverted_bottleneck, self.depth_conv, self.point_linear
-        y = relu6(bn_eval(conv2d(x, ib.conv.weight[:mid]), ib.bn, mid))
+        bn = dict(bn_training=bn_training, use_kernels=use_kernels)
+        y = relu6(bn_apply(conv2d(x, ib.conv.weight[:mid]), ib.bn, mid, **bn))
         y = depthwise_conv2d(y, self.active_depthwise(ks)[:mid])
-        y = relu6(bn_eval(y, dw.bn, mid))
-        return bn_eval(conv2d(y, pl.conv.weight[:, :mid]), pl.bn)
+        y = relu6(bn_apply(y, dw.bn, mid, **bn))
+        return bn_apply(conv2d(y, pl.conv.weight[:, :mid]), pl.bn, **bn)
 
 
 class MobileInvertedResidualBlock(nn.Module):
@@ -107,5 +118,5 @@ class MobileInvertedResidualBlock(nn.Module):
         super().__init__()
         self.mobile_inverted_conv = mobile_inverted_conv
 
-    def forward(self, x, ks, mid):
-        return self.mobile_inverted_conv(x, ks, mid) + x
+    def forward(self, x, ks, mid, **bn):
+        return self.mobile_inverted_conv(x, ks, mid, **bn) + x

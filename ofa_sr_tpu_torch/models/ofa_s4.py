@@ -64,22 +64,34 @@ class OFAMobileNetS4(nn.Module):
     def shuffle_blocks(self):
         return list(self.blocks)[self.n_mb:]
 
-    def forward(self, x, cfg: SubnetConfig, pixel_d: int):
-        """Eval forward of subnet `cfg` on NHWC `x`; 2^pixel_d upscale."""
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BN is not ported yet; call .eval()")
+    def forward(self, x, cfg: SubnetConfig, pixel_d: int, *,
+                bn_training: Optional[bool] = None, use_kernels: Optional[bool] = None):
+        """Forward of subnet `cfg` on NHWC `x`; 2^pixel_d upscale.
+
+        BN runs in train mode (batch moments, running statistics updated in
+        place) when `bn_training`, which defaults to `self.training`;
+        `bn_training=False` on a training net is the SR trainer's frozen BN.
+        `use_kernels` (default: on for a CUDA net) takes train-mode BN
+        through the BN-statistics kernels. Only the first `cfg.d[stage]`
+        blocks of a stage and the first `pixel_d` shuffle blocks execute, so
+        the others get no gradient (`grad is None`).
+        """
+        if bn_training is None:
+            bn_training = self.training
+        if use_kernels is None:
+            use_kernels = self.device.type == "cuda"
+        bn = dict(bn_training=bn_training, use_kernels=use_kernels)
         sp = self.space
-        x = self.dec_first_conv_block(x)
+        x = self.dec_first_conv_block(x, **bn)
         skip = x
         for stage in range(sp.n_stages):
             for i in range(cfg.d[stage]):
                 bi = stage * sp.max_depth + i
-                x = self.blocks[bi](x, cfg.ks[bi], sp.mid_channels(cfg.e[bi]))
+                x = self.blocks[bi](x, cfg.ks[bi], sp.mid_channels(cfg.e[bi]), **bn)
         for i, layer in enumerate(self.dec_final_conv_blocks):
-            x = layer(x)
+            x = layer(x, **bn)
             if i == 0:
                 x = x + skip
         for layer in self.shuffle_blocks[:pixel_d]:
-            x = layer(x, shuffle=True)
-        return self.dec_final_output_conv_block(x)
+            x = layer(x, shuffle=True, **bn)
+        return self.dec_final_output_conv_block(x, **bn)

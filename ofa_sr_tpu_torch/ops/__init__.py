@@ -1,12 +1,14 @@
 from .activations import apply_act, relu6
 from .conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init
 from .elastic import transform_kernel_chain, transform_matrices_init
-from .norm import batch_norm
+from .norm import batch_moments, batch_norm, batch_norm_train
 from .pixelshuffle import pixel_shuffle, pixel_unshuffle
 
 __all__ = [
     "apply_act",
+    "batch_moments",
     "batch_norm",
+    "batch_norm_train",
     "conv2d",
     "conv_init",
     "depthwise_conv2d",

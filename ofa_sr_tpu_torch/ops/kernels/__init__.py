@@ -2,10 +2,26 @@
 beside its plain PyTorch version. Importing this package needs neither a GPU
 nor nvcc: a kernel is built at its first launch."""
 
+from .bn import bn_train_fused
+from .bn_stats import (
+    bn_bwd_sums,
+    bn_bwd_sums_reference,
+    bn_moments,
+    bn_moments_reference,
+    col_sums2,
+    col_sums2_reference,
+)
 from .mbconv import fused_mbconv_infer, mbconv_reference
 from .shuffle_tail import fused_shuffle_tail, shuffle_tail_reference
 
 __all__ = [
+    "bn_bwd_sums",
+    "bn_bwd_sums_reference",
+    "bn_moments",
+    "bn_moments_reference",
+    "bn_train_fused",
+    "col_sums2",
+    "col_sums2_reference",
     "fused_mbconv_infer",
     "fused_shuffle_tail",
     "mbconv_reference",

@@ -81,6 +81,7 @@ _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "mbconv": ("ofa_mbconv_f32", [_VP] * 8 + [_INT] * 7 + [_VP]),
     "shuffle_tail": ("ofa_shuffle_tail_f32", [_VP] * 4 + [_INT] * 5 + [_VP]),
+    "bn_stats": ("ofa_col_sums2_f32", [_VP] * 6 + [_INT] * 5 + [_VP]),
 }
 SOURCES = tuple(_SIGNATURES)
 

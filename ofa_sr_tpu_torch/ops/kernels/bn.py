@@ -1,0 +1,78 @@
+"""Train-mode BatchNorm over the BN-statistics kernels: counterpart of
+ofa_sr_tpu/ops/pallas/bn.py.
+
+    forward : (mean, var) = bn_moments(x)              [kernel, one pass]
+              y = (x - mean) * (inv * scale) + bias    [plain PyTorch]
+    backward: (s1, s2) = bn_bwd_sums(dy, x, mean, inv) [kernel, one pass]
+              dx = inv*scale*(dy - s1/n - xhat*s2/n)   [plain PyTorch]
+              dscale = s2, dbias = s1
+
+with inv = rsqrt(var + eps), the JAX package's association. The returned
+(mean, var) carry their own cotangent terms (dmean/n + dvar*2(x - mean)/n),
+so the op stays a correct primitive where the moments feed differentiable
+consumers; in the trainer they feed only the running-statistics update,
+outside autograd, and those terms are skipped.
+
+The kernels take row-contiguous (N, C) views, so x and dy are made
+contiguous with `.contiguous()`: free for an NHWC-contiguous tensor, a copy
+otherwise (an `aten::copy_` elementwise kernel in a profile).
+`bn_train_fused.layout_copies` counts the tensors that needed that copy.
+On a CPU tensor the kernels' plain versions compute the sums.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .bn_stats import bn_bwd_sums, bn_moments
+
+
+def _row_contiguous(t):
+    if t.is_contiguous():
+        return t
+    bn_train_fused.layout_copies += 1
+    return t.contiguous()
+
+
+class _BNTrainFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        x = _row_contiguous(x)
+        mean, var = bn_moments(x)
+        inv = torch.rsqrt(var + eps)
+        y = (x.float() - mean) * (inv * scale.float()) + bias.float()
+        ctx.save_for_backward(x, scale, mean, inv)
+        ctx.set_materialize_grads(False)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dvar):
+        x, scale, mean, inv = ctx.saved_tensors
+        c = x.shape[-1]
+        n = x.numel() // c
+        xf = x.float()
+        dx = None
+        if dy is not None:
+            dy = _row_contiguous(dy)
+            s1, s2 = bn_bwd_sums(dy.view(n, c), x.view(n, c), mean, inv)
+            xhat = (xf - mean) * inv
+            dx = (inv * scale.float()) * (dy.float() - s1 / n - xhat * s2 / n)
+            dscale, dbias = s2.to(scale.dtype), s1.to(scale.dtype)
+        else:
+            dx = torch.zeros_like(xf)
+            dscale = dbias = None
+        if dmean is not None:
+            dx = dx + dmean / n
+        if dvar is not None:
+            dx = dx + dvar * 2.0 * (xf - mean) / n
+        return dx.to(x.dtype), dscale, dbias, None
+
+
+def bn_train_fused(x, scale, bias, eps=1e-5):
+    """Train-mode BN over NHWC `x` with the statistics kernels; returns
+    (y, mean, var): y in x.dtype, the batch moments (biased var) in float32.
+    Differentiable in x, scale and bias."""
+    return _BNTrainFused.apply(x, scale, bias, eps)
+
+
+bn_train_fused.layout_copies = 0

@@ -1,14 +1,24 @@
-"""Eval-mode BatchNorm on NHWC tensors (counterpart of the `training=False`
-branch of ofa_sr_tpu/ops/norm.py:batch_norm).
+"""BatchNorm on NHWC tensors (counterpart of ofa_sr_tpu/ops/norm.py).
 
-Normalizes with the running statistics, in float32, with 1/sqrt(var + eps),
-the same arithmetic as the JAX package. Train mode, and the BN-statistics
-kernels it uses, belong to the training path and are not ported yet.
+- `batch_norm`: eval mode (and the SR trainer's frozen BN): normalizes with
+  the running statistics, in float32, with 1/sqrt(var + eps).
+- `batch_norm_train`: train mode: normalizes with the batch moments (biased
+  variance) and updates the running statistics in place with the torch
+  momentum EMA `r = (1 - m) * r + m * batch_stat`, from the unbiased batch
+  variance (torch train mode) or the biased one (`update_var="biased"`,
+  BN recalibration).
+
+Elastic width: the JAX package normalizes at max width and passes a channel
+`mask`; the port slices instead, so a caller hands in the active prefix
+(`bn.running_mean[:n]` and so on, views of the module's buffers) and only
+those channels' statistics change, as under JAX's mask.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .kernels.bn import bn_train_fused
 
 
 def batch_norm(x, scale, bias, mean, var, *, eps=1e-5):
@@ -18,3 +28,36 @@ def batch_norm(x, scale, bias, mean, var, *, eps=1e-5):
     inv = torch.reciprocal(torch.sqrt(var.float() + eps))
     y = (x - mean.float()) * inv * scale.float() + bias.float()
     return y.to(in_dtype)
+
+
+def batch_moments(x):
+    """Per-channel mean and biased variance over (B, H, W) of an NHWC tensor."""
+    mean = x.mean(dim=(0, 1, 2))
+    var = torch.square(x).mean(dim=(0, 1, 2)) - torch.square(mean)
+    return mean, var
+
+
+def batch_norm_train(x, scale, bias, running_mean, running_var, *, momentum=0.1,
+                     eps=1e-5, update_var="unbiased", use_kernels=False):
+    """Train-mode BN of NHWC `x`; updates `running_mean` / `running_var` in
+    place and returns y.
+
+    `use_kernels` routes the batch moments and the backward's reductions
+    through the BN-statistics kernels (`bn_train_fused`, for every channel
+    count); otherwise the plain autograd branch runs.
+    """
+    if update_var not in ("unbiased", "biased"):
+        raise ValueError("update_var must be 'unbiased' or 'biased', got %r" % update_var)
+    if use_kernels:
+        y, mean, var = bn_train_fused(x, scale, bias, eps)
+    else:
+        xf = x.float()
+        mean, var = batch_moments(xf)
+        inv = torch.reciprocal(torch.sqrt(var + eps))
+        y = ((xf - mean) * inv * scale.float() + bias.float()).to(x.dtype)
+    with torch.no_grad():
+        n = x.numel() // x.shape[-1]
+        var_for_update = var * (n / max(n - 1, 1)) if update_var == "unbiased" else var
+        running_mean.copy_((1 - momentum) * running_mean + momentum * mean)
+        running_var.copy_((1 - momentum) * running_var + momentum * var_for_update)
+    return y

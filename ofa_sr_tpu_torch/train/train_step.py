@@ -1,0 +1,100 @@
+"""The multi-subnet SR training step (counterpart of
+ofa_sr_tpu/train/train_step.py `SRTrainer`, `mode="sr"`).
+
+Per optimizer step, as the reference trainer does:
+- each of the K sampled subnets computes its loss on the LR input its
+  pixel_d selects (`batch["x%d" % 2**pixel_d]`) and calls `backward`, so the
+  gradients accumulate; then one optimizer step;
+- the loss is MSE against `batch["image"]`, or with KD against a teacher's
+  eval forward `(r * kd + mse) * 2 / (r + 1)`;
+- BN runs in train mode and its running statistics thread through the
+  subnets in order, unless `bn_frozen` (BN in eval mode throughout);
+- PSNR-Y is computed on the device; the step returns the mean loss and PSNR
+  over its subnets as 0-d tensors, so it never waits on the device.
+
+PyTorch runs eagerly, so the JAX step's jit, donation and `lax.switch` over
+pixel_d have no counterpart; a step is plain Python over the subnets.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from ..utils.metrics import psnr_y_device
+from .optim import build_optimizer
+
+
+class SRTrainer:
+    """Train / eval steps for an OFAMobileNetS4 supernet.
+
+    teacher: optional (teacher net, its SubnetConfig, its pixel_d) for KD;
+    it runs in eval mode under no_grad. use_kernels (default: on for a CUDA
+    net) takes train-mode BN through the BN-statistics kernels.
+    """
+
+    def __init__(self, net, *, opt_type="adam", weight_decay=3e-5, momentum=0.9,
+                 nesterov=True, clip_grad_norm=None, kd_ratio=0.0,
+                 bn_frozen=False, teacher=None, use_kernels: Optional[bool] = None):
+        self.net = net
+        self.kd_ratio = kd_ratio
+        self.bn_frozen = bn_frozen
+        self.clip_grad_norm = clip_grad_norm
+        self.teacher = teacher
+        if kd_ratio > 0 and teacher is None:
+            raise ValueError("kd_ratio > 0 needs a teacher")
+        self.use_kernels = (net.device.type == "cuda" if use_kernels is None
+                            else use_kernels)
+        self.opt = build_optimizer(net, opt_type, weight_decay, momentum, nesterov)
+
+    def _forward(self, batch, cfg, *, bn_training):
+        pd = cfg.pixel_d
+        return self.net(batch["x%d" % 2 ** pd], cfg, pd, bn_training=bn_training,
+                        use_kernels=self.use_kernels)
+
+    def _subnet_loss(self, batch, cfg, teacher_out):
+        out = self._forward(batch, cfg, bn_training=not self.bn_frozen).float()
+        hr = batch["image"].float()
+        mse = torch.mean(torch.square(out - hr))
+        if teacher_out is not None:
+            kd = torch.mean(torch.square(out - teacher_out))
+            loss = (self.kd_ratio * kd + mse) * (2.0 / (self.kd_ratio + 1.0))
+        else:
+            loss = mse
+        return loss, psnr_y_device(out.detach(), hr)
+
+    def _teacher_out(self, batch):
+        if not (self.kd_ratio > 0):
+            return None
+        t_net, t_cfg, t_pd = self.teacher
+        with torch.no_grad():
+            return t_net(batch["x%d" % 2 ** t_pd], t_cfg, t_pd, bn_training=False).float()
+
+    def train_step(self, batch, cfgs: Sequence, lr):
+        """One optimizer step over the subnets `cfgs`; returns {"loss",
+        "psnr"}, each the mean over the subnets."""
+        teacher_out = self._teacher_out(batch)
+        self.opt.zero_grad(set_to_none=True)
+        losses, psnrs = [], []
+        for cfg in cfgs:
+            loss, psnr = self._subnet_loss(batch, cfg, teacher_out)
+            loss.backward()
+            losses.append(loss.detach())
+            psnrs.append(psnr)
+        if self.clip_grad_norm:
+            torch.nn.utils.clip_grad_norm_(
+                [p for g in self.opt.param_groups for p in g["params"]],
+                self.clip_grad_norm)
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+        return {"loss": torch.stack(losses).mean(), "psnr": torch.stack(psnrs).mean()}
+
+    def eval_step(self, batch, cfg):
+        """MSE and PSNR-Y of subnet `cfg` with BN in eval mode."""
+        with torch.no_grad():
+            out = self._forward(batch, cfg, bn_training=False)
+            hr = batch["image"]
+            return {"loss": torch.mean(torch.square(out - hr)),
+                    "psnr": psnr_y_device(out, hr), "output": out}

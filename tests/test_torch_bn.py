@@ -1,0 +1,179 @@
+"""The port's BN-statistics functions and train-mode BatchNorm against the JAX
+package on the CPU: the plain versions the wrappers take for CPU tensors
+against the Pallas kernels in interpret mode, `bn_train_fused` (an
+autograd.Function over those plain sums here) against the JAX custom VJP,
+and train-mode `batch_norm_train` against JAX `batch_norm(training=True)`.
+
+Tolerances (float32, other summation orders): moments and running
+statistics rtol 1e-5 / atol 1e-6, as tests/test_pallas.py uses; raw column
+sums the same on the scale of a moment (atol 1e-6 * N); outputs and
+gradients of the fused BN rtol/atol 1e-4. The CUDA kernels themselves are
+held against these plain versions on the GPU by chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ofa_sr_tpu.ops import norm as jnorm
+from ofa_sr_tpu.ops.pallas import bn as jbn
+from ofa_sr_tpu.ops.pallas import bn_stats as jbs
+from ofa_sr_tpu_torch.ops import norm as tnorm
+from ofa_sr_tpu_torch.ops.kernels import bn as tbn
+from ofa_sr_tpu_torch.ops.kernels import bn_stats as tbs
+
+MOMENT_TOL = dict(rtol=1e-5, atol=1e-6)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+CHANNELS = [3, 16, 64, 256, 384]
+
+
+def _sum_tol(n):
+    return dict(rtol=1e-5, atol=1e-6 * n)
+
+
+@pytest.fixture(autouse=True)
+def _zero_counters():
+    tbs.col_sums2.launches = tbs.bn_moments.launches = tbs.bn_bwd_sums.launches = 0
+    tbn.bn_train_fused.layout_copies = 0
+    yield
+    # on the CPU the wrappers never launch a kernel
+    assert tbs.col_sums2.launches == tbs.bn_moments.launches == tbs.bn_bwd_sums.launches == 0
+
+
+def _rand(shape, seed, scale=1.0, shift=0.0):
+    return (np.random.RandomState(seed).randn(*shape) * scale + shift).astype(np.float32)
+
+
+@pytest.mark.parametrize("c", CHANNELS)
+@pytest.mark.parametrize("n", [37, 1000])
+def test_col_sums2_matches_pallas(c, n):
+    a, b = _rand((n, c), c + n), _rand((n, c), 2 * c + n, shift=0.5)
+    j1, j2 = jbs.col_sums2(jnp.asarray(a), jnp.asarray(b), interpret=True)
+    t1, t2 = tbs.col_sums2(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_allclose(t1.numpy(), np.asarray(j1), **_sum_tol(n))
+    np.testing.assert_allclose(t2.numpy(), np.asarray(j2), **_sum_tol(n))
+
+
+@pytest.mark.parametrize("c", CHANNELS)
+@pytest.mark.parametrize("shape", [(2, 5, 7), (3, 17, 13)])
+def test_bn_moments_matches_pallas(c, shape):
+    x = _rand(shape + (c,), c, scale=1.5, shift=0.3)
+    jm, jv = jbs.bn_moments_pallas(jnp.asarray(x), interpret=True)
+    tm, tv = tbs.bn_moments(torch.from_numpy(x))
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), **MOMENT_TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-5)
+    # and the port's plain batch_moments, the CPU branch of train-mode BN
+    pm, pv = tnorm.batch_moments(torch.from_numpy(x))
+    np.testing.assert_allclose(pm.numpy(), tm.numpy(), **MOMENT_TOL)
+    np.testing.assert_allclose(pv.numpy(), tv.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c", CHANNELS)
+@pytest.mark.parametrize("n", [37, 1000])
+def test_bn_bwd_sums_matches_pallas(c, n):
+    dy, x = _rand((n, c), c + n), _rand((n, c), 3 * c + n, shift=0.2)
+    mean, inv = _rand((c,), c, scale=0.2), np.abs(_rand((c,), c + 1)) + 0.5
+    j1, j2 = jbs.bn_bwd_sums(*map(jnp.asarray, (dy, x, mean, inv)), interpret=True)
+    t1, t2 = tbs.bn_bwd_sums(*map(torch.from_numpy, (dy, x, mean, inv)))
+    np.testing.assert_allclose(t1.numpy(), np.asarray(j1), **_sum_tol(n))
+    np.testing.assert_allclose(t2.numpy(), np.asarray(j2), **_sum_tol(n))
+
+
+@pytest.mark.parametrize("c", [3, 16, 64])
+def test_bn_train_fused_matches_pallas(c):
+    """y, mean, var and the gradients wrt x, scale and bias, with cotangents
+    on all three outputs (so the moments' own cotangent terms count)."""
+    x = _rand((2, 6, 7, c), c, scale=1.3, shift=0.4)
+    scale, bias = _rand((c,), c + 1, scale=0.3, shift=1.0), _rand((c,), c + 2, scale=0.2)
+    wy, wm, wv = _rand((2, 6, 7, c), c + 3), _rand((c,), c + 4), _rand((c,), c + 5)
+
+    def jloss(x, s, b):
+        y, m, v = jbn.bn_train_fused(x, s, b, 1e-5, True)
+        return jnp.sum(y * wy) + jnp.sum(m * wm) + jnp.sum(v * wv), (y, m, v)
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        *map(jnp.asarray, (x, scale, bias)))
+    xt, st, bt = (torch.from_numpy(a).requires_grad_() for a in (x, scale, bias))
+    tout = tbn.bn_train_fused(xt, st, bt, 1e-5)
+    loss = ((tout[0] * torch.from_numpy(wy)).sum() + (tout[1] * torch.from_numpy(wm)).sum()
+            + (tout[2] * torch.from_numpy(wv)).sum())
+    loss.backward()
+    for t, j in zip(tout, jout):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **GRAD_TOL)
+    for t, j in zip((xt.grad, st.grad, bt.grad), jgrads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), **GRAD_TOL)
+    assert tbn.bn_train_fused.layout_copies == 0
+
+
+def test_bn_train_fused_copies_a_strided_input():
+    """A channels-first tensor seen as NHWC is made row-contiguous (and
+    counted); the result equals the contiguous input's."""
+    x = torch.from_numpy(_rand((2, 5, 6, 4), 0))
+    strided = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert not strided.is_contiguous()
+    s, b = torch.ones(4), torch.zeros(4)
+    y0 = tbn.bn_train_fused(x, s, b)[0]
+    y1 = tbn.bn_train_fused(strided, s, b)[0]
+    assert tbn.bn_train_fused.layout_copies == 1
+    torch.testing.assert_close(y1, y0, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("update_var", ["unbiased", "biased"])
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("c", [3, 24])
+def test_batch_norm_train_matches_jax(update_var, use_kernels, c):
+    x = _rand((2, 5, 6, c), c, scale=2.0, shift=-0.5)
+    params = {"scale": _rand((c,), 1, scale=0.3, shift=1.0), "bias": _rand((c,), 2, scale=0.2)}
+    state = {"mean": _rand((c,), 3, scale=0.2), "var": np.abs(_rand((c,), 4)) + 0.5}
+    jy, js = jnorm.batch_norm(jnp.asarray(x), {k: jnp.asarray(v) for k, v in params.items()},
+                              {k: jnp.asarray(v) for k, v in state.items()}, training=True,
+                              update_var=update_var)
+    rm, rv = torch.from_numpy(state["mean"].copy()), torch.from_numpy(state["var"].copy())
+    ty = tnorm.batch_norm_train(torch.from_numpy(x), torch.from_numpy(params["scale"]),
+                                torch.from_numpy(params["bias"]), rm, rv,
+                                update_var=update_var, use_kernels=use_kernels)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **GRAD_TOL)
+    np.testing.assert_allclose(rm.numpy(), np.asarray(js["mean"]), **MOMENT_TOL)
+    np.testing.assert_allclose(rv.numpy(), np.asarray(js["var"]), **MOMENT_TOL)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_sliced_prefix_matches_jax_mask(use_kernels):
+    """Train-mode BN on the active prefix of a wider BN (the port's sliced
+    execution) equals JAX's masked BN at full width: same active outputs,
+    same active running statistics, inactive statistics unchanged."""
+    c, active = 24, 10
+    x = _rand((2, 4, 5, c), 7, scale=1.5, shift=0.2)
+    scale, bias = _rand((c,), 8, scale=0.3, shift=1.0), _rand((c,), 9, scale=0.2)
+    mean0, var0 = _rand((c,), 10, scale=0.2), np.abs(_rand((c,), 11)) + 0.5
+    mask = (np.arange(c) < active).astype(np.float32)
+    jy, js = jnorm.batch_norm(jnp.asarray(x), {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+                              {"mean": jnp.asarray(mean0), "var": jnp.asarray(var0)},
+                              training=True, mask=jnp.asarray(mask))
+    rm, rv = torch.from_numpy(mean0.copy()), torch.from_numpy(var0.copy())
+    ty = tnorm.batch_norm_train(torch.from_numpy(x[..., :active]),
+                                torch.from_numpy(scale)[:active], torch.from_numpy(bias)[:active],
+                                rm[:active], rv[:active], use_kernels=use_kernels)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy)[..., :active], **GRAD_TOL)
+    np.testing.assert_allclose(rm.numpy(), np.asarray(js["mean"]), **MOMENT_TOL)
+    np.testing.assert_allclose(rv.numpy(), np.asarray(js["var"]), **MOMENT_TOL)
+    assert np.array_equal(rm.numpy()[active:], mean0[active:])
+    assert np.array_equal(rv.numpy()[active:], var0[active:])
+
+
+def test_wrappers_take_the_plain_version_only_on_the_cpu():
+    """A tensor that is not on the CPU goes to the kernel, which refuses a
+    non-CUDA device: no wrapper falls back to its plain version."""
+    a = torch.empty(64, 3, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tbs.col_sums2(a, a)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbs.bn_moments(torch.empty(2, 4, 4, 3, device="meta"))
+    c = torch.empty(3, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tbs.bn_bwd_sums(a, a, c, c)
+    with pytest.raises(ValueError, match="update_var"):
+        tnorm.batch_norm_train(torch.zeros(1, 2, 2, 3), torch.ones(3), torch.zeros(3),
+                               torch.zeros(3), torch.ones(3), update_var="neither")

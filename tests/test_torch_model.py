@@ -158,12 +158,6 @@ def test_unported_modes_raise(nets):
     sub = get_active_subnet(tnet, cfg)
     with pytest.raises(NotImplementedError):
         sub(torch.zeros(1, 4, 4, 3), row_valid=(0, 4))
-    tnet.train()
-    try:
-        with pytest.raises(NotImplementedError):
-            tnet(torch.zeros(1, 4, 4, 3), cfg, pixel_d=1)
-    finally:
-        tnet.eval()
 
 
 def test_entry_and_serve_on_cpu():
