@@ -8,9 +8,11 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    in parallel).
 2. Kernel parity on the card: each kernel against its plain PyTorch version
    on the same inputs, at the serving and training paths' shapes and a few
-   ragged ones; train-mode BN through the BN-statistics kernels
-   (`bn_train_fused`) against the plain autograd branch: y, dx, dscale,
-   dbias.
+   ragged ones (the fused BN backward `bn_backward`: dx, dscale, dbias; the
+   shuffle tail also against a float64 conv, no less accurate than cuDNN's
+   float32 conv);
+   train-mode BN through the BN kernels (`bn_train_fused`) against the
+   plain autograd branch: y, dx, dscale, dbias.
 3. Serving: a full-width OFAMobileNetS4 (seeded he_fout weights, random BN
    statistics) materialized as the ks7/e6/d2/pixel_d 2 subnet serves 8 LR
    180x320 frames (720p out) through `entry.serve`, with every kernel's
@@ -22,8 +24,9 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    held against the same forward on the CPU; then training through
    `entry.train` on the full-width supernet (bs16, 96x96 HR, Adam, weight
    decay 3e-5): 8 one-subnet steps (both pixel_d among their subnets) and 2
-   steps of 4 subnets with KD, each BN-statistics wrapper's launches read
-   around each run and held to 3*sum(d) + pixel_d + 4 a subnet (the
+   steps of 4 subnets with KD, each BN wrapper's launches (col_sums2,
+   bn_moments, bn_backward) read around each run and held to
+   3*sum(d) + pixel_d + 4 a subnet (the
    teacher's eval forward launches none). Then, outside the counted runs:
    kernel path against plain path (`use_kernels=False`) on the card from the
    same weights (SGD: per-step losses, params after one step), a small step
@@ -32,14 +35,16 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    idle share and top kernels.
 5. Per-kernel numbers at the paths' shapes (kernel, plain version, the
    card's least time, and for the BN kernels one PyTorch call computing the
-   same function as a yardstick the port never calls). Then the
-   torch.profiler sessions of phases 3 and 4, last, because a profiler
-   session leaves the launch path slower for the rest of the process. One
-   JSON line of all of it, the nvidia-smi line, and the result line
-   {"ok": true, "device": {...}}.
+   same function as a yardstick the port never calls). Then the torch.profiler
+   sessions of phases 3 and 4, last, because a profiler session leaves the
+   launch path slower for the rest of the process: device time and kernels
+   per frame and per step, and the BN kernels' own device time. One JSON line of all of it, the
+   nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 
-Float32 throughout with TF32 off, so the card's numbers compare with the
-CPU's. Exits non-zero when no CUDA device is present.
+Float32 throughout with TF32 off for cuDNN and matmuls, so the card's
+numbers compare with the CPU's; the shuffle-tail kernel's own TF32 products
+are compensated (3xTF32, float32 accuracy). Exits non-zero when no CUDA
+device is present.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from bn_path_times import bn_train_shapes, time_ms  # noqa: E402
 from ofa_sr_tpu_torch.entry import (  # noqa: E402
     entry,
     kd_teacher,
@@ -69,6 +75,8 @@ from ofa_sr_tpu_torch.models.arch import uniform_subnet  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels import _build  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.bn import bn_train_fused  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.bn_stats import (  # noqa: E402
+    bn_backward,
+    bn_backward_reference,
     bn_bwd_sums,
     bn_bwd_sums_reference,
     bn_moments,
@@ -85,8 +93,11 @@ from ofa_sr_tpu_torch.ops.norm import batch_norm_train  # noqa: E402
 from ofa_sr_tpu_torch.train import SRTrainer  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth; the kernels use FP32 FMA only
+# cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. The shuffle
+# tail multiplies on the tensor cores, 3 TF32 products a multiply-add
+# (3xTF32); the other kernels use the FP32 pipe only.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 TOL = dict(rtol=1e-4, atol=1e-4)      # kernel vs plain, float32, other sum order
 FRAME_TOL = dict(rtol=1e-3, atol=1e-3)  # whole frames: errors compound over ~14 layers
@@ -95,6 +106,11 @@ FRAME_TOL = dict(rtol=1e-3, atol=1e-3)  # whole frames: errors compound over ~14
 # worst-case float32 bound
 SUM_RTOL = 2e-5
 MOMENT_TOL = dict(rtol=1e-4, atol=5e-5)   # mean / biased var of O(1) data
+# the 3xTF32 shuffle tail against a float64 conv at the LR path shape: its
+# max abs error at most this many times cuDNN's float32 conv's (PERF.md: the
+# kernel reads ~0.35x; MMAs chained into one truncating accumulator read
+# several times 1x)
+F64_RATIO = 1.0
 STEP_TOL = dict(rtol=1e-4, atol=1e-5)     # params after one SGD step, kernels vs plain
 # params after one SGD step (lr 0.01), card vs CPU: the convs' weight
 # gradients are sums over the batch in cuDNN's order and the CPU's
@@ -105,9 +121,17 @@ BS, HR = 16, 96                       # the training envelope of the JAX bench
 TRAIN_STEPS = 8                       # one-subnet steps; steps 0-7 sample both pixel_d
 KD_STEPS = 2                          # steps of 4 subnets with KD
 STEP_ROUNDS = 3                       # rounds of (plain, kernels, kernels, plain) timing
-BN_KERNELS = (col_sums2, bn_moments, bn_bwd_sums)
+# the BN wrappers the training path calls, one launch each per train-mode BN
+BN_KERNELS = (col_sums2, bn_moments, bn_backward)
 # the __global__ functions of csrc/*.cu, as the profiler names them
-PORT_KERNELS = ("col_partials_kernel", "finish_kernel", "mbconv_kernel", "shuffle_tail_kernel")
+PORT_KERNELS = ("col_partials_kernel", "finish_kernel", "bn_dx_kernel", "mbconv_kernel",
+                "shuffle_tail_kernel")
+# the kernels of each BN row, as the profiler names them (the mode is the
+# template argument: 1 moments, 2 backward)
+# the backward row times `bn_backward`: bn_bwd_sums' sums and dx in one call
+BWD_ROW = "bn_bwd_sums+dx (bn_backward)"
+BN_ROW_KERNELS = {"col_sums2": ("col_partials_kernel<1,", "finish_kernel<1>"),
+                  BWD_ROW: ("col_partials_kernel<2,", "finish_kernel<2>", "bn_dx_kernel")}
 DEVICE = "cuda"                       # the card; a CPU rehearsal sets "cpu"
 
 
@@ -129,24 +153,10 @@ def check_close(name, got, ref, tol):
     return err
 
 
-def time_ms(fn, iters=20, warmup=3):
-    """ms per call from CUDA events over `iters` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound_ms(flops, nbytes):
-    """(ms of the operations at the f32 peak, ms of the bytes at the memory
-    rate): the least time is the larger of the two."""
-    return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops, nbytes, peak=PEAK_F32_FLOPS):
+    """(ms of the operations at `peak`, ms of the bytes at the memory rate):
+    the least time is the larger of the two."""
+    return flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
 def bound_of(weighted):
@@ -195,7 +205,9 @@ def launched(wrapper, fn):
 
 
 def kernel_parity(g):
-    """Returns {kernel: max abs err over the path's shapes}."""
+    """Returns {kernel: max abs err over the path's shapes}, and the shuffle
+    tail's and its plain version's max abs err against a float64 conv at
+    the LR path shape."""
     errs = {"mbconv": 0.0, "shuffle_tail": 0.0}
     path = (1,) + LR_HW + (64,)
     for shape, m, ks, res in [(path, 384, 7, True), (path, 384, 5, True),
@@ -209,13 +221,28 @@ def kernel_parity(g):
                           got, mbconv_reference(x, **w, residual=res), TOL)
         if shape == path:
             errs["mbconv"] = max(errs["mbconv"], err)
-    for shape in [path, (1, 2 * LR_HW[0], 2 * LR_HW[1], 64), (2, 7, 13, 64), (1, 9, 17, 8)]:
+    # (1, 9, 17, 6): Cin and Cout not multiples of 4, so the kernel loads the
+    # halo and stores the output one float at a time
+    for shape in [path, (1, 2 * LR_HW[0], 2 * LR_HW[1], 64), (2, 7, 13, 64), (1, 9, 17, 8),
+                  (1, 9, 17, 6)]:
         x, w, b = shuffle_case(g, shape)
         got = launched(fused_shuffle_tail, lambda: fused_shuffle_tail(x, w, b))
         torch.cuda.synchronize()
         err = check_close("shuffle_tail %s" % (shape,), got, shuffle_tail_reference(x, w, b), TOL)
         if shape[0] == 1 and shape[-1] == 64 and shape[1] >= LR_HW[0]:
             errs["shuffle_tail"] = max(errs["shuffle_tail"], err)
+        if shape == path:
+            ref64 = shuffle_tail_reference(x.double(), w.double(), b.double())
+            kern, plain = (float((t.double() - ref64).abs().max())
+                           for t in (got, shuffle_tail_reference(x, w, b)))
+            errs["shuffle_tail_vs_f64"] = {"kernel": kern, "plain": plain}
+            ok = kern <= F64_RATIO * plain
+            print("  shuffle_tail %s against a float64 conv: max_abs_err kernel %.3e, plain "
+                  "(cuDNN f32) %.3e (kernel at most %.1fx plain)  %s"
+                  % (shape, kern, plain, F64_RATIO, "ok" if ok else "FAIL"), flush=True)
+            if not ok:
+                fail("the shuffle tail is less accurate than cuDNN's float32 conv against "
+                     "a float64 conv (%.3e > %.1f x %.3e)" % (kern, F64_RATIO, plain))
     return errs
 
 
@@ -231,34 +258,18 @@ def check_sums(name, got, ref, terms):
     return err
 
 
-def bn_train_shapes(space, cfg):
-    """NHWC shapes of every train-mode BN of one subnet's forward at batch
-    BS and HR frames of HR x HR, in order."""
-    bs, hr = BS, HR
-    lr = hr // 2 ** cfg.pixel_d
-    trunk = (bs, lr, lr, space.width)
-    shapes = [trunk]
-    for stage in range(space.n_stages):
-        for i in range(cfg.d[stage]):
-            mid = space.mid_channels(cfg.e[stage * space.max_depth + i])
-            shapes += [(bs, lr, lr, mid)] * 2 + [trunk]
-    shapes += [trunk] * 2
-    shapes += [(bs, lr * 2 ** i, lr * 2 ** i, 4 * space.width) for i in range(cfg.pixel_d)]
-    return shapes + [(bs, hr, hr, 3)]
-
-
 def path_bn_shapes():
     """The training path's distinct BN shapes (the 1-subnet steps' subnets)."""
     space = SearchSpace()
     cfgs = [step_subnets(space, i, 1)[0] for i in range(TRAIN_STEPS)]
-    return sorted({s for c in cfgs for s in bn_train_shapes(space, c)})
+    return sorted({s for c in cfgs for s in bn_train_shapes(space, c, BS, HR)})
 
 
 def bn_parity(g):
-    """The three BN-statistics wrappers against their plain versions at the
-    training path's shapes and ragged ones; returns {kernel: max abs err
-    at the path's shapes} (of the moments for col_sums2, as the path uses
-    it)."""
+    """The four BN wrappers against their plain versions at the training
+    path's shapes and ragged ones; returns {kernel: max abs err at the path's
+    shapes} (of the moments for col_sums2, and of dx for the backward, as the
+    path uses them)."""
     errs = {"col_sums2": 0.0, "bn_bwd_sums": 0.0}
     cases = [(s, True) for s in path_bn_shapes()]
     cases += [((n, 1, 1, c), False) for n in (1000, 37) for c in (3, 17, 48)]
@@ -285,9 +296,18 @@ def bn_parity(g):
         xhat = (xf - mean) * inv
         for k, (u, v, terms) in enumerate(zip(got, bn_bwd_sums_reference(dy, xf, mean, inv),
                                               (dy, dy * xhat))):
-            err = check_sums("bn_bwd_sums s%d %s" % (k + 1, (n, c)), u, v, terms)
-            if on_path:
-                errs["bn_bwd_sums"] = max(errs["bn_bwd_sums"], err)
+            check_sums("bn_bwd_sums s%d %s" % (k + 1, (n, c)), u, v, terms)
+        # the fused backward, as bn_train_fused calls it (NHWC dy and x)
+        scale = (0.5 + torch.rand(c, generator=g)).to(DEVICE)
+        dy4 = dy.view(shape)
+        dx, ds, db = launched(bn_backward, lambda: bn_backward(dy4, x, scale, mean, inv))
+        torch.cuda.synchronize()
+        dx_p, ds_p, db_p = bn_backward_reference(dy4, x, scale, mean, inv)
+        err = check_close("bn_backward dx %s" % (shape,), dx, dx_p, TOL)
+        check_sums("bn_backward dscale %s" % ((n, c),), ds, ds_p, dy * xhat)
+        check_sums("bn_backward dbias %s" % ((n, c),), db, db_p, dy)
+        if on_path:
+            errs["bn_bwd_sums"] = max(errs["bn_bwd_sums"], err)
     return errs
 
 
@@ -306,11 +326,11 @@ def bn_grad_check(g):
             x = x0.clone().requires_grad_()
             scale, bias = (t.to(x0.device).requires_grad_() for t in (scale0, bias0))
             rm, rv = rm0.to(x0.device), rv0.to(x0.device)
-            before = bn_bwd_sums.launches
+            before = bn_backward.launches
             y = batch_norm_train(x, scale, bias, rm, rv, use_kernels=uk)
             (y * w).sum().backward()
-            if uk and x.is_cuda and bn_bwd_sums.launches != before + 1:
-                fail("bn_train_fused's backward did not launch bn_bwd_sums")
+            if uk and x.is_cuda and bn_backward.launches != before + 1:
+                fail("bn_train_fused's backward did not launch bn_backward")
             out[uk] = (y.detach(), x.grad, scale.grad, bias.grad, rm, rv)
         torch.cuda.synchronize()
         (y, dx, ds, db, rm, rv), (y_p, dx_p, ds_p, db_p, rm_p, rv_p) = out[True], out[False]
@@ -404,7 +424,7 @@ def serving(net, net_cpu, cfg):
 def device_profile(name, run, n, unit_ms, unit):
     """Device time per `unit` (frame, step) by kernel from torch.profiler over
     run() (n units), and the device's idle share of the time per unit
-    measured with CUDA events (`unit_ms`)."""
+    measured with CUDA events (`unit_ms`; None: not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -430,15 +450,19 @@ def device_profile(name, run, n, unit_ms, unit):
     if not rows:
         print("  %s: device time not measured (the profiler recorded no CUDA kernel)"
               % name, flush=True)
-        return {"path": name, "busy_ms_per_%s" % unit: None, "idle_share": None, "top": []}
-    print("  %s: device busy %.4f of %.4f ms per %s (idle share %.3f)"
-          % (name, busy, unit_ms, unit, 1 - busy / unit_ms), flush=True)
+        return {"path": name, "busy_ms_per_%s" % unit: None, "idle_share": None, "top": [],
+                "kernels_per_%s" % unit: None, "port_kernels": []}
+    n_kernels = sum(r["calls_per_%s" % unit] for r in rows)
+    idle = None if unit_ms is None else 1 - busy / unit_ms
+    print("  %s: device busy %.4f of %s ms per %s (idle share %s), %.1f device kernels per %s"
+          % (name, busy, "%.4f" % unit_ms if unit_ms else "(not measured)", unit,
+             "%.3f" % idle if unit_ms else "not measured", n_kernels, unit), flush=True)
     ours = [r for r in rows if any(k in r["kernel"] for k in PORT_KERNELS)]
     for r in rows[:10] + [r for r in ours if r not in rows[:10]]:
         print("    %8.4f ms  x%-5.1f %s" % (r[key], r["calls_per_%s" % unit], r["kernel"]),
               flush=True)
-    return {"path": name, "busy_ms_per_%s" % unit: busy, "idle_share": 1 - busy / unit_ms,
-            "top": rows[:10], "port_kernels": ours}
+    return {"path": name, "busy_ms_per_%s" % unit: busy, "idle_share": idle,
+            "kernels_per_%s" % unit: n_kernels, "top": rows[:10], "port_kernels": ours}
 
 
 # -- phase 4: training -------------------------------------------------------
@@ -587,36 +611,39 @@ def step_times():
 # -- phase 5: per-kernel numbers at the path's shapes ------------------------
 
 def measure_shape(kernel, plain, flops, nbytes_, launches, unit="frame", library=None,
-                  **info):
+                  peak=PEAK_F32_FLOPS, **info):
     """Kernel, plain and (where given) library ms per launch at one shape,
-    beside its bound; `launches` per `unit` (frame or step)."""
-    t = bound_ms(flops, nbytes_)
+    beside its bound (`flops` at `peak`, or the bytes); `launches` per
+    `unit` (frame or step)."""
+    t = bound_ms(flops, nbytes_, peak)
     return dict(info, **{"launches_per_" + unit: launches},
                 ms_per_launch=time_ms(kernel), plain_ms_per_launch=time_ms(plain),
                 library_ms_per_launch=time_ms(library) if library else None,
                 bound_ms_per_launch=max(t), flop=flops, bytes=nbytes_, _t=t)
 
 
-def kernel_row(name, source, replaces, launches, err, shapes, unit="frame"):
+def kernel_row(name, source, replaces, launches, err, shapes, unit="frame", **info):
     """One kernel's line: sums per `unit` over its launches at the path's
     shapes."""
     per = "launches_per_" + unit
     bound, by = bound_of([(s.pop("_t"), s[per]) for s in shapes])
     total = lambda key: sum(s[key] * s[per] for s in shapes)  # noqa: E731
     lib = all(s["library_ms_per_launch"] is not None for s in shapes)
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, per: sum(s[per] for s in shapes),
-            "max_abs_err": err, "ms": total("ms_per_launch"),
-            "plain_ms": total("plain_ms_per_launch"), "bound_ms": bound, "bound_by": by,
-            "library_ms": total("library_ms_per_launch") if lib else None,
-            "per": unit, "per_shape": shapes}
+    return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches, per: sum(s[per] for s in shapes),
+                 "max_abs_err": err, "ms": total("ms_per_launch"),
+                 "plain_ms": total("plain_ms_per_launch"), "bound_ms": bound, "bound_by": by,
+                 "library_ms": total("library_ms_per_launch") if lib else None,
+                 "per": unit}, **info, per_shape=shapes)
 
 
 def kernel_numbers(g, cfg, counts, errs):
     """Per serving kernel: time per frame of all its launches at the path's
     shapes (kernel, plain version), with the card's least time for the same
     work. No single PyTorch call computes either function: library_ms is
-    null."""
+    null. The shuffle tail's bound is its 3 TF32 products a multiply-add at
+    the tensor cores' TF32 rate; its bound on the FP32 pipe is given
+    beside it."""
     c, m, ks = 64, SearchSpace().mid_channels(6), 7
     x, w = mbconv_case(g, (1,) + LR_HW + (c,), m, ks)
     mb = measure_shape(
@@ -627,70 +654,81 @@ def kernel_numbers(g, cfg, counts, errs):
     tail = []
     for i in range(cfg.pixel_d):
         x, wt, b = shuffle_case(g, (1, LR_HW[0] * 2 ** i, LR_HW[1] * 2 ** i, c))
+        flops = 2 * x.numel() * 25 * 4 * c
         tail.append(measure_shape(
             lambda: fused_shuffle_tail(x, wt, b), lambda: shuffle_tail_reference(x, wt, b),
-            flops=2 * x.numel() * 25 * 4 * c, nbytes_=nbytes(x, wt, b) + 4 * nbytes(x),
-            launches=1, shape=list(x.shape)))
+            flops=3 * flops, nbytes_=nbytes(x, wt, b) + 4 * nbytes(x), launches=1,
+            peak=PEAK_TF32, shape=list(x.shape), conv_flop=flops,
+            bound_f32_fma_ms=flops / PEAK_F32_FLOPS * 1e3))
     return [kernel_row("fused_mbconv_infer", "ofa_sr_tpu_torch/csrc/mbconv.cu",
                        "ofa_sr_tpu/ops/pallas/mbconv.py:155", counts["mbconv"],
                        errs["mbconv"], [mb]),
             kernel_row("fused_shuffle_tail", "ofa_sr_tpu_torch/csrc/shuffle_tail.cu",
                        "ofa_sr_tpu/ops/pallas/shuffle_tail.py:121", counts["shuffle_tail"],
-                       errs["shuffle_tail"], tail)]
+                       errs["shuffle_tail"], tail,
+                       bound_rate="3xTF32: 3 TF32 products per multiply-add at %.0f TFLOP/s"
+                       % (PEAK_TF32 / 1e12),
+                       bound_f32_fma_ms=sum(s["bound_f32_fma_ms"] for s in tail),
+                       max_abs_err_vs_f64=errs["shuffle_tail_vs_f64"])]
 
 
 def bn_kernel_numbers(g, launches, errs):
-    """Per BN-statistics kernel: time per one-subnet training step of its
-    launches at the path's shapes (the subnets of the counted one-subnet
-    steps, launches averaged per step), against its plain version, the
-    card's least time (bytes), and one PyTorch call computing the same
-    function: torch.var_mean for the moments, and
-    aten.native_batch_norm_backward (grad_weight = sum dy*xhat, grad_bias =
-    sum dy) on the channels-last NCHW view for the backward sums, checked
-    here to return the plain version's two sums."""
+    """Per BN kernel row: time per one-subnet training step of its launches
+    at the path's shapes (the subnets of the counted one-subnet steps,
+    launches averaged per step), against its plain version, the card's least
+    time (bytes), and one PyTorch call computing the same function:
+    torch.var_mean for the moments, and aten.native_batch_norm_backward with
+    the full output mask (dx, dscale = sum dy*xhat, dbias = sum dy) on the
+    channels-last NCHW view for the fused backward, checked here to return
+    the plain version's results. The backward row times `bn_backward` as
+    bn_train_fused calls it: the sums of the TPU kernel `bn_bwd_sums` and the
+    dx that XLA fuses after it, hence its name."""
     space = SearchSpace()
     per_step = {}
     for i in range(TRAIN_STEPS):
-        for shp in bn_train_shapes(space, step_subnets(space, i, 1)[0]):
+        for shp in bn_train_shapes(space, step_subnets(space, i, 1)[0], BS, HR):
             per_step[shp] = per_step.get(shp, 0) + 1.0 / TRAIN_STEPS
     mom, bwd = [], []
     for shp in sorted(per_step):
         n, c = int(np.prod(shp[:3])), shp[3]
+        k = per_step[shp]
         x = (1.5 * randn(g, *shp) + 0.3).contiguous()
         mom.append(measure_shape(
             lambda: bn_moments(x), lambda: bn_moments_reference(x),
-            flops=3 * n * c, nbytes_=nbytes(x) + 2 * c * 4, launches=per_step[shp],
+            flops=3 * n * c, nbytes_=nbytes(x) + 2 * c * 4, launches=k,
             unit="step", library=lambda: torch.var_mean(x, dim=(0, 1, 2), correction=0),
             shape=list(shp)))
         dy = randn(g, *shp)
         mean, var = bn_moments_reference(x)
         inv = torch.rsqrt(var + 1e-5)
-        dyf, xf = dy.view(n, c), x.view(n, c)
+        scale = (0.5 + torch.rand(c, generator=g)).to(DEVICE)
+        dyf = dy.view(n, c)
         nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731  channels-last NCHW view
-        weight = torch.ones(c, device=x.device)
 
         def library():
             return torch.ops.aten.native_batch_norm_backward(
-                nchw(dy), nchw(x), weight, None, None, mean, inv, True, 1e-5,
-                [False, True, True])
+                nchw(dy), nchw(x), scale, None, None, mean, inv, True, 1e-5,
+                [True, True, True])
 
-        _, lib_s2, lib_s1 = library()
-        ref = bn_bwd_sums_reference(dyf, xf, mean, inv)
-        xhat = (xf - mean) * inv
-        check_sums("native_batch_norm_backward sum dy %s" % (shp,), lib_s1, ref[0], dyf)
-        check_sums("native_batch_norm_backward sum dy*xhat %s" % (shp,), lib_s2, ref[1],
-                   dyf * xhat)
+        lib_dx, lib_ds, lib_db = library()
+        ref = bn_backward_reference(dy, x, scale, mean, inv)
+        xhat = (x.view(n, c) - mean) * inv
+        check_close("native_batch_norm_backward dx %s" % (shp,), lib_dx.permute(0, 2, 3, 1),
+                    ref[0], TOL)
+        check_sums("native_batch_norm_backward dscale %s" % (shp,), lib_ds, ref[1], dyf * xhat)
+        check_sums("native_batch_norm_backward dbias %s" % (shp,), lib_db, ref[2], dyf)
         bwd.append(measure_shape(
-            lambda: bn_bwd_sums(dyf, xf, mean, inv),
-            lambda: bn_bwd_sums_reference(dyf, xf, mean, inv),
-            flops=5 * n * c, nbytes_=nbytes(dy, x) + 4 * c * 4, launches=per_step[shp],
+            lambda: bn_backward(dy, x, scale, mean, inv),
+            lambda: bn_backward_reference(dy, x, scale, mean, inv),
+            flops=11 * n * c, nbytes_=3 * nbytes(dy) + 5 * c * 4, launches=k,
             unit="step", library=library, shape=list(shp)))
-    return [kernel_row("col_sums2", "ofa_sr_tpu_torch/csrc/bn_stats.cu",
+    rows = [kernel_row("col_sums2", "ofa_sr_tpu_torch/csrc/bn_stats.cu",
                        "ofa_sr_tpu/ops/pallas/bn_stats.py:94", launches["col_sums2"],
-                       errs["col_sums2"], mom, unit="step"),
-            kernel_row("bn_bwd_sums", "ofa_sr_tpu_torch/csrc/bn_stats.cu",
-                       "ofa_sr_tpu/ops/pallas/bn_stats.py:196", launches["bn_bwd_sums"],
-                       errs["bn_bwd_sums"], bwd, unit="step")]
+                       errs["col_sums2"], mom, unit="step", wrapper="bn_moments"),
+            kernel_row(BWD_ROW, "ofa_sr_tpu_torch/csrc/bn_stats.cu",
+                       "ofa_sr_tpu/ops/pallas/bn_stats.py:196", launches["bn_backward"],
+                       errs["bn_bwd_sums"], bwd, unit="step", wrapper="bn_backward")]
+    return rows
 
 
 def main():
@@ -745,7 +783,8 @@ def main():
     step_ms, train_runs_to_profile = step_times()
 
     print("phase 5: per-kernel numbers", flush=True)
-    rows = kernel_numbers(g, cfg, counts, errs) + bn_kernel_numbers(g, bn_counts, errs)
+    bn_rows = bn_kernel_numbers(g, bn_counts, errs)
+    rows = kernel_numbers(g, cfg, counts, errs) + bn_rows
     for r in rows:
         print("  %-20s %d launches  %.4f ms/%s  plain %.4f  bound %.4f (%s)  library %s"
               % (r["name"], r["launches"], r["ms"], r["per"], r["plain_ms"], r["bound_ms"],
@@ -756,6 +795,12 @@ def main():
     print("phase 5: device profiles", flush=True)
     profiles = [device_profile(*p, "frame") for p in profiles]
     train_profiles = [device_profile(*p, "step") for p in train_runs_to_profile]
+    for r in bn_rows:  # the kernels' own device time in the kernel path's step
+        names = BN_ROW_KERNELS[r["name"]]
+        r["device_ms"] = sum(k["ms_per_step"] for k in train_profiles[0]["port_kernels"]
+                             if any(n in k["kernel"] for n in names))
+        print("  %s: %.4f ms per step on the device (bound %.4f)"
+              % (r["name"], r["device_ms"], r["bound_ms"]), flush=True)
     for prof, (name, run, n, _) in zip(train_profiles, train_runs_to_profile):
         after = timed_steps(run, n)
         prof["ms_after_profiling"], prof["host_enqueue_ms_after_profiling"] = after

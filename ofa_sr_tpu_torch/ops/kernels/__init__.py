@@ -4,6 +4,8 @@ nor nvcc: a kernel is built at its first launch."""
 
 from .bn import bn_train_fused
 from .bn_stats import (
+    bn_backward,
+    bn_backward_reference,
     bn_bwd_sums,
     bn_bwd_sums_reference,
     bn_moments,
@@ -15,6 +17,8 @@ from .mbconv import fused_mbconv_infer, mbconv_reference
 from .shuffle_tail import fused_shuffle_tail, shuffle_tail_reference
 
 __all__ = [
+    "bn_backward",
+    "bn_backward_reference",
     "bn_bwd_sums",
     "bn_bwd_sums_reference",
     "bn_moments",

@@ -76,20 +76,25 @@ def _finish(name, job):
 
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
-# each library's launch function: pointers (tensors), ints (shapes, flags),
-# then the CUDA stream; it returns the cudaError_t of the launch
-_SIGNATURES = {
-    "mbconv": ("ofa_mbconv_f32", [_VP] * 8 + [_INT] * 7 + [_VP]),
-    "shuffle_tail": ("ofa_shuffle_tail_f32", [_VP] * 4 + [_INT] * 5 + [_VP]),
-    "bn_stats": ("ofa_col_sums2_f32", [_VP] * 6 + [_INT] * 5 + [_VP]),
+# each launch function, by C name: its source, then its argument types:
+# pointers (tensors), ints (shapes, flags), then the CUDA stream; it returns
+# the cudaError_t of its launches
+_FUNCTIONS = {
+    "ofa_mbconv_f32": ("mbconv", [_VP] * 8 + [_INT] * 7 + [_VP]),
+    "ofa_shuffle_tail_f32": ("shuffle_tail", [_VP] * 4 + [_INT] * 5 + [_VP]),
+    "ofa_col_sums2_f32": ("bn_stats", [_VP] * 6 + [_INT] * 4 + [_VP]),
+    "ofa_bn_backward_f32": ("bn_stats", [_VP] * 9 + [_INT] * 3 + [_VP]),
 }
-SOURCES = tuple(_SIGNATURES)
+SOURCES = tuple(sorted({src for src, _ in _FUNCTIONS.values()}))
+_fns = {}   # C name -> the bound ctypes function
 
 
 def _declare(name, lib):
-    fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes, fn.restype = argtypes, _INT
+    for fn_name, (src, argtypes) in _FUNCTIONS.items():
+        if src == name:
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, _INT
+            _fns[fn_name] = fn
     lib.ofa_cuda_error_string.argtypes = [_INT]
     lib.ofa_cuda_error_string.restype = ctypes.c_char_p
 
@@ -125,25 +130,38 @@ def require_cuda_f32(device, **tensors):
     (a CUDA device): what the kernels take, since they read raw pointers."""
     if device.type != "cuda":
         raise ValueError("the CUDA kernels take CUDA tensors, got %s" % device)
+    index = device.index
     for name, t in tensors.items():
-        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+        # attribute reads, not device objects: this runs on every launch
+        if not (t.is_cuda and t.get_device() == index and t.dtype is torch.float32
+                and t.is_contiguous()):
             raise ValueError(
                 "%s must be a contiguous float32 tensor on %s; got %s %s "
                 "contiguous=%s" % (name, device, t.dtype, t.device,
                                    t.is_contiguous()))
 
 
-def launch(name, *args):
-    """Call csrc/<name>.cu's launch function on the current stream of the
-    tensors' device and raise on the cudaError_t it returns.
-    `args` are the tensors (as pointers) and ints, in the C order."""
-    lib = load(name)
-    fn = getattr(lib, _SIGNATURES[name][0])
-    tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    with torch.cuda.device(tensors[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-                  for a in args], stream)
+def launch(fn_name, device, *args):
+    """Call the launch function `fn_name` of csrc/ on the current stream of
+    `device` and raise on the cudaError_t it returns. `args` are, in the C
+    order, tensors (passed as their data pointers), ints (shapes, flags, or
+    pointers already offset into a tensor) and None (a null pointer).
+
+    Its host cost counts: a BN wrapper runs ~130 times a training step, so
+    the current stream's handle is read as an int (no `Stream` object) and
+    no device context is entered unless `device` is not the current one."""
+    fn = _fns.get(fn_name)
+    if fn is None:
+        load(_FUNCTIONS[fn_name][0])
+        fn = _fns[fn_name]
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    index = device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*c_args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*c_args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        raise RuntimeError("%s kernel: CUDA error %d (%s)" % (
-            name, rc, lib.ofa_cuda_error_string(rc).decode()))
+        lib = _libs[_FUNCTIONS[fn_name][0]]
+        raise RuntimeError("%s: CUDA error %d (%s)" % (
+            fn_name, rc, lib.ofa_cuda_error_string(rc).decode()))

@@ -3,28 +3,28 @@ ofa_sr_tpu/ops/pallas/bn.py.
 
     forward : (mean, var) = bn_moments(x)              [kernel, one pass]
               y = (x - mean) * (inv * scale) + bias    [plain PyTorch]
-    backward: (s1, s2) = bn_bwd_sums(dy, x, mean, inv) [kernel, one pass]
-              dx = inv*scale*(dy - s1/n - xhat*s2/n)   [plain PyTorch]
-              dscale = s2, dbias = s1
+    backward: (dx, dscale, dbias) = bn_backward(dy, x, scale, mean, inv)
+              [one kernel call: s1 = sum dy, s2 = sum dy*xhat, then
+               dx = inv*scale*(dy - s1/n - xhat*s2/n), dscale = s2, dbias = s1]
 
 with inv = rsqrt(var + eps), the JAX package's association. The returned
 (mean, var) carry their own cotangent terms (dmean/n + dvar*2(x - mean)/n),
-so the op stays a correct primitive where the moments feed differentiable
-consumers; in the trainer they feed only the running-statistics update,
-outside autograd, and those terms are skipped.
+added in PyTorch, so the op stays a correct primitive where the moments feed
+differentiable consumers; in the trainer they feed only the
+running-statistics update, outside autograd, and those terms are skipped.
 
 The kernels take row-contiguous (N, C) views, so x and dy are made
 contiguous with `.contiguous()`: free for an NHWC-contiguous tensor, a copy
 otherwise (an `aten::copy_` elementwise kernel in a profile).
 `bn_train_fused.layout_copies` counts the tensors that needed that copy.
-On a CPU tensor the kernels' plain versions compute the sums.
+On a CPU tensor the kernels' plain versions compute the same.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .bn_stats import bn_bwd_sums, bn_moments
+from .bn_stats import bn_backward, bn_moments
 
 
 def _row_contiguous(t):
@@ -48,23 +48,17 @@ class _BNTrainFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dmean, dvar):
         x, scale, mean, inv = ctx.saved_tensors
-        c = x.shape[-1]
-        n = x.numel() // c
-        xf = x.float()
-        dx = None
         if dy is not None:
-            dy = _row_contiguous(dy)
-            s1, s2 = bn_bwd_sums(dy.view(n, c), x.view(n, c), mean, inv)
-            xhat = (xf - mean) * inv
-            dx = (inv * scale.float()) * (dy.float() - s1 / n - xhat * s2 / n)
-            dscale, dbias = s2.to(scale.dtype), s1.to(scale.dtype)
+            dx, dscale, dbias = bn_backward(_row_contiguous(dy), x, scale, mean, inv)
+            dscale, dbias = dscale.to(scale.dtype), dbias.to(scale.dtype)
         else:
-            dx = torch.zeros_like(xf)
+            dx = torch.zeros_like(x, dtype=torch.float32)
             dscale = dbias = None
+        n = x.numel() // x.shape[-1]
         if dmean is not None:
             dx = dx + dmean / n
         if dvar is not None:
-            dx = dx + dvar * 2.0 * (xf - mean) / n
+            dx = dx + dvar * 2.0 * (x.float() - mean) / n
         return dx.to(x.dtype), dscale, dbias, None
 
 

@@ -54,7 +54,7 @@ def fused_mbconv_infer(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=True):
                 KERNEL_SIZES, MAX_CHANNELS, tuple(x.shape), tuple(ib_w.shape),
                 tuple(dw_w.shape), tuple(pl_w.shape)))
     out = torch.empty_like(x)
-    _build.launch("mbconv", x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, out,
+    _build.launch("ofa_mbconv_f32", x.device, x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, out,
                   b, h, w, c, m, ks, int(residual))
     fused_mbconv_infer.launches += 1
     return out

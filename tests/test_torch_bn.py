@@ -7,8 +7,11 @@ and train-mode `batch_norm_train` against JAX `batch_norm(training=True)`.
 Tolerances (float32, other summation orders): moments and running
 statistics rtol 1e-5 / atol 1e-6, as tests/test_pallas.py uses; raw column
 sums the same on the scale of a moment (atol 1e-6 * N); outputs and
-gradients of the fused BN rtol/atol 1e-4. The CUDA kernels themselves are
-held against these plain versions on the GPU by chip_smoke.py.
+gradients of the fused BN rtol/atol 1e-4. `bn_backward_reference` (the
+plain version of the fused backward kernel) and the kernel's own per-column
+association of dx are held against `jax.vjp` of the JAX custom VJP. The
+CUDA kernels themselves are held against these plain versions on the GPU by
+chip_smoke.py.
 """
 
 import jax
@@ -35,11 +38,13 @@ def _sum_tol(n):
 
 @pytest.fixture(autouse=True)
 def _zero_counters():
-    tbs.col_sums2.launches = tbs.bn_moments.launches = tbs.bn_bwd_sums.launches = 0
+    kernels = (tbs.col_sums2, tbs.bn_moments, tbs.bn_bwd_sums, tbs.bn_backward)
+    for k in kernels:
+        k.launches = 0
     tbn.bn_train_fused.layout_copies = 0
     yield
     # on the CPU the wrappers never launch a kernel
-    assert tbs.col_sums2.launches == tbs.bn_moments.launches == tbs.bn_bwd_sums.launches == 0
+    assert all(k.launches == 0 for k in kernels)
 
 
 def _rand(shape, seed, scale=1.0, shift=0.0):
@@ -79,6 +84,59 @@ def test_bn_bwd_sums_matches_pallas(c, n):
     t1, t2 = tbs.bn_bwd_sums(*map(torch.from_numpy, (dy, x, mean, inv)))
     np.testing.assert_allclose(t1.numpy(), np.asarray(j1), **_sum_tol(n))
     np.testing.assert_allclose(t2.numpy(), np.asarray(j2), **_sum_tol(n))
+
+
+def _bn_backward_case(n, c):
+    """NHWC (n, 1, 1, c) x and dy with the saved (scale, mean, inv) of a
+    train-mode BN forward, and the JAX VJP's (dx, dscale, dbias) for
+    cotangent dy on y and none on the moments."""
+    x = _rand((n, 1, 1, c), 5 * c + n, scale=1.3, shift=0.4)
+    dy = _rand((n, 1, 1, c), 7 * c + n)
+    scale = _rand((c,), c + 11, scale=0.3, shift=1.0)
+    bias = _rand((c,), c + 12, scale=0.2)
+    eps = 1e-5
+    (_, jm, jv), vjp = jax.vjp(lambda x, s, b: jbn.bn_train_fused(x, s, b, eps, True),
+                               *map(jnp.asarray, (x, scale, bias)))
+    jgrads = vjp((jnp.asarray(dy), jnp.zeros(c, jnp.float32), jnp.zeros(c, jnp.float32)))
+    mean = torch.from_numpy(np.array(jm))
+    inv = torch.rsqrt(torch.from_numpy(np.array(jv)) + eps)
+    return (torch.from_numpy(dy), torch.from_numpy(x), torch.from_numpy(scale), mean, inv,
+            [np.asarray(j) for j in jgrads])
+
+
+@pytest.mark.parametrize("c", CHANNELS)
+@pytest.mark.parametrize("n", [37, 1000])
+def test_bn_backward_reference_matches_jax_vjp(c, n):
+    """The fused backward's plain version (what `bn_backward` computes on a
+    CPU tensor) against the JAX VJP: dx, dscale, dbias."""
+    dy, x, scale, mean, inv, jgrads = _bn_backward_case(n, c)
+    got = tbs.bn_backward(dy, x, scale, mean, inv)
+    ref = tbs.bn_backward_reference(dy, x, scale, mean, inv)
+    for t, r, j in zip(got, ref, jgrads):
+        assert torch.equal(t, r)
+        np.testing.assert_allclose(t.numpy(), j, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("c", CHANNELS)
+@pytest.mark.parametrize("n", [37, 1000])
+def test_bn_backward_kernel_association_matches_jax_vjp(c, n):
+    """dx as csrc/bn_stats.cu's dx pass forms it, from per-column
+    coefficients k = inv*scale, m1 = s1/n, m2 = s2/n:
+    dx = k*(dy - m1 - ((x - mean)*inv)*m2), with the sums in float32."""
+    dy, x, scale, mean, inv, jgrads = _bn_backward_case(n, c)
+    s1, s2 = tbs.bn_bwd_sums(dy.view(n, c), x.view(n, c), mean, inv)
+    k, m1, m2 = inv * scale, s1 / n, s2 / n
+    dx = k * (dy - m1 - ((x - mean) * inv) * m2)
+    np.testing.assert_allclose(dx.numpy(), jgrads[0], **GRAD_TOL)
+    np.testing.assert_allclose(s2.numpy(), jgrads[1], **GRAD_TOL)
+    np.testing.assert_allclose(s1.numpy(), jgrads[2], **GRAD_TOL)
+
+
+def test_bn_backward_takes_the_plain_version_only_on_the_cpu():
+    a = torch.empty(2, 4, 4, 3, device="meta")
+    c = torch.empty(3, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tbs.bn_backward(a, a, c, c, c)
 
 
 @pytest.mark.parametrize("c", [3, 16, 64])

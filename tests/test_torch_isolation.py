@@ -1,6 +1,6 @@
-"""The port (ofa_sr_tpu_torch) and chip_smoke.py never import JAX or the JAX
-package: at run time (a fresh interpreter that imports every module) and in
-the source."""
+"""The port (ofa_sr_tpu_torch), chip_smoke.py and bn_path_times.py never
+import JAX or the JAX package: at run time (a fresh interpreter that
+imports every module) and in the source."""
 
 import os
 import pkgutil
@@ -22,7 +22,7 @@ def test_importing_the_port_loads_no_jax():
     assert "ofa_sr_tpu_torch.ops.kernels.mbconv" in mods
     code = (
         "import importlib, sys\n"
-        "for m in %r + ['chip_smoke']:\n"
+        "for m in %r + ['chip_smoke', 'bn_path_times']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ofa_sr_tpu'))\n"
@@ -37,7 +37,7 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_no_jax_imports_in_port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "bn_path_times.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10

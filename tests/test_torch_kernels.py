@@ -2,6 +2,8 @@
 versions) against the JAX package's kernels as that package runs them on the
 CPU, at atol/rtol 1e-4 as in tests/test_pallas.py. The CUDA kernels
 themselves are held against these plain versions on the GPU by chip_smoke.py.
+The shuffle tail's 3xTF32 arithmetic is emulated here in plain PyTorch and
+held to the same tolerance, which one TF32 product misses.
 """
 
 import jax.numpy as jnp
@@ -116,3 +118,48 @@ def test_wrappers_raise_off_cpu_without_kernel():
     with pytest.raises(ValueError):
         tst.fused_shuffle_tail(x, torch.empty(5, 5, 8, 32, device="meta"),
                                torch.empty(32, device="meta"))
+
+
+def _tail_case(shape, seed):
+    """The chip_smoke.py phase-2 scales: x ~ U[0, 1), w ~ 0.03 N(0, 1)."""
+    rng = np.random.RandomState(seed)
+    c = shape[-1]
+    x = rng.rand(*shape).astype(np.float32)
+    w = (rng.randn(5, 5, c, 4 * c) * 0.03).astype(np.float32)
+    b = (rng.randn(4 * c) * 0.1).astype(np.float32)
+    ref = np.asarray(jst.shuffle_tail_reference(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
+    return tuple(map(torch.from_numpy, (x, w, b))), ref
+
+
+def test_tf32_round():
+    """Round to nearest on 10 mantissa bits, ties away from zero; TF32
+    values are kept; big + small recovers a float32 to ~2^-22."""
+    one_ulp = 2.0 ** -10
+    v = torch.tensor([1.0, 1.0 + one_ulp / 2, -(1.0 + one_ulp / 2), 1.0 + one_ulp / 4,
+                      1.0 + 3 * one_ulp / 4, 0.0, 3.0e-3], dtype=torch.float32)
+    got = tst.tf32_round(v)
+    want = [1.0, 1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 1.0 + one_ulp, 0.0]
+    assert got[:6].tolist() == want
+    assert torch.equal(tst.tf32_round(got), got)
+    x = torch.from_numpy(np.random.RandomState(0).randn(1000).astype(np.float32))
+    big = tst.tf32_round(x)
+    small = tst.tf32_round(x - big)
+    assert bool(((big.view(torch.int32) & 0x1FFF) == 0).all())
+    assert float(((big + small - x).abs() / x.abs()).max()) <= 2.0 ** -21
+
+
+def test_shuffle_tail_3xtf32_emulation_matches_jax():
+    """Three TF32 products per multiply-add (the kernel's arithmetic) meet
+    the kernels' float32 tolerance at the path's Cin 64."""
+    (x, w, b), ref = _tail_case((1, 12, 20, 64), seed=3)
+    got = tst.shuffle_tail_3xtf32_emulated(x, w, b)
+    assert tuple(got.shape) == (1, 24, 40, 64)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+def test_shuffle_tail_1xtf32_misses_the_tolerance():
+    """One TF32 product per multiply-add does not: the reason for three."""
+    (x, w, b), ref = _tail_case((1, 12, 20, 64), seed=3)
+    one = tst.shuffle_tail_reference(tst.tf32_round(x), tst.tf32_round(w), b)
+    err = np.abs(one.numpy() - ref)
+    assert (err > TOL["atol"] + TOL["rtol"] * np.abs(ref)).mean() > 0.1
