@@ -9,8 +9,8 @@ Phases (each failure ends the run with a non-zero exit and no result line):
 2. Kernel parity on the card: each kernel against its plain PyTorch version
    on the same inputs, at the serving and training paths' shapes and a few
    ragged ones (the fused BN backward `bn_backward`: dx, dscale, dbias; the
-   shuffle tail also against a float64 conv, no less accurate than cuDNN's
-   float32 conv);
+   shuffle tail and the MBConv also against float64, each no less accurate
+   than its cuDNN float32 composition);
    train-mode BN through the BN kernels (`bn_train_fused`) against the
    plain autograd branch: y, dx, dscale, dbias.
 3. Serving: a full-width OFAMobileNetS4 (seeded he_fout weights, random BN
@@ -42,13 +42,14 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 
 Float32 throughout with TF32 off for cuDNN and matmuls, so the card's
-numbers compare with the CPU's; the shuffle-tail kernel's own TF32 products
-are compensated (3xTF32, float32 accuracy). Exits non-zero when no CUDA
-device is present.
+numbers compare with the CPU's; the shuffle-tail and MBConv kernels' own
+TF32 products are compensated (3xTF32, float32 accuracy). Exits non-zero
+when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 import os
@@ -94,8 +95,9 @@ from ofa_sr_tpu_torch.train import SRTrainer  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. The shuffle
-# tail multiplies on the tensor cores, 3 TF32 products a multiply-add
-# (3xTF32); the other kernels use the FP32 pipe only.
+# tail and the MBConv's 1x1 convs multiply on the tensor cores, 3 TF32
+# products a multiply-add (3xTF32); the MBConv's depthwise and the BN
+# kernels use the FP32 pipe.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
@@ -106,10 +108,10 @@ FRAME_TOL = dict(rtol=1e-3, atol=1e-3)  # whole frames: errors compound over ~14
 # worst-case float32 bound
 SUM_RTOL = 2e-5
 MOMENT_TOL = dict(rtol=1e-4, atol=5e-5)   # mean / biased var of O(1) data
-# the 3xTF32 shuffle tail against a float64 conv at the LR path shape: its
-# max abs error at most this many times cuDNN's float32 conv's (PERF.md: the
-# kernel reads ~0.35x; MMAs chained into one truncating accumulator read
-# several times 1x)
+# the 3xTF32 kernels (shuffle tail, MBConv) against a float64 run of their
+# plain version at the path shape: their max abs error at most this many
+# times the cuDNN float32 composition's (PERF.md: the tail reads ~0.35x;
+# MMAs chained into one truncating accumulator read several times 1x)
 F64_RATIO = 1.0
 STEP_TOL = dict(rtol=1e-4, atol=1e-5)     # params after one SGD step, kernels vs plain
 # params after one SGD step (lr 0.01), card vs CPU: the convs' weight
@@ -210,17 +212,37 @@ def kernel_parity(g):
     the LR path shape."""
     errs = {"mbconv": 0.0, "shuffle_tail": 0.0}
     path = (1,) + LR_HW + (64,)
+    # after the path's shapes, what the 15x16 tile and the 16-channel mid
+    # chunk leave ragged: M 72 (4.5 chunks) and M 45 (not a multiple of 4:
+    # the weights are copied 4 bytes at a time), C 4 (zero-padded to one k8
+    # step), a frame smaller than one tile, and B 2 at the path's H and W
     for shape, m, ks, res in [(path, 384, 7, True), (path, 384, 5, True),
                               (path, 384, 3, True), ((1, 7, 13, 64), 192, 5, False),
-                              ((2, 18, 20, 64), 256, 3, True), ((1, 181, 37, 16), 48, 7, True)]:
+                              ((2, 18, 20, 64), 256, 3, True), ((1, 181, 37, 16), 48, 7, True),
+                              ((1, 37, 50, 64), 72, 7, True), ((1, 37, 50, 32), 45, 5, False),
+                              ((1, 23, 41, 4), 24, 7, True), ((2, 5, 6, 8), 48, 7, True),
+                              ((2,) + LR_HW + (64,), 384, 7, True)]:
         x, w = mbconv_case(g, shape, m, ks)
         got = launched(fused_mbconv_infer,
                        lambda: fused_mbconv_infer(x, **w, residual=res))
         torch.cuda.synchronize()
+        plain = mbconv_reference(x, **w, residual=res)
         err = check_close("mbconv %s M=%d k=%d residual=%s" % (shape, m, ks, res),
-                          got, mbconv_reference(x, **w, residual=res), TOL)
+                          got, plain, TOL)
         if shape == path:
             errs["mbconv"] = max(errs["mbconv"], err)
+        if shape == path and ks == 7:
+            ref64 = mbconv_reference(x.double(), **{k: v.double() for k, v in w.items()})
+            errs["mbconv_vs_f64"] = f64_check("mbconv %s M=%d k=7" % (shape, m), got, plain,
+                                              ref64)
+    # x 4 bytes past a 16-byte boundary: the kernel copies its halo 4 bytes
+    # at a time
+    x, w = mbconv_case(g, (1, 23, 41, 64), 48, 7)
+    xm = torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape).copy_(x)
+    got = launched(fused_mbconv_infer, lambda: fused_mbconv_infer(xm, **w))
+    torch.cuda.synchronize()
+    check_close("mbconv %s M=48 k=7, x not 16-byte aligned" % (tuple(x.shape),), got,
+                mbconv_reference(x, **w), TOL)
     # (1, 9, 17, 6): Cin and Cout not multiples of 4, so the kernel loads the
     # halo and stores the output one float at a time
     for shape in [path, (1, 2 * LR_HW[0], 2 * LR_HW[1], 64), (2, 7, 13, 64), (1, 9, 17, 8),
@@ -233,17 +255,24 @@ def kernel_parity(g):
             errs["shuffle_tail"] = max(errs["shuffle_tail"], err)
         if shape == path:
             ref64 = shuffle_tail_reference(x.double(), w.double(), b.double())
-            kern, plain = (float((t.double() - ref64).abs().max())
-                           for t in (got, shuffle_tail_reference(x, w, b)))
-            errs["shuffle_tail_vs_f64"] = {"kernel": kern, "plain": plain}
-            ok = kern <= F64_RATIO * plain
-            print("  shuffle_tail %s against a float64 conv: max_abs_err kernel %.3e, plain "
-                  "(cuDNN f32) %.3e (kernel at most %.1fx plain)  %s"
-                  % (shape, kern, plain, F64_RATIO, "ok" if ok else "FAIL"), flush=True)
-            if not ok:
-                fail("the shuffle tail is less accurate than cuDNN's float32 conv against "
-                     "a float64 conv (%.3e > %.1f x %.3e)" % (kern, F64_RATIO, plain))
+            errs["shuffle_tail_vs_f64"] = f64_check(
+                "shuffle_tail %s" % (shape,), got, shuffle_tail_reference(x, w, b), ref64)
     return errs
+
+
+def f64_check(name, got, plain, ref64):
+    """The kernel's and the plain (cuDNN f32) version's max abs error against
+    a float64 run of the plain version; fails when the kernel's exceeds
+    F64_RATIO times the plain version's."""
+    kern, pl = (float((t.double() - ref64).abs().max()) for t in (got, plain))
+    ok = kern <= F64_RATIO * pl
+    print("  %s against float64: max_abs_err kernel %.3e, plain (cuDNN f32) %.3e "
+          "(kernel at most %.1fx plain)  %s" % (name, kern, pl, F64_RATIO,
+                                                "ok" if ok else "FAIL"), flush=True)
+    if not ok:
+        fail("%s is less accurate than the cuDNN float32 composition against float64 "
+             "(%.3e > %.1f x %.3e)" % (name, kern, F64_RATIO, pl))
+    return {"kernel": kern, "plain": pl}
 
 
 def check_sums(name, got, ref, terms):
@@ -611,11 +640,14 @@ def step_times():
 # -- phase 5: per-kernel numbers at the path's shapes ------------------------
 
 def measure_shape(kernel, plain, flops, nbytes_, launches, unit="frame", library=None,
-                  peak=PEAK_F32_FLOPS, **info):
+                  peak=PEAK_F32_FLOPS, ops_ms=None, **info):
     """Kernel, plain and (where given) library ms per launch at one shape,
-    beside its bound (`flops` at `peak`, or the bytes); `launches` per
-    `unit` (frame or step)."""
+    beside its bound (`flops` at `peak`, or `ops_ms` where the operations
+    run on more than one pipe, or the bytes); `launches` per `unit` (frame
+    or step)."""
     t = bound_ms(flops, nbytes_, peak)
+    if ops_ms is not None:
+        t = (ops_ms, t[1])
     return dict(info, **{"launches_per_" + unit: launches},
                 ms_per_launch=time_ms(kernel), plain_ms_per_launch=time_ms(plain),
                 library_ms_per_launch=time_ms(library) if library else None,
@@ -641,16 +673,20 @@ def kernel_numbers(g, cfg, counts, errs):
     """Per serving kernel: time per frame of all its launches at the path's
     shapes (kernel, plain version), with the card's least time for the same
     work. No single PyTorch call computes either function: library_ms is
-    null. The shuffle tail's bound is its 3 TF32 products a multiply-add at
-    the tensor cores' TF32 rate; its bound on the FP32 pipe is given
-    beside it."""
+    null. Both kernels multiply on the tensor cores, 3 TF32 products a
+    multiply-add; the bound takes those at the TF32 rate (and the MBConv's
+    depthwise at the FP32 rate, the larger of the two), with the bound on
+    the FP32 pipe alone beside it."""
     c, m, ks = 64, SearchSpace().mid_channels(6), 7
     x, w = mbconv_case(g, (1,) + LR_HW + (c,), m, ks)
+    px = x.numel() // c
+    f1x1, fdw = 2 * px * 2 * c * m, 2 * px * ks * ks * m
     mb = measure_shape(
         lambda: fused_mbconv_infer(x, **w), lambda: mbconv_reference(x, **w),
-        flops=2 * (x.numel() // c) * (c * m + ks * ks * m + m * c),
-        nbytes_=nbytes(x, *w.values()) + nbytes(x), launches=sum(cfg.d),
-        shape=list(x.shape), mid=m, ks=ks)
+        flops=f1x1 + fdw, nbytes_=nbytes(x, *w.values()) + nbytes(x), launches=sum(cfg.d),
+        ops_ms=max(3 * f1x1 / PEAK_TF32, fdw / PEAK_F32_FLOPS) * 1e3,
+        shape=list(x.shape), mid=m, ks=ks, conv1x1_flop=f1x1, depthwise_flop=fdw,
+        bound_f32_fma_ms=(f1x1 + fdw) / PEAK_F32_FLOPS * 1e3)
     tail = []
     for i in range(cfg.pixel_d):
         x, wt, b = shuffle_case(g, (1, LR_HW[0] * 2 ** i, LR_HW[1] * 2 ** i, c))
@@ -660,9 +696,15 @@ def kernel_numbers(g, cfg, counts, errs):
             flops=3 * flops, nbytes_=nbytes(x, wt, b) + 4 * nbytes(x), launches=1,
             peak=PEAK_TF32, shape=list(x.shape), conv_flop=flops,
             bound_f32_fma_ms=flops / PEAK_F32_FLOPS * 1e3))
+    n = mb["launches_per_frame"]
     return [kernel_row("fused_mbconv_infer", "ofa_sr_tpu_torch/csrc/mbconv.cu",
                        "ofa_sr_tpu/ops/pallas/mbconv.py:155", counts["mbconv"],
-                       errs["mbconv"], [mb]),
+                       errs["mbconv"], [mb],
+                       bound_rate="the larger of the 1x1 convs' 3 TF32 products a "
+                       "multiply-add at %.0f TFLOP/s and the depthwise at %.0f TFLOP/s "
+                       "(FP32)" % (PEAK_TF32 / 1e12, PEAK_F32_FLOPS / 1e12),
+                       bound_f32_fma_ms=n * mb["bound_f32_fma_ms"],
+                       max_abs_err_vs_f64=errs["mbconv_vs_f64"]),
             kernel_row("fused_shuffle_tail", "ofa_sr_tpu_torch/csrc/shuffle_tail.cu",
                        "ofa_sr_tpu/ops/pallas/shuffle_tail.py:121", counts["shuffle_tail"],
                        errs["shuffle_tail"], tail,
@@ -749,8 +791,14 @@ def main():
     print("  kernels built in %.1f s (%s)" % (build_s, _build.BUILD_DIR), flush=True)
     for name, log in sorted(_build.ptxas_log.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line or \
+                    "smem" in line:
                 print("  [%s] %s" % (name, line.strip()), flush=True)
+    smem_query = _build.load("mbconv").ofa_mbconv_smem_bytes
+    smem_query.argtypes, smem_query.restype = [ctypes.c_int] * 2, ctypes.c_int
+    mb_smem = {ks: smem_query(64, ks) for ks in (3, 5, 7)}
+    print("  [mbconv] dynamic shared memory a block at C 64, by k: %s bytes" % mb_smem,
+          flush=True)
 
     g = torch.Generator().manual_seed(1234)
     print("phase 2: kernel parity on the card", flush=True)
@@ -808,7 +856,8 @@ def main():
               % ((name,) + after), flush=True)
     print(json.dumps({"kernels": rows, "frame_ms": frame_ms, "frame_profile": profiles,
                       "entry_ms": entry_ms, "train_runs": train_runs, "step_ms": step_ms,
-                      "step_profile": train_profiles, "build_s": build_s, "gpu": smi_line}))
+                      "step_profile": train_profiles, "build_s": build_s,
+                      "mbconv_smem_bytes": mb_smem, "gpu": smi_line}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,15 @@ pl_w [M,C]; pl_b [C] (the Pallas kernel's layouts).
 
 `fused_mbconv_infer` launches the hand-written kernel in csrc/mbconv.cu for
 a CUDA tensor and takes the plain version, `mbconv_reference`, only for a CPU
-tensor. The kernel takes any H and W, k in {3, 5, 7}, and C a multiple of 4
-up to 64; other inputs raise. `fused_mbconv_infer.launches` counts kernel
+tensor. The kernel takes any H, W and M, k in {3, 5, 7}, and C a
+multiple of 4 up to 64; other inputs raise. `fused_mbconv_infer.launches` counts kernel
 launches.
+
+The kernel multiplies both 1x1 convs on the tensor cores in 3xTF32 (as the
+shuffle tail does): each float32 operand v is split as big = tf32(v),
+small = tf32(v - big), and it accumulates a_small*b_big + a_big*b_small +
+a_big*b_big in float32. `mbconv_3xtf32_emulated` is that arithmetic in plain
+PyTorch, for the tests only.
 """
 
 from __future__ import annotations
@@ -22,16 +28,36 @@ import torch
 from ..activations import relu6
 from ..conv import conv2d, depthwise_conv2d
 from . import _build
+from .shuffle_tail import tf32_round
 
 KERNEL_SIZES = (3, 5, 7)
 MAX_CHANNELS = 64
 
 
+def _conv1x1(x, w):
+    return conv2d(x, w.t()[:, :, None, None])
+
+
 def mbconv_reference(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=True):
     """The plain composition with the same semantics."""
-    h = relu6(conv2d(x, ib_w.t()[:, :, None, None]) + ib_b)
+    h = relu6(_conv1x1(x, ib_w) + ib_b)
     h = relu6(depthwise_conv2d(h, dw_w.permute(2, 0, 1)[:, None]) + dw_b)
-    y = conv2d(h, pl_w.t()[:, :, None, None]) + pl_b
+    y = _conv1x1(h, pl_w) + pl_b
+    return y + x if residual else y
+
+
+def mbconv_3xtf32_emulated(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=True):
+    """The kernel's arithmetic: the plain composition with each 1x1 conv done
+    as three float32 convolutions of the split operands (small*big +
+    big*small + big*big), summed."""
+    def conv3(u, w):
+        ub, wb = tf32_round(u), tf32_round(w)
+        us, ws = tf32_round(u - ub), tf32_round(w - wb)
+        return _conv1x1(us, wb) + _conv1x1(ub, ws) + _conv1x1(ub, wb)
+
+    h = relu6(conv3(x, ib_w) + ib_b)
+    h = relu6(depthwise_conv2d(h, dw_w.permute(2, 0, 1)[:, None]) + dw_b)
+    y = conv3(h, pl_w) + pl_b
     return y + x if residual else y
 
 

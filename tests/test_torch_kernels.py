@@ -2,8 +2,9 @@
 versions) against the JAX package's kernels as that package runs them on the
 CPU, at atol/rtol 1e-4 as in tests/test_pallas.py. The CUDA kernels
 themselves are held against these plain versions on the GPU by chip_smoke.py.
-The shuffle tail's 3xTF32 arithmetic is emulated here in plain PyTorch and
-held to the same tolerance, which one TF32 product misses.
+The 3xTF32 arithmetic of the shuffle tail and of the MBConv's two 1x1 convs
+is emulated here in plain PyTorch and held to the same tolerance, which one
+TF32 product misses.
 """
 
 import jax.numpy as jnp
@@ -163,3 +164,43 @@ def test_shuffle_tail_1xtf32_misses_the_tolerance():
     one = tst.shuffle_tail_reference(tst.tf32_round(x), tst.tf32_round(w), b)
     err = np.abs(one.numpy() - ref)
     assert (err > TOL["atol"] + TOL["rtol"] * np.abs(ref)).mean() > 0.1
+
+
+def _one_tf32_mbconv(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=True):
+    """The composition with one TF32 product per 1x1 multiply-add."""
+    from ofa_sr_tpu_torch.ops.activations import relu6
+    from ofa_sr_tpu_torch.ops.conv import depthwise_conv2d
+
+    def conv1(u, w):
+        return tmb._conv1x1(tst.tf32_round(u), tst.tf32_round(w))
+
+    h = relu6(conv1(x, ib_w) + ib_b)
+    h = relu6(depthwise_conv2d(h, dw_w.permute(2, 0, 1)[:, None]) + dw_b)
+    y = conv1(h, pl_w) + pl_b
+    return y + x if residual else y
+
+
+@pytest.mark.parametrize("ks", [3, 5, 7])
+@pytest.mark.parametrize("residual", [True, False])
+def test_mbconv_3xtf32_emulation_matches_jax(ks, residual):
+    """Both 1x1 convs as three TF32 products (the kernel's arithmetic) meet
+    the kernels' float32 tolerance against the JAX package's reference."""
+    rng = np.random.RandomState(10 + ks)
+    x = rng.randn(1, 9, 12, 16).astype(np.float32)
+    w = _mbconv_weights(16, 96, ks, seed=ks)
+    ref = jmb.mbconv_reference(jnp.asarray(x), **{k: jnp.asarray(v) for k, v in w.items()},
+                               residual=residual)
+    got = tmb.mbconv_3xtf32_emulated(torch.from_numpy(x), **_torch(w), residual=residual)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_mbconv_3xtf32_split_is_needed():
+    """Against a float64 composition, three TF32 products err at most 1/8 as
+    much as one: the split is what holds the kernel to float32."""
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(1, 9, 12, 16).astype(np.float32))
+    w = _torch(_mbconv_weights(16, 96, 7, seed=4))
+    ref = tmb.mbconv_reference(x.double(), **{k: v.double() for k, v in w.items()})
+    three = float((tmb.mbconv_3xtf32_emulated(x, **w).double() - ref).abs().max())
+    one = float((_one_tf32_mbconv(x, **w).double() - ref).abs().max())
+    assert three <= one / 8, (three, one)
