@@ -12,7 +12,12 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    shuffle tail and the MBConv also against float64, each no less accurate
    than its cuDNN float32 composition);
    train-mode BN through the BN kernels (`bn_train_fused`) against the
-   plain autograd branch: y, dx, dscale, dbias.
+   plain autograd branch: y, dx, dscale, dbias. Then the bf16 forms of the
+   BN kernels (`ofa_col_sums2_bf16`, `ofa_bn_backward_bf16`) the same way on
+   bf16 tensors, at every BN shape of the training path plus C = 3, ragged
+   C and misaligned rows (sums and moments at the float32 rows' tolerance,
+   dx within one bf16 ulp), and float16 or a bf16 dy with a float32 x
+   refused on the card.
 3. Serving: a full-width OFAMobileNetS4 (seeded he_fout weights, random BN
    statistics) materialized as the ks7/e6/d2/pixel_d 2 subnet serves 8 LR
    180x320 frames (720p out) through `entry.serve`, with every kernel's
@@ -27,24 +32,30 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    steps of 4 subnets with KD, each BN wrapper's launches (col_sums2,
    bn_moments, bn_backward) read around each run and held to
    3*sum(d) + pixel_d + 4 a subnet (the
-   teacher's eval forward launches none). Then, outside the counted runs:
+   teacher's eval forward launches none); then the same two runs in bf16
+   mixed precision (`compute_dtype=torch.bfloat16`, the JAX bench's own
+   training envelope), where every BN launch must be a bf16 one, and the
+   one-subnet bf16 run once more on the plain path (losses held to the
+   kernel path's). Then, outside the counted runs:
    kernel path against plain path (`use_kernels=False`) on the card from the
    same weights (SGD: per-step losses, params after one step), a small step
-   card against CPU, ms per step of both paths (CUDA events, in the order
-   plain, kernels, kernels, plain), and (profiled in phase 5) the device's
-   idle share and top kernels.
+   card against CPU, ms per step of the float32 and bf16 kernel and plain
+   paths (CUDA events, in the order f32 plain, f32 kernels, bf16 kernels,
+   bf16 plain, then back), and (profiled in phase 5) the device's idle
+   share and top kernels.
 5. Per-kernel numbers at the paths' shapes (kernel, plain version, the
    card's least time, and for the BN kernels one PyTorch call computing the
-   same function as a yardstick the port never calls). Then the torch.profiler
+   same function as a yardstick the port never calls), the BN kernels in
+   float32 and in bf16. Then the torch.profiler
    sessions of phases 3 and 4, last, because a profiler session leaves the
    launch path slower for the rest of the process: device time and kernels
    per frame and per step, and the BN kernels' own device time. One JSON line of all of it, the
    nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 
-Float32 throughout with TF32 off for cuDNN and matmuls, so the card's
-numbers compare with the CPU's; the shuffle-tail and MBConv kernels' own
-TF32 products are compensated (3xTF32, float32 accuracy). Exits non-zero
-when no CUDA device is present.
+Float32 with TF32 off for cuDNN and matmuls, so the card's numbers compare
+with the CPU's, apart from the bf16 training runs; the shuffle-tail and
+MBConv kernels' own TF32 products are compensated (3xTF32, float32
+accuracy). Exits non-zero when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -114,6 +125,16 @@ MOMENT_TOL = dict(rtol=1e-4, atol=5e-5)   # mean / biased var of O(1) data
 # MMAs chained into one truncating accumulator read several times 1x)
 F64_RATIO = 1.0
 STEP_TOL = dict(rtol=1e-4, atol=1e-5)     # params after one SGD step, kernels vs plain
+BF16 = torch.bfloat16
+# a bf16 dx, kernel vs plain: each rounds its float32 value once, so where
+# the two (summed in other orders) straddle a rounding boundary they differ
+# by one bf16 ulp, at most 2^-7 of the value; plus the float32 tolerance
+# where dx cancels to near 0
+BF16_DX_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
+# bf16 training losses, kernel path vs plain path (bf16 roundings flip apart
+# over the steps): half the JAX package's own bf16-against-float32 bound of
+# 2% of the loss (tests/test_train.py)
+BF16_STEP_TOL = dict(rtol=1e-2, atol=0)
 # params after one SGD step (lr 0.01), card vs CPU: the convs' weight
 # gradients are sums over the batch in cuDNN's order and the CPU's
 DEVICE_STEP_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -134,6 +155,10 @@ PORT_KERNELS = ("col_partials_kernel", "finish_kernel", "bn_dx_kernel", "mbconv_
 BWD_ROW = "bn_bwd_sums+dx (bn_backward)"
 BN_ROW_KERNELS = {"col_sums2": ("col_partials_kernel<1,", "finish_kernel<1>"),
                   BWD_ROW: ("col_partials_kernel<2,", "finish_kernel<2>", "bn_dx_kernel")}
+# the bf16 forms' rows: the same kernels, instantiated for __nv_bfloat16
+# (finish_kernel reads float32 partials and is shared; each step profile
+# runs one type only)
+BF16_ROWS = {"col_sums2": "col_sums2 (bf16)", BWD_ROW: "bn_bwd_sums+dx (bn_backward, bf16)"}
 DEVICE = "cuda"                       # the card; a CPU rehearsal sets "cpu"
 
 
@@ -197,12 +222,14 @@ def shuffle_case(g, shape, device="cuda"):
     return x, randn(g, 5, 5, c, 4 * c, scale=0.03, device=device), randn(g, 4 * c, scale=0.1, device=device)
 
 
-def launched(wrapper, fn):
-    """fn()'s result; fails unless it launched `wrapper`'s kernel once."""
-    before = wrapper.launches
+def launched(wrapper, fn, bf16=False):
+    """fn()'s result; fails unless it launched `wrapper`'s kernel once (its
+    bf16 form when `bf16`, else the float32 one)."""
+    before = wrapper.launches, getattr(wrapper, "launches_bf16", 0)
     out = fn()
-    if wrapper.launches != before + 1:
-        fail("%s did not launch its kernel" % wrapper.__name__)
+    if (wrapper.launches, getattr(wrapper, "launches_bf16", 0)) != (before[0] + 1,
+                                                                    before[1] + bf16):
+        fail("%s did not launch its %s kernel" % (wrapper.__name__, "bf16" if bf16 else "float32"))
     return out
 
 
@@ -294,60 +321,111 @@ def path_bn_shapes():
     return sorted({s for c in cfgs for s in bn_train_shapes(space, c, BS, HR)})
 
 
-def bn_parity(g):
+def offset(t, k):
+    """A copy of `t` whose data starts k elements past an allocation (k > 0:
+    rows off a 16-byte boundary, so the kernels take narrower loads)."""
+    if k == 0:
+        return t
+    return torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:].view(t.shape).copy_(t)
+
+
+def bn_parity(g, dtype=torch.float32):
     """The four BN wrappers against their plain versions at the training
-    path's shapes and ragged ones; returns {kernel: max abs err at the path's
-    shapes} (of the moments for col_sums2, and of dx for the backward, as the
-    path uses them)."""
-    errs = {"col_sums2": 0.0, "bn_bwd_sums": 0.0}
-    cases = [(s, True) for s in path_bn_shapes()]
-    cases += [((n, 1, 1, c), False) for n in (1000, 37) for c in (3, 17, 48)]
-    for shape, on_path in cases:
+    path's shapes and ragged ones, on `dtype` activations (float32, or bf16
+    for the bf16 forms, the plain versions reading the same bf16 tensors);
+    returns {kernel: max abs err at the path's shapes} (of the moments for
+    col_sums2, and of dx for the backward, as the path uses them)."""
+    bf16 = dtype is BF16
+    tag = " bf16" if bf16 else ""
+    key = "_bf16" if bf16 else ""
+    errs = {"col_sums2" + key: 0.0, "bn_bwd_sums" + key: 0.0}
+    cases = [(s, True, 0) for s in path_bn_shapes()]
+    cases += [((n, 1, 1, c), False, 0) for n in (1000, 37) for c in (3, 17, 48)]
+    if bf16:
+        # C 6: 4-byte loads of 2 columns; C 24: 16-byte loads of 8 at a small
+        # C; rows 2 and 4 bytes past a 16-byte boundary at C 64: loads of 1
+        # and of 2 columns
+        cases += [((1000, 1, 1, 6), False, 0), ((37, 1, 1, 24), False, 0),
+                  ((300, 1, 1, 64), False, 1), ((300, 1, 1, 64), False, 2)]
+    dx_tol = BF16_DX_TOL if bf16 else TOL
+    for shape, on_path, k in cases:
         n, c = int(np.prod(shape[:3])), shape[3]
-        a = randn(g, n, c)
-        b = randn(g, n, c, scale=0.5) + 0.25
-        got = launched(col_sums2, lambda: col_sums2(a, b))
+        a = offset(randn(g, n, c).to(dtype), k)
+        b = offset((randn(g, n, c, scale=0.5) + 0.25).to(dtype), k)
+        got = launched(col_sums2, lambda: col_sums2(a, b), bf16)
         torch.cuda.synchronize()
-        for k, (u, v, terms) in enumerate(zip(got, col_sums2_reference(a, b), (a, a * b))):
-            check_sums("col_sums2 s%d %s" % (k + 1, (n, c)), u, v, terms)
-        x = (1.5 * randn(g, *shape) + 0.3).contiguous()
-        got = launched(bn_moments, lambda: bn_moments(x))
+        af, bf = a.float(), b.float()
+        for i, (u, v, terms) in enumerate(zip(got, col_sums2_reference(a, b), (af, af * bf))):
+            check_sums("col_sums2%s s%d %s" % (tag, i + 1, (n, c)), u, v, terms)
+        x = offset((1.5 * randn(g, *shape) + 0.3).to(dtype).contiguous(), k)
+        got = launched(bn_moments, lambda: bn_moments(x), bf16)
         torch.cuda.synchronize()
-        for k, (u, v) in enumerate(zip(got, bn_moments_reference(x))):
-            err = check_close("bn_moments %s %s" % (("mean", "var")[k], shape), u, v, MOMENT_TOL)
+        for i, (u, v) in enumerate(zip(got, bn_moments_reference(x))):
+            err = check_close("bn_moments%s %s %s" % (tag, ("mean", "var")[i], shape), u, v,
+                              MOMENT_TOL)
             if on_path:
-                errs["col_sums2"] = max(errs["col_sums2"], err)
-        dy, xf = randn(g, n, c), x.view(n, c)
+                errs["col_sums2" + key] = max(errs["col_sums2" + key], err)
+        dy, xf = offset(randn(g, n, c).to(dtype), k), x.view(n, c)
         mean, var = bn_moments_reference(x)
         inv = torch.rsqrt(var + 1e-5)
-        got = launched(bn_bwd_sums, lambda: bn_bwd_sums(dy, xf, mean, inv))
+        got = launched(bn_bwd_sums, lambda: bn_bwd_sums(dy, xf, mean, inv), bf16)
         torch.cuda.synchronize()
-        xhat = (xf - mean) * inv
-        for k, (u, v, terms) in enumerate(zip(got, bn_bwd_sums_reference(dy, xf, mean, inv),
-                                              (dy, dy * xhat))):
-            check_sums("bn_bwd_sums s%d %s" % (k + 1, (n, c)), u, v, terms)
+        dyf, xhat = dy.float(), (xf.float() - mean) * inv
+        for i, (u, v, terms) in enumerate(zip(got, bn_bwd_sums_reference(dy, xf, mean, inv),
+                                              (dyf, dyf * xhat))):
+            check_sums("bn_bwd_sums%s s%d %s" % (tag, i + 1, (n, c)), u, v, terms)
         # the fused backward, as bn_train_fused calls it (NHWC dy and x)
         scale = (0.5 + torch.rand(c, generator=g)).to(DEVICE)
         dy4 = dy.view(shape)
-        dx, ds, db = launched(bn_backward, lambda: bn_backward(dy4, x, scale, mean, inv))
+        dx, ds, db = launched(bn_backward, lambda: bn_backward(dy4, x, scale, mean, inv), bf16)
         torch.cuda.synchronize()
+        if dx.dtype is not dtype or ds.dtype is not torch.float32:
+            fail("bn_backward%s returned dx %s, dscale %s" % (tag, dx.dtype, ds.dtype))
         dx_p, ds_p, db_p = bn_backward_reference(dy4, x, scale, mean, inv)
-        err = check_close("bn_backward dx %s" % (shape,), dx, dx_p, TOL)
-        check_sums("bn_backward dscale %s" % ((n, c),), ds, ds_p, dy * xhat)
-        check_sums("bn_backward dbias %s" % ((n, c),), db, db_p, dy)
+        err = check_close("bn_backward%s dx %s" % (tag, shape), dx.float(), dx_p.float(), dx_tol)
+        check_sums("bn_backward%s dscale %s" % (tag, (n, c)), ds, ds_p, dyf * xhat)
+        check_sums("bn_backward%s dbias %s" % (tag, (n, c)), db, db_p, dyf)
         if on_path:
-            errs["bn_bwd_sums"] = max(errs["bn_bwd_sums"], err)
+            errs["bn_bwd_sums" + key] = max(errs["bn_bwd_sums" + key], err)
     return errs
 
 
-def bn_grad_check(g):
+def bn_dtype_rule():
+    """The BN wrappers refuse, on the card, activations the kernels do not
+    take (float16; a bf16 dy with a float32 x), launching nothing."""
+    x16 = torch.zeros(64, 8, device=DEVICE, dtype=torch.float16)
+    xb, xf = torch.zeros(64, 8, device=DEVICE, dtype=BF16), torch.zeros(64, 8, device=DEVICE)
+    v = torch.ones(8, device=DEVICE)
+    before = [(k.launches, k.launches_bf16) for k in BN_KERNELS]
+    for name, fn in (("float16 moments", lambda: bn_moments(x16.view(1, 8, 8, 8))),
+                     ("float16 backward", lambda: bn_backward(x16, x16, v, v, v)),
+                     ("bf16 dy, float32 x", lambda: bn_backward(xb, xf, v, v, v)),
+                     ("float32 a, bf16 b", lambda: col_sums2(xf, xb))):
+        try:
+            fn()
+        except ValueError as e:
+            print("  refused on the card: %-24s (%s)" % (name, str(e)[:70]), flush=True)
+            continue
+        fail("the BN wrappers took %s on the card" % name)
+    if [(k.launches, k.launches_bf16) for k in BN_KERNELS] != before:
+        fail("a refused BN call launched a kernel")
+
+
+def bn_grad_check(g, dtype=torch.float32):
     """Train-mode BN through the kernels (bn_train_fused) against the plain
-    autograd branch on the card: y, dx, dscale, dbias, running stats."""
-    for shape in [(BS, 48, 48, 64), (BS, 48, 48, 384), (BS, HR, HR, 3), (BS, 24, 24, 256),
-                  (2, 5, 7, 17)]:
+    autograd branch on the card: y, dx, dscale, dbias, running stats; on
+    bf16 x with float32 scale and bias for the bf16 forms (y and dx within
+    one bf16 ulp)."""
+    bf16 = dtype is BF16
+    shapes = [(BS, 48, 48, 64), (BS, 48, 48, 384), (BS, HR, HR, 3), (BS, 24, 24, 256),
+              (2, 5, 7, 17)]
+    if bf16:
+        shapes = [(BS, 48, 48, 64), (BS, HR, HR, 3), (2, 5, 7, 17)]
+    tol = BF16_DX_TOL if bf16 else TOL
+    for shape in shapes:
         c = shape[-1]
-        x0 = 1.5 * randn(g, *shape) + 0.3
-        w = randn(g, *shape)
+        x0 = (1.5 * randn(g, *shape) + 0.3).to(dtype)
+        w = randn(g, *shape).to(dtype)
         scale0, bias0 = 0.5 + torch.rand(c, generator=g), 0.2 * torch.randn(c, generator=g)
         rm0, rv0 = 0.2 * torch.randn(c, generator=g), 0.5 + torch.rand(c, generator=g)
         out = {}
@@ -355,20 +433,24 @@ def bn_grad_check(g):
             x = x0.clone().requires_grad_()
             scale, bias = (t.to(x0.device).requires_grad_() for t in (scale0, bias0))
             rm, rv = rm0.to(x0.device), rv0.to(x0.device)
-            before = bn_backward.launches
+            before = bn_backward.launches, bn_backward.launches_bf16
             y = batch_norm_train(x, scale, bias, rm, rv, use_kernels=uk)
-            (y * w).sum().backward()
-            if uk and x.is_cuda and bn_backward.launches != before + 1:
+            y.backward(w)
+            if uk and x.is_cuda and (bn_backward.launches, bn_backward.launches_bf16) != (
+                    before[0] + 1, before[1] + bf16):
                 fail("bn_train_fused's backward did not launch bn_backward")
             out[uk] = (y.detach(), x.grad, scale.grad, bias.grad, rm, rv)
         torch.cuda.synchronize()
         (y, dx, ds, db, rm, rv), (y_p, dx_p, ds_p, db_p, rm_p, rv_p) = out[True], out[False]
-        name = "bn_train_fused %s" % (shape,)
-        check_close(name + " y", y, y_p, TOL)
-        check_close(name + " dx", dx, dx_p, TOL)
-        xhat = ((x0 - x0.mean((0, 1, 2))) * torch.rsqrt(x0.var((0, 1, 2), correction=0) + 1e-5))
-        check_sums(name + " dscale", ds, ds_p, (w * xhat).reshape(-1, c))
-        check_sums(name + " dbias", db, db_p, w.reshape(-1, c))
+        if y.dtype is not dtype or dx.dtype is not dtype or ds.dtype is not torch.float32:
+            fail("bn_train_fused returned y %s, dx %s, dscale %s" % (y.dtype, dx.dtype, ds.dtype))
+        name = "bn_train_fused%s %s" % (" bf16" if bf16 else "", shape)
+        check_close(name + " y", y.float(), y_p.float(), tol)
+        check_close(name + " dx", dx.float(), dx_p.float(), tol)
+        xf, wf = x0.float(), w.float()
+        xhat = ((xf - xf.mean((0, 1, 2))) * torch.rsqrt(xf.var((0, 1, 2), correction=0) + 1e-5))
+        check_sums(name + " dscale", ds, ds_p, (wf * xhat).reshape(-1, c))
+        check_sums(name + " dbias", db, db_p, wf.reshape(-1, c))
         check_close(name + " running_mean", rm, rm_p, MOMENT_TOL)
         check_close(name + " running_var", rv, rv_p, MOMENT_TOL)
 
@@ -504,38 +586,56 @@ def bn_launches_expected(cfgs):
 
 def counted_train(steps, **kw):
     """entry.train with the BN-statistics counters read around it: the main
-    path's run. Returns (metrics, {kernel: launches})."""
+    path's run. Returns (metrics, {kernel: launches, kernel_bf16: its bf16
+    launches})."""
     for k in BN_KERNELS:
-        k.launches = 0
+        k.launches = k.launches_bf16 = 0
     bn_train_fused.layout_copies = 0
     metrics = train(steps, device=DEVICE, **kw)
     torch.cuda.synchronize()
     counts = {k.__name__: k.launches for k in BN_KERNELS}
+    counts.update({k.__name__ + "_bf16": k.launches_bf16 for k in BN_KERNELS})
     counts["layout_copies"] = bn_train_fused.layout_copies
     return metrics, counts
 
 
-def training_main_path():
-    """The two training envelopes through entry.train, counted."""
+def training_main_path(compute_dtype=None):
+    """The two training envelopes through entry.train, counted: float32, or
+    bf16 mixed precision, where every BN launch is a bf16 one."""
     space = SearchSpace()
     runs = {}
+    bf16 = compute_dtype is BF16
     for label, steps, kw in (("1 subnet", TRAIN_STEPS, {}),
                              ("4 subnets + KD", KD_STEPS, dict(n_subnets=4, kd_ratio=1.0))):
         cfgs = [c for i in range(steps) for c in step_subnets(space, i, kw.get("n_subnets", 1))]
-        metrics, counts = counted_train(steps, **kw)
+        metrics, counts = counted_train(steps, compute_dtype=compute_dtype, **kw)
         expect = bn_launches_expected(cfgs)
-        print("  entry.train(%d steps, %s): BN-kernel launches %s (expected %d each), "
-              "pixel_d %s, losses %s" % (steps, label, counts, expect,
+        print("  entry.train(%d steps, %s%s): BN-kernel launches %s (expected %d each), "
+              "pixel_d %s, losses %s" % (steps, label, ", bf16" if bf16 else "", counts, expect,
                                          sorted({c.pixel_d for c in cfgs}),
                                          [round(m["loss"], 5) for m in metrics]), flush=True)
         if any(counts[k.__name__] != expect for k in BN_KERNELS):
             fail("the training path did not launch each BN kernel once per train-mode BN")
+        if any(counts[k.__name__ + "_bf16"] != (expect if bf16 else 0) for k in BN_KERNELS):
+            fail("the %s training path launched BN kernels of the other type"
+                 % ("bf16" if bf16 else "float32"))
         if not all(np.isfinite(m["loss"]) and np.isfinite(m["psnr"]) for m in metrics):
             fail("non-finite training metrics: %s" % metrics)
         runs[label] = {"steps": steps, "launches": counts, "expected": expect,
                        "metrics": metrics}
     if {c.pixel_d for i in range(TRAIN_STEPS) for c in step_subnets(space, i, 1)} != {1, 2}:
         fail("the one-subnet steps did not sample both pixel_d")
+    if bf16:
+        # the bf16 step on the plain path, from the same seed-0 weights and batch
+        plain = train(TRAIN_STEPS, device=DEVICE, compute_dtype=BF16, use_kernels=False)
+        kern = runs["1 subnet"]["metrics"]
+        check_close("bf16: %d one-subnet steps, losses: kernel path vs plain path" % TRAIN_STEPS,
+                    torch.tensor([m["loss"] for m in kern]),
+                    torch.tensor([m["loss"] for m in plain]), BF16_STEP_TOL)
+        runs["1 subnet"]["plain_metrics"] = plain
+        if runs["1 subnet"]["launches"]["layout_copies"]:
+            print("  finding: the bf16 path copied %d BN inputs to row-contiguous layout"
+                  % runs["1 subnet"]["launches"]["layout_copies"], flush=True)
     return runs
 
 
@@ -596,10 +696,18 @@ def timed_steps(run, n_steps):
     return start.elapsed_time(end) / n_steps, host_ms / n_steps
 
 
+# the timed training paths: (use_kernels, compute_dtype), timed in the order
+# of STEP_ORDER and back, STEP_ROUNDS times
+STEP_PATHS = {"kernels": (True, None), "plain": (False, None),
+              "bf16 kernels": (True, BF16), "bf16 plain": (False, BF16)}
+STEP_ORDER = ("plain", "kernels", "bf16 kernels", "bf16 plain")
+
+
 def step_times():
-    """ms per step of the kernel and plain paths for both envelopes, in
-    STEP_ROUNDS rounds of the order plain, kernels, kernels, plain; and the
-    runs of the one-subnet steps on each path, to profile at the end."""
+    """ms per step of the float32 and bf16 kernel and plain paths for both
+    envelopes, in STEP_ROUNDS rounds of STEP_ORDER and back; and the runs of
+    the one-subnet steps on the float32 paths and the bf16 kernel path, to
+    profile at the end."""
     space = SearchSpace()
     batch = synthetic_batch(BS, HR, DEVICE)
     envelopes = {"1 subnet": ([step_subnets(space, i, 1) for i in range(TRAIN_STEPS)], {}),
@@ -608,40 +716,48 @@ def step_times():
     teacher = kd_teacher(space, DEVICE)
     out, profiles = {}, []
     for env, (steps, kw) in envelopes.items():
-        trainers = {uk: SRTrainer(train_net(DEVICE), use_kernels=uk,
-                                  teacher=teacher if kw else None, **kw)
-                    for uk in (True, False)}
+        trainers = {name: SRTrainer(train_net(DEVICE), use_kernels=uk, compute_dtype=cd,
+                                    teacher=teacher if kw else None, **kw)
+                    for name, (uk, cd) in STEP_PATHS.items()}
 
-        def run(uk, trainers=trainers, steps=steps):  # bound now: profiled later
+        def run(name, trainers=trainers, steps=steps):  # bound now: profiled later
             for cfgs in steps:
-                trainers[uk].train_step(batch, cfgs, 1e-4)
+                trainers[name].train_step(batch, cfgs, 1e-4)
 
-        for uk in (True, False):
-            run(uk)  # warm: cuDNN's algorithm choice, the allocator
-        times = {True: [], False: []}
-        for uk in (False, True, True, False) * STEP_ROUNDS:
-            times[uk].append(timed_steps(lambda: run(uk), len(steps)))
+        for name in STEP_PATHS:
+            run(name)  # warm: cuDNN's algorithm choice, the allocator
+        times = {name: [] for name in STEP_PATHS}
+        for name in (STEP_ORDER + STEP_ORDER[::-1]) * STEP_ROUNDS:
+            times[name].append(timed_steps(lambda: run(name), len(steps)))
         out[env] = {}
-        for uk, name in ((True, "kernels"), (False, "plain")):
-            ev, host = zip(*times[uk])
+        for name in STEP_PATHS:
+            ev, host = zip(*times[name])
             out[env][name] = {"ms": list(ev), "host_enqueue_ms": list(host),
-                              "median_ms": float(np.median(ev))}
+                              "median_ms": float(np.median(ev)),
+                              "median_host_enqueue_ms": float(np.median(host))}
             print("  %s, %s: ms per step (CUDA events) %s, median %.4f; host enqueue %s"
                   % (env, name, [round(t, 3) for t in ev], np.median(ev),
                      [round(t, 3) for t in host]), flush=True)
         if env == "1 subnet":
-            profiles += [("train %s" % ("kernels" if uk else "plain"),
-                          functools.partial(run, uk), len(steps),
+            profiles += [("train %s" % name, functools.partial(run, name), len(steps),
                           out[env][name]["median_ms"])
-                         for uk, name in ((True, "kernels"), (False, "plain"))]
+                         for name in ("kernels", "plain", "bf16 kernels")]
     return out, profiles
 
 
 # -- phase 5: per-kernel numbers at the path's shapes ------------------------
 
+def steady_ms(fn, repeats=3):
+    """Median of `repeats` time_ms runs (20 calls each): a call of the BN
+    wrappers is mostly host time, and one slow stretch of the host would
+    otherwise stand for the shape."""
+    return float(np.median([time_ms(fn) for _ in range(repeats)]))
+
+
 def measure_shape(kernel, plain, flops, nbytes_, launches, unit="frame", library=None,
                   peak=PEAK_F32_FLOPS, ops_ms=None, **info):
-    """Kernel, plain and (where given) library ms per launch at one shape,
+    """Kernel, plain and (where given) library ms per launch at one shape
+    (median of 3 runs of 20 back-to-back calls),
     beside its bound (`flops` at `peak`, or `ops_ms` where the operations
     run on more than one pipe, or the bytes); `launches` per `unit` (frame
     or step)."""
@@ -649,8 +765,8 @@ def measure_shape(kernel, plain, flops, nbytes_, launches, unit="frame", library
     if ops_ms is not None:
         t = (ops_ms, t[1])
     return dict(info, **{"launches_per_" + unit: launches},
-                ms_per_launch=time_ms(kernel), plain_ms_per_launch=time_ms(plain),
-                library_ms_per_launch=time_ms(library) if library else None,
+                ms_per_launch=steady_ms(kernel), plain_ms_per_launch=steady_ms(plain),
+                library_ms_per_launch=steady_ms(library) if library else None,
                 bound_ms_per_launch=max(t), flop=flops, bytes=nbytes_, _t=t)
 
 
@@ -714,7 +830,7 @@ def kernel_numbers(g, cfg, counts, errs):
                        max_abs_err_vs_f64=errs["shuffle_tail_vs_f64"])]
 
 
-def bn_kernel_numbers(g, launches, errs):
+def bn_kernel_numbers(g, launches, errs, dtype=torch.float32):
     """Per BN kernel row: time per one-subnet training step of its launches
     at the path's shapes (the subnets of the counted one-subnet steps,
     launches averaged per step), against its plain version, the card's least
@@ -724,27 +840,31 @@ def bn_kernel_numbers(g, launches, errs):
     channels-last NCHW view for the fused backward, checked here to return
     the plain version's results. The backward row times `bn_backward` as
     bn_train_fused calls it: the sums of the TPU kernel `bn_bwd_sums` and the
-    dx that XLA fuses after it, hence its name."""
+    dx that XLA fuses after it, hence its name. `dtype` bf16 gives the bf16
+    forms' rows, on bf16 activations (float32 scale, mean and inv), with
+    their bf16 launches."""
+    bf16 = dtype is BF16
     space = SearchSpace()
     per_step = {}
     for i in range(TRAIN_STEPS):
         for shp in bn_train_shapes(space, step_subnets(space, i, 1)[0], BS, HR):
             per_step[shp] = per_step.get(shp, 0) + 1.0 / TRAIN_STEPS
     mom, bwd = [], []
+    library_note = None
     for shp in sorted(per_step):
         n, c = int(np.prod(shp[:3])), shp[3]
         k = per_step[shp]
-        x = (1.5 * randn(g, *shp) + 0.3).contiguous()
+        x = (1.5 * randn(g, *shp) + 0.3).to(dtype).contiguous()
         mom.append(measure_shape(
             lambda: bn_moments(x), lambda: bn_moments_reference(x),
             flops=3 * n * c, nbytes_=nbytes(x) + 2 * c * 4, launches=k,
             unit="step", library=lambda: torch.var_mean(x, dim=(0, 1, 2), correction=0),
             shape=list(shp)))
-        dy = randn(g, *shp)
+        dy = randn(g, *shp).to(dtype)
         mean, var = bn_moments_reference(x)
         inv = torch.rsqrt(var + 1e-5)
         scale = (0.5 + torch.rand(c, generator=g)).to(DEVICE)
-        dyf = dy.view(n, c)
+        dyf = dy.view(n, c).float()
         nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731  channels-last NCHW view
 
         def library():
@@ -752,25 +872,39 @@ def bn_kernel_numbers(g, launches, errs):
                 nchw(dy), nchw(x), scale, None, None, mean, inv, True, 1e-5,
                 [True, True, True])
 
-        lib_dx, lib_ds, lib_db = library()
+        try:
+            lib_dx, lib_ds, lib_db = library()
+        except RuntimeError as e:  # a yardstick only: the port never calls it
+            library_note = "native_batch_norm_backward refused %s input: %s" % (
+                dtype, str(e).splitlines()[0][:160])
+            print("  " + library_note, flush=True)
+            library = None
         ref = bn_backward_reference(dy, x, scale, mean, inv)
-        xhat = (x.view(n, c) - mean) * inv
-        check_close("native_batch_norm_backward dx %s" % (shp,), lib_dx.permute(0, 2, 3, 1),
-                    ref[0], TOL)
-        check_sums("native_batch_norm_backward dscale %s" % (shp,), lib_ds, ref[1], dyf * xhat)
-        check_sums("native_batch_norm_backward dbias %s" % (shp,), lib_db, ref[2], dyf)
+        if library is not None:
+            xhat = (x.view(n, c).float() - mean) * inv
+            check_close("native_batch_norm_backward%s dx %s" % (" bf16" if bf16 else "", shp),
+                        lib_dx.permute(0, 2, 3, 1).float(), ref[0].float(),
+                        BF16_DX_TOL if bf16 else TOL)
+            check_sums("native_batch_norm_backward dscale %s" % (shp,), lib_ds.float(), ref[1],
+                       dyf * xhat)
+            check_sums("native_batch_norm_backward dbias %s" % (shp,), lib_db.float(), ref[2],
+                       dyf)
         bwd.append(measure_shape(
             lambda: bn_backward(dy, x, scale, mean, inv),
             lambda: bn_backward_reference(dy, x, scale, mean, inv),
             flops=11 * n * c, nbytes_=3 * nbytes(dy) + 5 * c * 4, launches=k,
             unit="step", library=library, shape=list(shp)))
-    rows = [kernel_row("col_sums2", "ofa_sr_tpu_torch/csrc/bn_stats.cu",
-                       "ofa_sr_tpu/ops/pallas/bn_stats.py:94", launches["col_sums2"],
-                       errs["col_sums2"], mom, unit="step", wrapper="bn_moments"),
-            kernel_row(BWD_ROW, "ofa_sr_tpu_torch/csrc/bn_stats.cu",
-                       "ofa_sr_tpu/ops/pallas/bn_stats.py:196", launches["bn_backward"],
-                       errs["bn_bwd_sums"], bwd, unit="step", wrapper="bn_backward")]
-    return rows
+    key = "_bf16" if bf16 else ""
+    info = dict(unit="step", dtype=str(dtype).replace("torch.", ""))
+    if library_note:
+        info["library_note"] = library_note
+    names = (BF16_ROWS["col_sums2"], BF16_ROWS[BWD_ROW]) if bf16 else ("col_sums2", BWD_ROW)
+    return [kernel_row(names[0], "ofa_sr_tpu_torch/csrc/bn_stats.cu",
+                       "ofa_sr_tpu/ops/pallas/bn_stats.py:94", launches["col_sums2" + key],
+                       errs["col_sums2" + key], mom, wrapper="bn_moments", **info),
+            kernel_row(names[1], "ofa_sr_tpu_torch/csrc/bn_stats.cu",
+                       "ofa_sr_tpu/ops/pallas/bn_stats.py:196", launches["bn_backward" + key],
+                       errs["bn_bwd_sums" + key], bwd, wrapper="bn_backward", **info)]
 
 
 def main():
@@ -805,6 +939,10 @@ def main():
     errs = kernel_parity(g)
     errs.update(bn_parity(g))
     bn_grad_check(g)
+    print("phase 2: the BN kernels' bf16 forms", flush=True)
+    errs.update(bn_parity(g, BF16))
+    bn_grad_check(g, BF16)
+    bn_dtype_rule()
 
     print("phase 3: serving %d frames of %dx%d LR" % ((N_FRAMES,) + LR_HW), flush=True)
     net = build_net(dev)
@@ -825,14 +963,21 @@ def main():
     del fn, args, y
     print("phase 4: entry.train, bs%d %dx%d HR, full-width supernet" % (BS, HR, HR), flush=True)
     train_runs = training_main_path()
-    bn_counts = {k.__name__: sum(r["launches"][k.__name__] for r in train_runs.values())
-                 for k in BN_KERNELS}
+    print("phase 4: entry.train in bf16 mixed precision (compute_dtype=torch.bfloat16)",
+          flush=True)
+    train_runs_bf16 = training_main_path(BF16)
+    bn_counts = {}
+    for runs, key in ((train_runs, ""), (train_runs_bf16, "_bf16")):
+        for k in BN_KERNELS:
+            name = k.__name__ + key
+            bn_counts[name] = sum(r["launches"][name] for r in runs.values())
     training_checks()
     step_ms, train_runs_to_profile = step_times()
 
     print("phase 5: per-kernel numbers", flush=True)
     bn_rows = bn_kernel_numbers(g, bn_counts, errs)
-    rows = kernel_numbers(g, cfg, counts, errs) + bn_rows
+    bn_rows_bf16 = bn_kernel_numbers(g, bn_counts, errs, BF16)
+    rows = kernel_numbers(g, cfg, counts, errs) + bn_rows + bn_rows_bf16
     for r in rows:
         print("  %-20s %d launches  %.4f ms/%s  plain %.4f  bound %.4f (%s)  library %s"
               % (r["name"], r["launches"], r["ms"], r["per"], r["plain_ms"], r["bound_ms"],
@@ -843,19 +988,22 @@ def main():
     print("phase 5: device profiles", flush=True)
     profiles = [device_profile(*p, "frame") for p in profiles]
     train_profiles = [device_profile(*p, "step") for p in train_runs_to_profile]
-    for r in bn_rows:  # the kernels' own device time in the kernel path's step
-        names = BN_ROW_KERNELS[r["name"]]
-        r["device_ms"] = sum(k["ms_per_step"] for k in train_profiles[0]["port_kernels"]
-                             if any(n in k["kernel"] for n in names))
-        print("  %s: %.4f ms per step on the device (bound %.4f)"
-              % (r["name"], r["device_ms"], r["bound_ms"]), flush=True)
+    by_path = {p["path"]: p for p in train_profiles}
+    # the kernels' own device time in the kernel path's step of their type
+    for rows_, path in ((bn_rows, "train kernels"), (bn_rows_bf16, "train bf16 kernels")):
+        for r, names in zip(rows_, BN_ROW_KERNELS.values()):
+            r["device_ms"] = sum(k["ms_per_step"] for k in by_path[path]["port_kernels"]
+                                 if any(n in k["kernel"] for n in names))
+            print("  %s: %.4f ms per step on the device (bound %.4f)"
+                  % (r["name"], r["device_ms"], r["bound_ms"]), flush=True)
     for prof, (name, run, n, _) in zip(train_profiles, train_runs_to_profile):
         after = timed_steps(run, n)
         prof["ms_after_profiling"], prof["host_enqueue_ms_after_profiling"] = after
         print("  %s after the profiles: %.4f ms per step (CUDA events), host enqueue %.4f"
               % ((name,) + after), flush=True)
     print(json.dumps({"kernels": rows, "frame_ms": frame_ms, "frame_profile": profiles,
-                      "entry_ms": entry_ms, "train_runs": train_runs, "step_ms": step_ms,
+                      "entry_ms": entry_ms, "train_runs": train_runs,
+                      "train_runs_bf16": train_runs_bf16, "step_ms": step_ms,
                       "step_profile": train_profiles, "build_s": build_s,
                       "mbconv_smem_bytes": mb_smem, "gpu": smi_line}))
     print(smi_line)

@@ -1,5 +1,5 @@
 // Column reductions for BatchNorm statistics, and the train-mode BN
-// backward built on them, float32, for sm_90a.
+// backward built on them, for sm_90a, on float32 or bfloat16 activations.
 //
 // Replaces the Pallas kernels of ofa_sr_tpu/ops/pallas/bn_stats.py:
 //   `col_sums2` (`_kernel`)       -> (sum_n a[n,c], sum_n a[n,c]*b[n,c])
@@ -10,7 +10,7 @@
 // finalized as mean = s1/N, var = s2/N - mean^2 (`bn_moments_pallas`); the
 // moments mode reads x once and finalizes in pass 2.
 //
-// `ofa_bn_backward_f32` is the whole backward of `bn_train_fused`
+// `ofa_bn_backward_*` is the whole backward of `bn_train_fused`
 // (ofa_sr_tpu/ops/pallas/bn.py `_bwd`, without the moments' cotangents):
 //   s1 = sum_n dy, s2 = sum_n dy*xhat, xhat = (x - mean)*inv
 //   dx = inv*scale*(dy - s1/N - xhat*s2/N), dscale = s2, dbias = s1
@@ -18,25 +18,38 @@
 // PyTorch would run it as ~9 elementwise kernels. Here it is a third pass
 // in the same call.
 //
+// Operand types. The Pallas kernels read their operands in whatever type
+// they come in and accumulate in float32 (`.astype(jnp.float32)` on each
+// tile); under the JAX trainer's bf16 compute (`cast_params_for_compute`)
+// BN receives bf16 activations. So each entry point has two forms: `_f32`
+// (float a, b / dy, x, dx) and `_bf16` (__nv_bfloat16 a, b / dy, x, dx),
+// one template instantiated twice. Both convert every element to float32
+// with the intrinsics, add in the same fixed order, and write float32 sums,
+// moments and coefficients; the bf16 dx is rounded once, from its float32
+// value (`__floats2bfloat162_rn` / `__float2bfloat16_rn`), as the JAX VJP's
+// `dx.astype(x.dtype)` does. scale, mean and inv are float32 in both.
+//
 // What bounds it on the H100: bytes. Each element is read once and costs 2
 // to 5 FLOP, far below the card's float32 FLOP/byte ridge (67 TFLOP/s over
-// 3.35 TB/s = 20), so the least time is N*C*4 bytes (moments), 2*N*C*4
-// bytes (backward sums) or 3*N*C*4 bytes (backward with dx) over the memory
-// rate.
+// 3.35 TB/s = 20), so the least time is N*C*s bytes (moments), 2*N*C*s
+// bytes (backward sums) or 3*N*C*s bytes (backward with dx) over the memory
+// rate, s = 4 (float32) or 2 (bf16): the bf16 forms' bound is half.
 //
 // Design. The Pallas kernel walks row tiles in order and adds into one
 // resident (2, C) block; blocks of a CUDA grid run in parallel and in no
 // order, so the sum is split in two passes, with no atomics, so the same
 // input gives the same bits on every run:
 //   pass 1: block (g, t) sums rows [g*R, (g+1)*R), R = ceil(N / G), of
-//           column tile t (up to 256 column groups) into a partial pair. A column group is 4
-//           adjacent columns read as one float4 where C % 4 == 0 and the
-//           rows are 16-byte aligned, else one column. Thread i owns group
-//           i % cq of row group i / cq, and steps by 256 / cq rows, so
-//           neighbouring threads read neighbouring addresses at every C
-//           (C=3 too: 255 threads cover 85 consecutive rows of 3). Rows past
-//           N are never read. The row groups of a column are then summed in
-//           shared memory, in order, and the block writes its pair to
+//           column tile t (up to 256 column groups) into a partial pair. A
+//           column group is V adjacent columns read as one 16-byte load
+//           (V = 4 floats or 8 bf16) where C % V == 0 and the rows are
+//           16-byte aligned; else, for bf16, 2 columns (4 bytes) where
+//           C % 2 == 0; else one column. Thread i owns group i % cq of row
+//           group i / cq, and steps by 256 / cq rows, so neighbouring
+//           threads read neighbouring addresses at every C (C=3 too: 255
+//           threads cover 85 consecutive rows of 3). Rows past N are never
+//           read. The row groups of a column are then summed in shared
+//           memory, in order, and the block writes its pair to
 //           partial[(k*C + c)*G + g] (k = 0 for the first sum, 1 for the
 //           second).
 //   pass 2: one warp per column c sums its G partials of both sums: lane l
@@ -44,14 +57,15 @@
 //           moments mode writes (mean, var) in place of (s1, s2), the
 //           backward also the column's dx coefficients (inv*scale, s1/N,
 //           s2/N).
-//   pass 3 (backward): dx, one grid-stride pass, float4 loads and stores
-//           where C % 4 == 0 and the pointers are 16-byte aligned. The grid
-//           is a multiple of C / gcd(C, stride) so that a thread's columns
-//           stay the same on every step and their coefficients are loaded
-//           once.
+//   pass 3 (backward): dx, one grid-stride pass, with pass 1's vector
+//           width where dy, x and dx are aligned for it. The grid is a
+//           multiple of W / gcd(W, THREADS) (W = C / V groups a row) so
+//           that a thread's columns stay the same on every step and their
+//           coefficients are loaded once.
 // The scratch `partial` (2*C*G floats), `out` (2*C) and `coef` (3*C) are
 // allocated by the caller.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -65,11 +79,68 @@ constexpr int DX_BLOCKS = 1024;  // pass 3: blocks aimed at (before rounding)
 // MOMENTS reads `a` once (b = a) and finalizes in pass 2
 enum Mode { SUMS2 = 0, MOMENTS = 1, BWD = 2 };
 
-// V = 4: each thread owns 4 adjacent columns and reads them as one float4
-// (C % 4 == 0, 16-byte aligned rows); V = 1: one column, any C
-template <int MODE, int V>
+// V adjacent elements at p (aligned to V elements) as float32
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    static_assert(V == 1, "float columns are read 4 or 1 at a time");
+    v[0] = p[0];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[V]) {
+  if constexpr (V == 8) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      v[2 * e] = f.x, v[2 * e + 1] = f.y;
+    }
+  } else if constexpr (V == 2) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    v[0] = f.x, v[1] = f.y;
+  } else {
+    static_assert(V == 1, "bf16 columns are read 8, 2 or 1 at a time");
+    v[0] = __bfloat162float(p[0]);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    static_assert(V == 1, "float columns are written 4 or 1 at a time");
+    p[0] = v[0];
+  }
+}
+
+// one rounding to nearest even per element, from its float32 value
+template <int V>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[V]) {
+  if constexpr (V == 8) {
+    uint4 t;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    *reinterpret_cast<uint4*>(p) = t;
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+    static_assert(V == 1, "bf16 columns are written 8, 2 or 1 at a time");
+    p[0] = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// each thread owns V adjacent columns, read as one load (see load_vec)
+template <int MODE, typename T, int V>
 __global__ void __launch_bounds__(THREADS)
-col_partials_kernel(const float* __restrict__ a, const float* __restrict__ b,
+col_partials_kernel(const T* __restrict__ a, const T* __restrict__ b,
                     const float* __restrict__ mean,
                     const float* __restrict__ inv,
                     float* __restrict__ partial, int N, int C) {
@@ -100,17 +171,8 @@ col_partials_kernel(const float* __restrict__ a, const float* __restrict__ b,
     for (long long r = r0 + grp; r < r1; r += rp) {
       const size_t i = (size_t)r * C + col;
       float av[V], bv[V];
-      if constexpr (V == 4) {
-        const float4 a4 = *reinterpret_cast<const float4*>(a + i);
-        av[0] = a4.x, av[1] = a4.y, av[2] = a4.z, av[3] = a4.w;
-        if (MODE != MOMENTS) {
-          const float4 b4 = *reinterpret_cast<const float4*>(b + i);
-          bv[0] = b4.x, bv[1] = b4.y, bv[2] = b4.z, bv[3] = b4.w;
-        }
-      } else {
-        av[0] = a[i];
-        if (MODE != MOMENTS) bv[0] = b[i];
-      }
+      load_vec<V>(a + i, av);
+      if (MODE != MOMENTS) load_vec<V>(b + i, bv);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         float x = MODE == MOMENTS ? av[e] : bv[e];
@@ -186,63 +248,78 @@ __device__ __forceinline__ float dx_of(float dy, float x, float mean,
   return k * (dy - m1 - ((x - mean) * inv) * m2);
 }
 
-// pass 3, C % 4 == 0: thread t handles float4 u = t, t + S, ... of the
-// N*C/4; S*4 % C == 0, so its 4 columns are the same on every step
+// pass 3: thread t handles the V-element groups u = t, t + S, ... of the
+// N*C/V; S % (C/V) == 0, so its V columns are the same on every step
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
-bn_dx_kernel_vec4(const float4* __restrict__ dy, const float4* __restrict__ x,
-                  const float4* __restrict__ mean,
-                  const float4* __restrict__ inv,
-                  const float4* __restrict__ coef, float4* __restrict__ dx,
-                  long long units, int C4) {
-  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long stride = (long long)gridDim.x * THREADS;
-  if (t >= units) return;
-  const int q = (int)(t % C4);
-  const float4 m = mean[q], iv = inv[q], k = coef[q], m1 = coef[C4 + q],
-               m2 = coef[2 * C4 + q];
-  for (long long u = t; u < units; u += stride) {
-    const float4 d = dy[u], xv = x[u];
-    float4 r;
-    r.x = dx_of(d.x, xv.x, m.x, iv.x, k.x, m1.x, m2.x);
-    r.y = dx_of(d.y, xv.y, m.y, iv.y, k.y, m1.y, m2.y);
-    r.z = dx_of(d.z, xv.z, m.z, iv.z, k.z, m1.z, m2.z);
-    r.w = dx_of(d.w, xv.w, m.w, iv.w, k.w, m1.w, m2.w);
-    dx[u] = r;
-  }
-}
-
-// pass 3, any C: one element a step, S % C == 0
-__global__ void __launch_bounds__(THREADS)
-bn_dx_kernel(const float* __restrict__ dy, const float* __restrict__ x,
+bn_dx_kernel(const T* __restrict__ dy, const T* __restrict__ x,
              const float* __restrict__ mean, const float* __restrict__ inv,
-             const float* __restrict__ coef, float* __restrict__ dx,
+             const float* __restrict__ coef, T* __restrict__ dx,
              long long units, int C) {
   const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
   const long long stride = (long long)gridDim.x * THREADS;
   if (t >= units) return;
-  const int c = (int)(t % C);
-  const float m = mean[c], iv = inv[c], k = coef[c], m1 = coef[C + c],
-              m2 = coef[2 * C + c];
-  for (long long u = t; u < units; u += stride)
-    dx[u] = dx_of(dy[u], x[u], m, iv, k, m1, m2);
+  const int c0 = (int)(t % (C / V)) * V;
+  float m[V], iv[V], k[V], m1[V], m2[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    m[e] = mean[c0 + e], iv[e] = inv[c0 + e], k[e] = coef[c0 + e];
+    m1[e] = coef[C + c0 + e], m2[e] = coef[2 * C + c0 + e];
+  }
+  for (long long u = t; u < units; u += stride) {
+    float d[V], xv[V], r[V];
+    load_vec<V>(dy + u * V, d);
+    load_vec<V>(x + u * V, xv);
+#pragma unroll
+    for (int e = 0; e < V; ++e) r[e] = dx_of(d[e], xv[e], m[e], iv[e], k[e], m1[e], m2[e]);
+    store_vec<V>(dx + u * V, r);
+  }
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+bool aligned(const void* p, size_t bytes) { return ((uintptr_t)p % bytes) == 0; }
 
-template <int MODE>
-cudaError_t launch(const float* a, const float* b, const float* mean,
+// the widest group of columns every row of `p`s can be read in: 16 bytes
+// (4 floats, 8 bf16) where C allows it and the rows are aligned, then, for
+// bf16, 2 columns (4 bytes), then 1
+template <typename T>
+int vec_width(int C, const void* p0, const void* p1, const void* p2 = nullptr) {
+  auto ok = [&](int v) {
+    const size_t bytes = v * sizeof(T);
+    return C % v == 0 && aligned(p0, bytes) && aligned(p1, bytes) &&
+           (p2 == nullptr || aligned(p2, bytes));
+  };
+  constexpr int wide = 16 / sizeof(T);
+  if (ok(wide)) return wide;
+  if (sizeof(T) == 2 && ok(2)) return 2;
+  return 1;
+}
+
+template <int MODE, typename T, int V>
+void launch_partials(const T* a, const T* b, const float* mean,
+                     const float* inv, float* partial, int N, int C, int G,
+                     cudaStream_t stream) {
+  col_partials_kernel<MODE, T, V>
+      <<<dim3(G, (C + V * THREADS - 1) / (V * THREADS)), THREADS, 0,
+         stream>>>(a, b, mean, inv, partial, N, C);
+}
+
+template <int MODE, typename T>
+cudaError_t launch(const T* a, const T* b, const float* mean,
                    const float* inv, const float* scale, float* partial,
                    float* out, float* coef, int N, int C, int G,
                    cudaStream_t stream) {
-  const bool vec = C % 4 == 0 && aligned16(a) && aligned16(b);
-  if (vec)
-    col_partials_kernel<MODE, 4>
-        <<<dim3(G, (C + 4 * THREADS - 1) / (4 * THREADS)), THREADS, 0,
-           stream>>>(a, b, mean, inv, partial, N, C);
-  else
-    col_partials_kernel<MODE, 1>
-        <<<dim3(G, (C + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-            a, b, mean, inv, partial, N, C);
+  constexpr int wide = 16 / sizeof(T);
+  const int v = vec_width<T>(C, a, b);
+  if (v == wide)
+    launch_partials<MODE, T, wide>(a, b, mean, inv, partial, N, C, G, stream);
+  else if constexpr (sizeof(T) == 2) {
+    if (v == 2)
+      launch_partials<MODE, T, 2>(a, b, mean, inv, partial, N, C, G, stream);
+    else
+      launch_partials<MODE, T, 1>(a, b, mean, inv, partial, N, C, G, stream);
+  } else {
+    launch_partials<MODE, T, 1>(a, b, mean, inv, partial, N, C, G, stream);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   finish_kernel<MODE><<<(C + WARPS2 - 1) / WARPS2, WARPS2 * 32, 0, stream>>>(
@@ -263,68 +340,111 @@ int gcd(int a, int b) {
   return a;
 }
 
-}  // namespace
-
-// mode 0: col_sums2(a, b); 1: the moments (mean, biased var) of a's
-// columns, reading a once (b unused); 2: bn_bwd_sums(dy=a, x=b, mean, inv).
-// `partial` holds 2*C*G floats, `out` 2*C:
-// out[c] is the first result of column c, out[C + c] the second. Pass 1
-// runs G blocks along the rows, each over ceil(N / G) rows.
-extern "C" int ofa_col_sums2_f32(const float* a, const float* b,
-                                 const float* mean, const float* inv,
-                                 float* partial, float* out, int N, int C,
-                                 int G, int mode, void* stream) {
-  if (bad_shape(N, C, G)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (mode) {
-    case SUMS2:
-      return (int)launch<SUMS2>(a, b, mean, inv, nullptr, partial, out,
-                                nullptr, N, C, G, s);
-    case MOMENTS:
-      return (int)launch<MOMENTS>(a, a, mean, inv, nullptr, partial, out,
-                                  nullptr, N, C, G, s);
-    case BWD:
-      if (mean == nullptr || inv == nullptr) return (int)cudaErrorInvalidValue;
-      return (int)launch<BWD>(a, b, mean, inv, nullptr, partial, out, nullptr,
-                              N, C, G, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The train-mode BN backward: out = (s1 = dbias, s2 = dscale) as in mode 2,
-// and dx (N, C). `partial` holds 2*C*G floats, `coef` 3*C.
-extern "C" int ofa_bn_backward_f32(const float* dy, const float* x,
-                                   const float* scale, const float* mean,
-                                   const float* inv, float* partial,
-                                   float* coef, float* out, float* dx, int N,
-                                   int C, int G, void* stream) {
-  if (bad_shape(N, C, G) || !dy || !x || !scale || !mean ||
-      !inv || !coef || !dx)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = launch<BWD>(dy, x, mean, inv, scale, partial, out, coef, N,
-                              C, G, s);
-  if (e != cudaSuccess) return (int)e;
-  const bool vec = C % 4 == 0 && aligned16(dy) && aligned16(x) &&
-                   aligned16(mean) && aligned16(inv) && aligned16(coef) &&
-                   aligned16(dx);
-  const int width = vec ? C / 4 : C;            // units per row
+template <typename T, int V>
+cudaError_t launch_dx(const T* dy, const T* x, const float* mean,
+                      const float* inv, const float* coef, T* dx, int N,
+                      int C, cudaStream_t stream) {
+  const int width = C / V;  // units per row
   const long long units = (long long)N * width;
   // blocks: a multiple of q, so that stride * k covers whole rows
   const int q = width / gcd(width, THREADS);
   long long blocks = (units + THREADS - 1) / THREADS;
   if (blocks > DX_BLOCKS) blocks = DX_BLOCKS;
   blocks = (blocks + q - 1) / q * q;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (vec)
-    bn_dx_kernel_vec4<<<(unsigned)blocks, THREADS, 0, s>>>(
-        (const float4*)dy, (const float4*)x, (const float4*)mean,
-        (const float4*)inv, (const float4*)coef, (float4*)dx, units, width);
-  else
-    bn_dx_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(dy, x, mean, inv, coef,
-                                                      dx, units, C);
-  return (int)cudaGetLastError();
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  bn_dx_kernel<T, V><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      dy, x, mean, inv, coef, dx, units, C);
+  return cudaGetLastError();
+}
+
+// mode 0: col_sums2(a, b); 1: the moments (mean, biased var) of a's
+// columns, reading a once (b unused); 2: bn_bwd_sums(dy=a, x=b, mean, inv).
+template <typename T>
+int col_sums2(const T* a, const T* b, const float* mean, const float* inv,
+              float* partial, float* out, int N, int C, int G, int mode,
+              void* stream) {
+  if (bad_shape(N, C, G)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case SUMS2:
+      return (int)launch<SUMS2, T>(a, b, mean, inv, nullptr, partial, out,
+                                   nullptr, N, C, G, s);
+    case MOMENTS:
+      return (int)launch<MOMENTS, T>(a, a, mean, inv, nullptr, partial, out,
+                                     nullptr, N, C, G, s);
+    case BWD:
+      if (mean == nullptr || inv == nullptr) return (int)cudaErrorInvalidValue;
+      return (int)launch<BWD, T>(a, b, mean, inv, nullptr, partial, out,
+                                 nullptr, N, C, G, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int bn_backward(const T* dy, const T* x, const float* scale,
+                const float* mean, const float* inv, float* partial,
+                float* coef, float* out, T* dx, int N, int C, int G,
+                void* stream) {
+  if (bad_shape(N, C, G) || !dy || !x || !scale || !mean || !inv || !coef ||
+      !dx)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = launch<BWD, T>(dy, x, mean, inv, scale, partial, out, coef,
+                                 N, C, G, s);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int wide = 16 / sizeof(T);
+  const int v = vec_width<T>(C, dy, x, dx);
+  if (v == wide) return (int)launch_dx<T, wide>(dy, x, mean, inv, coef, dx, N, C, s);
+  if constexpr (sizeof(T) == 2) {
+    if (v == 2) return (int)launch_dx<T, 2>(dy, x, mean, inv, coef, dx, N, C, s);
+  }
+  return (int)launch_dx<T, 1>(dy, x, mean, inv, coef, dx, N, C, s);
+}
+
+}  // namespace
+
+// `partial` holds 2*C*G floats, `out` 2*C: out[c] is the first result of
+// column c, out[C + c] the second. Pass 1 runs G blocks along the rows,
+// each over ceil(N / G) rows. mode: see col_sums2 above.
+extern "C" int ofa_col_sums2_f32(const float* a, const float* b,
+                                 const float* mean, const float* inv,
+                                 float* partial, float* out, int N, int C,
+                                 int G, int mode, void* stream) {
+  return col_sums2<float>(a, b, mean, inv, partial, out, N, C, G, mode,
+                          stream);
+}
+
+extern "C" int ofa_col_sums2_bf16(const __nv_bfloat16* a,
+                                  const __nv_bfloat16* b, const float* mean,
+                                  const float* inv, float* partial,
+                                  float* out, int N, int C, int G, int mode,
+                                  void* stream) {
+  return col_sums2<__nv_bfloat16>(a, b, mean, inv, partial, out, N, C, G,
+                                  mode, stream);
+}
+
+// The train-mode BN backward: out = (s1 = dbias, s2 = dscale) as in mode 2,
+// and dx (N, C) in the operands' type. `partial` holds 2*C*G floats, `coef`
+// 3*C.
+extern "C" int ofa_bn_backward_f32(const float* dy, const float* x,
+                                   const float* scale, const float* mean,
+                                   const float* inv, float* partial,
+                                   float* coef, float* out, float* dx, int N,
+                                   int C, int G, void* stream) {
+  return bn_backward<float>(dy, x, scale, mean, inv, partial, coef, out, dx,
+                            N, C, G, stream);
+}
+
+extern "C" int ofa_bn_backward_bf16(const __nv_bfloat16* dy,
+                                    const __nv_bfloat16* x,
+                                    const float* scale, const float* mean,
+                                    const float* inv, float* partial,
+                                    float* coef, float* out,
+                                    __nv_bfloat16* dx, int N, int C, int G,
+                                    void* stream) {
+  return bn_backward<__nv_bfloat16>(dy, x, scale, mean, inv, partial, coef,
+                                    out, dx, N, C, G, stream);
 }
 
 extern "C" const char* ofa_cuda_error_string(int e) {

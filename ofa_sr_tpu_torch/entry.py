@@ -14,7 +14,8 @@ frames one at a time, like the JAX package's
 96x96 HR frames with their 2x / 4x LR inputs made from a numpy seed, one or
 more sampled subnets a step under the reference's seed contract, Adam with
 weight decay 3e-5 and, with `kd_ratio > 0`, KD against the bench's teacher
-(ks5/e3/d2/pixel_d 1).
+(ks5/e3/d2/pixel_d 1); `compute_dtype=torch.bfloat16` is the JAX bench's
+own mixed-precision training (`SRTrainer(compute_dtype=jnp.bfloat16)`).
 
 All three run on the GPU unless the caller passes `device="cpu"`.
 """
@@ -111,12 +112,14 @@ def kd_teacher(space: SearchSpace, device):
 
 def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda",
           net: Optional[OFAMobileNetS4] = None, batch_size: int = 16, hr_size: int = 96,
-          lr: float = 1e-4, use_kernels: Optional[bool] = None) -> List[dict]:
+          lr: float = 1e-4, use_kernels: Optional[bool] = None,
+          compute_dtype: Optional[torch.dtype] = None) -> List[dict]:
     """Train `net` (default: a seed-0 full-width OFAMobileNetS4 on `device`)
     for `steps` optimizer steps of `n_subnets` subnets each, on one
     synthetic batch. On a CUDA net train-mode BN runs the BN-statistics
-    kernels unless `use_kernels=False`. Returns each step's {"loss",
-    "psnr"} as floats."""
+    kernels unless `use_kernels=False`. `compute_dtype` (None: float32;
+    torch.bfloat16: mixed precision, float32 masters) as `SRTrainer`'s.
+    Returns each step's {"loss", "psnr"} as floats."""
     dev = resolve_device(device)
     if net is None:
         net = OFAMobileNetS4(SearchSpace(), device=dev)
@@ -124,7 +127,7 @@ def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda
         raise ValueError("net is on %s, train was asked for %s" % (net.device, dev))
     teacher = kd_teacher(net.space, dev) if kd_ratio > 0 else None
     trainer = SRTrainer(net, opt_type="adam", weight_decay=3e-5, kd_ratio=kd_ratio,
-                        teacher=teacher, use_kernels=use_kernels)
+                        teacher=teacher, use_kernels=use_kernels, compute_dtype=compute_dtype)
     batch = synthetic_batch(batch_size, hr_size, dev)
     metrics = [trainer.train_step(batch, step_subnets(net.space, i, n_subnets), lr)
                for i in range(steps)]

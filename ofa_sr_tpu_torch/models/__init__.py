@@ -2,6 +2,8 @@ from .arch import (
     SearchSpace,
     SubnetConfig,
     max_subnet,
+    reference_quirk_arch_s4,
+    reference_quirk_arch_x4,
     sample_subnet,
     subnet_seed,
     uniform_subnet,
@@ -16,6 +18,8 @@ __all__ = [
     "SubnetConfig",
     "get_active_subnet",
     "max_subnet",
+    "reference_quirk_arch_s4",
+    "reference_quirk_arch_x4",
     "sample_subnet",
     "subnet_seed",
     "uniform_subnet",

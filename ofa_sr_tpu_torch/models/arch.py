@@ -7,6 +7,9 @@ there is no device-side encoding (`to_device` in the JAX package).
 Sampling keeps the reference's exact draw order: `random.seed(subnet_seed)`,
 then per-block `random.choice(ks)`, per-block choice(e), per-stage choice(d)
 and one choice(pixel_d). The same seed gives the same subnet in both packages.
+`n_trunks` counts the elastic trunks (1 for S4; the X4 autoencoder has an
+encoder and a decoder trunk); `reference_quirk_arch_s4/x4` map a sampled
+subnet to the one the reference networks actually execute.
 """
 
 from __future__ import annotations
@@ -70,25 +73,44 @@ class SubnetConfig:
     pixel_d: int
 
 
-def max_subnet(space: SearchSpace) -> SubnetConfig:
-    n_blocks = space.blocks_per_trunk
+def max_subnet(space: SearchSpace, n_trunks: int = 1) -> SubnetConfig:
+    n_blocks = space.blocks_per_trunk * n_trunks
     return SubnetConfig(
         ks=tuple([space.max_ks] * n_blocks),
         e=tuple([space.max_expand] * n_blocks),
-        d=tuple([space.max_depth] * space.n_stages),
+        d=tuple([space.max_depth] * (space.n_stages * n_trunks)),
         pixel_d=max(space.pixel_d_list),
     )
 
 
-def uniform_subnet(space: SearchSpace, ks, e, d, pixel_d) -> SubnetConfig:
+def uniform_subnet(space: SearchSpace, ks, e, d, pixel_d, n_trunks: int = 1) -> SubnetConfig:
     """Broadcast scalars across blocks/stages."""
-    n_blocks = space.blocks_per_trunk
+    n_blocks = space.blocks_per_trunk * n_trunks
     return SubnetConfig(
         ks=tuple(int2list(ks, n_blocks)),
         e=tuple(int2list(e, n_blocks)),
-        d=tuple(int2list(d, space.n_stages)),
+        d=tuple(int2list(d, space.n_stages * n_trunks)),
         pixel_d=pixel_d if not isinstance(pixel_d, (list, tuple)) else pixel_d[0],
     )
+
+
+def reference_quirk_arch_s4(cfg: SubnetConfig) -> SubnetConfig:
+    """The subnet the reference S4 executes for a sampled `cfg`: its
+    set_active_subnet inserts pixel_d at position -1 of the depth list, and
+    its shuffle loop reads runtime_depth[0], so the stage depths become
+    (d0, d1, d2, pixel_d) and the shuffle count min(2, d0)."""
+    return SubnetConfig(ks=cfg.ks, e=cfg.e, d=(cfg.d[0], cfg.d[1], cfg.d[2], cfg.pixel_d),
+                        pixel_d=min(2, cfg.d[0]))
+
+
+def reference_quirk_arch_x4(cfg: SubnetConfig) -> SubnetConfig:
+    """The subnet the reference X4 executes: both trunks run the stage
+    depths (pixel_d, d0, d1, d2) (d3..d7 are sampled but never read); the
+    scale factor stays 2^pixel_d."""
+    if len(cfg.d) != 8:
+        raise ValueError("X4 has 4+4 stages; got %d depths" % len(cfg.d))
+    trunk = (cfg.pixel_d, cfg.d[0], cfg.d[1], cfg.d[2])
+    return SubnetConfig(ks=cfg.ks, e=cfg.e, d=trunk + trunk, pixel_d=cfg.pixel_d)
 
 
 def subnet_seed(epoch: int, n_batch: int, batch_idx: int, subnet_idx: int) -> int:
@@ -100,29 +122,35 @@ def subnet_seed(epoch: int, n_batch: int, batch_idx: int, subnet_idx: int) -> in
 def sample_subnet(
     space: SearchSpace,
     seed: Optional[int] = None,
+    n_trunks: int = 1,
     ks_candidates: Optional[Sequence] = None,
     expand_candidates: Optional[Sequence] = None,
     depth_candidates: Optional[Sequence] = None,
     pixel_d_candidates: Optional[Sequence] = None,
+    rng: Optional[random.Random] = None,
 ) -> SubnetConfig:
     """Uniform per-dimension sampling in the reference's draw order: all ks
     draws, then all e draws, then per-stage d draws, then one pixel_d draw.
 
     Candidate overrides are the `set_constraint` include-lists. Passing
     `seed` reseeds the module-level Python RNG, like `random.seed(seed)` in
-    the reference trainer.
+    the reference trainer; passing `rng` (a `random.Random`) draws from it
+    instead, in the same order, and leaves the module-level RNG alone
+    (`seed` is then ignored).
     """
-    if seed is not None:
-        random.seed(seed)
+    if rng is None:
+        if seed is not None:
+            random.seed(seed)
+        rng = random
 
     ks_c = list(ks_candidates) if ks_candidates is not None else list(space.ks_list)
     e_c = list(expand_candidates) if expand_candidates is not None else list(space.expand_list)
     d_c = list(depth_candidates) if depth_candidates is not None else list(space.depth_list)
     p_c = list(pixel_d_candidates) if pixel_d_candidates is not None else list(space.pixel_d_list)
 
-    n_blocks = space.blocks_per_trunk
-    ks = [random.choice(ks_c) for _ in range(n_blocks)]
-    e = [random.choice(e_c) for _ in range(n_blocks)]
-    d = [random.choice(d_c) for _ in range(space.n_stages)]
-    pixel_d = random.choice(p_c)
+    n_blocks = space.blocks_per_trunk * n_trunks
+    ks = [rng.choice(ks_c) for _ in range(n_blocks)]
+    e = [rng.choice(e_c) for _ in range(n_blocks)]
+    d = [rng.choice(d_c) for _ in range(space.n_stages * n_trunks)]
+    pixel_d = rng.choice(p_c)
     return SubnetConfig(ks=tuple(ks), e=tuple(e), d=tuple(d), pixel_d=pixel_d)

@@ -13,7 +13,12 @@ the elastic depthwise conv, `conv.7to5_matrix` / `conv.5to3_matrix`.
 Every forward takes `bn_training` (train-mode BN: batch moments, running
 statistics updated in place; otherwise the running statistics normalize,
 which is eval mode and the SR trainer's frozen BN) and `use_kernels` (train
-mode through the BN-statistics kernels, `ops/kernels/bn.py`).
+mode through the BN-statistics kernels, `ops/kernels/bn.py`) and
+`compute_dtype` (None: the weights' float32; else the mixed-precision type,
+bf16, that the conv banks are cast to at use, as the JAX package's
+`cast_params_for_compute` casts them: the BN parameters and the
+kernel-transform matrices stay float32, and the gradients reach the float32
+masters through the casts).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 from torch import nn
 
 from ..ops.activations import relu6
-from ..ops.conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init
+from ..ops.conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init, icnr_conv_init
 from ..ops.elastic import transform_kernel_chain, transform_matrices_init
 from ..ops.norm import batch_norm, batch_norm_train
 from ..ops.pixelshuffle import pixel_shuffle
@@ -41,6 +46,11 @@ class ConvWeight(nn.Module):
 
     def matrices(self):
         return {n: getattr(self, n + "_matrix") for n in self.matrix_names}
+
+
+def cast(w, compute_dtype):
+    """A conv bank at use: `w` itself, or a copy in `compute_dtype`."""
+    return w if compute_dtype is None else w.to(compute_dtype)
 
 
 def bn_apply(y, bn: nn.BatchNorm2d, n=None, *, bn_training=False, use_kernels=False):
@@ -67,14 +77,16 @@ class ConvBN(nn.Module):
 class ConvLayer(ConvBN):
     """Static conv -> BN -> [PixelShuffle(2)] (the shuffle takes the
     reference's activation slot, after conv + BN; the S4 net has no other
-    activation there)."""
+    activation there). `icnr`: ICNR init of a conv feeding the shuffle."""
 
-    def __init__(self, in_ch, out_ch, kernel_size, *, generator):
-        super().__init__(conv_init(kernel_size, in_ch, out_ch, generator=generator))
+    def __init__(self, in_ch, out_ch, kernel_size, *, generator, icnr=False):
+        init = icnr_conv_init if icnr else conv_init
+        super().__init__(init(kernel_size, in_ch, out_ch, generator=generator))
 
-    def forward(self, x, *, shuffle=False, bn_training=False, use_kernels=False):
-        y = bn_apply(conv2d(x, self.conv.weight), self.bn, bn_training=bn_training,
-                     use_kernels=use_kernels)
+    def forward(self, x, *, shuffle=False, bn_training=False, use_kernels=False,
+                compute_dtype=None):
+        y = bn_apply(conv2d(x, cast(self.conv.weight, compute_dtype)), self.bn,
+                     bn_training=bn_training, use_kernels=use_kernels)
         return pixel_shuffle(y, 2) if shuffle else y
 
 
@@ -95,20 +107,30 @@ class DynamicMBConvLayer(nn.Module):
             matrices=mats)
         self.point_linear = ConvBN(conv_init(1, mid, c, generator=generator))
 
-    def active_depthwise(self, ks):
-        """The effective ks x ks depthwise bank [mid_max, 1, ks, ks]."""
+    def active_depthwise(self, ks, compute_dtype=None):
+        """The effective ks x ks depthwise bank [mid_max, 1, ks, ks], in the
+        bank's type at use: the bank is cast first, the 7->5->3 chain runs in
+        float32 against the float32 matrices, and its result is rounded back
+        to the cast bank's type (the JAX package's order)."""
         conv = self.depth_conv.conv
         mats = conv.matrices()
-        return transform_kernel_chain(conv.weight, mats, self.ks_list, ks,
-                                      use_transform=bool(mats))
+        w = cast(conv.weight, compute_dtype)
+        return transform_kernel_chain(w, mats, self.ks_list, ks,
+                                      use_transform=bool(mats)).to(w.dtype)
 
-    def forward(self, x, ks, mid, *, bn_training=False, use_kernels=False):
+    def forward(self, x, ks, mid, *, bn_training=False, use_kernels=False,
+                compute_dtype=None, spatial_mask=None):
+        """`spatial_mask`: bucketed eval's (1, H, W, 1) mask, re-zeroing the
+        pad before the depthwise conv (the BN bias made it nonzero)."""
         ib, dw, pl = self.inverted_bottleneck, self.depth_conv, self.point_linear
         bn = dict(bn_training=bn_training, use_kernels=use_kernels)
-        y = relu6(bn_apply(conv2d(x, ib.conv.weight[:mid]), ib.bn, mid, **bn))
-        y = depthwise_conv2d(y, self.active_depthwise(ks)[:mid])
+        y = relu6(bn_apply(conv2d(x, cast(ib.conv.weight[:mid], compute_dtype)), ib.bn, mid,
+                           **bn))
+        if spatial_mask is not None:
+            y = y * spatial_mask
+        y = depthwise_conv2d(y, self.active_depthwise(ks, compute_dtype)[:mid])
         y = relu6(bn_apply(y, dw.bn, mid, **bn))
-        return bn_apply(conv2d(y, pl.conv.weight[:, :mid]), pl.bn, **bn)
+        return bn_apply(conv2d(y, cast(pl.conv.weight[:, :mid], compute_dtype)), pl.bn, **bn)
 
 
 class MobileInvertedResidualBlock(nn.Module):
@@ -118,5 +140,5 @@ class MobileInvertedResidualBlock(nn.Module):
         super().__init__()
         self.mobile_inverted_conv = mobile_inverted_conv
 
-    def forward(self, x, ks, mid, **bn):
-        return self.mobile_inverted_conv(x, ks, mid, **bn) + x
+    def forward(self, x, ks, mid, **kw):
+        return self.mobile_inverted_conv(x, ks, mid, **kw) + x

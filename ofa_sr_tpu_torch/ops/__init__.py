@@ -1,6 +1,6 @@
 from .activations import apply_act, relu6
-from .conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init
-from .elastic import transform_kernel_chain, transform_matrices_init
+from .conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init, icnr_conv_init
+from .elastic import spatial_valid_mask, transform_kernel_chain, transform_matrices_init
 from .norm import batch_moments, batch_norm, batch_norm_train
 from .pixelshuffle import pixel_shuffle, pixel_unshuffle
 
@@ -13,9 +13,11 @@ __all__ = [
     "conv_init",
     "depthwise_conv2d",
     "depthwise_conv_init",
+    "icnr_conv_init",
     "pixel_shuffle",
     "pixel_unshuffle",
     "relu6",
+    "spatial_valid_mask",
     "transform_kernel_chain",
     "transform_matrices_init",
 ]

@@ -8,7 +8,8 @@ without a copy (the hand-written kernels take it as it is). Weights are
 OIHW, the reference state_dict layout.
 
 Init is the reference's he_fout: normal(0, sqrt(2 / (k*k*out_channels))),
-drawn from an explicit `torch.Generator`.
+drawn from an explicit `torch.Generator`; `icnr_conv_init` is the JAX
+package's ICNR init of a conv feeding a PixelShuffle.
 """
 
 from __future__ import annotations
@@ -24,6 +25,17 @@ def conv_init(kernel_size, in_ch, out_ch, *, generator):
     std = math.sqrt(2.0 / (kernel_size * kernel_size * out_ch))
     return std * torch.randn(out_ch, in_ch, kernel_size, kernel_size,
                              generator=generator, device=generator.device)
+
+
+def icnr_conv_init(kernel_size, in_ch, out_ch, r=2, *, generator):
+    """ICNR init of a conv -> PixelShuffle(r) head (arXiv:1707.02937): he_fout
+    for out_ch / r^2 filters, each repeated r^2 times along the output axis,
+    so output channel c*r^2 + s holds filter c (pixel_shuffle's channel
+    order) and at init the shuffled output is a nearest-neighbour upsample."""
+    if out_ch % (r * r):
+        raise ValueError("ICNR needs out_ch divisible by r^2; got %d, r=%d" % (out_ch, r))
+    w = conv_init(kernel_size, in_ch, out_ch // (r * r), generator=generator)
+    return w.repeat_interleave(r * r, dim=0)
 
 
 def depthwise_conv_init(kernel_size, channels, *, generator):

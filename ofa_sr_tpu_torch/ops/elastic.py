@@ -1,12 +1,18 @@
-"""Elastic-kernel transform chain (counterpart of ofa_sr_tpu/ops/elastic.py
-:47-86).
+"""Elastic-kernel transform chain and the bucketed-eval spatial mask
+(counterpart of ofa_sr_tpu/ops/elastic.py :47-86 and :134-150).
 
 The port slices weights per subnet, as the reference did, so only the
 kernel-transform chain is needed: the effective k x k depthwise kernel is
 produced from the max-size bank through learned (k^2 x k^2) matrices applied
 largest to smallest, K5 = reshape(vec(center5(K7)) @ M_7to5.T) and so on
 (torch F.linear's `v @ M.T`). Depthwise banks are in the torch layout
-[C, 1, K, K]; the matmul runs in full float32.
+[C, 1, K, K]; the matmul runs in full float32, so under bf16 compute a
+transformed kernel comes back float32 and its caller rounds it to the
+bank's type (the JAX package's `kernel_candidates`).
+
+The masked-execution helpers (`kernel_candidates`, `select_kernel`,
+`channel_mask`) are not carried over: the port slices each subnet's
+weights, so it has nothing to mask.
 """
 
 from __future__ import annotations
@@ -58,3 +64,14 @@ def transform_kernel_chain(weight, matrices, ks_list, target_ks, use_transform=T
         tgt_ks = ks_set[i - 1]
         w = _apply_transform(_center_slice(w, tgt_ks), matrices["%dto%d" % (src_ks, tgt_ks)])
     return w
+
+
+def spatial_valid_mask(valid_h, valid_w, h, w, dtype=torch.float32, device=None):
+    """(1, h, w, 1) 0/1 mask: 1 inside the valid top-left (valid_h, valid_w)
+    region, 0 in the padding of a frame zero-padded up to a bucket shape.
+    Re-zeroing the pad before every spatial conv makes the valid region's
+    outputs those of the unpadded SAME-padded frame (the JAX package's
+    shape-bucketed eval)."""
+    mh = (torch.arange(h, device=device) < valid_h).to(dtype)
+    mw = (torch.arange(w, device=device) < valid_w).to(dtype)
+    return (mh[:, None] * mw[None, :])[None, :, :, None]

@@ -84,6 +84,8 @@ _FUNCTIONS = {
     "ofa_shuffle_tail_f32": ("shuffle_tail", [_VP] * 4 + [_INT] * 5 + [_VP]),
     "ofa_col_sums2_f32": ("bn_stats", [_VP] * 6 + [_INT] * 4 + [_VP]),
     "ofa_bn_backward_f32": ("bn_stats", [_VP] * 9 + [_INT] * 3 + [_VP]),
+    "ofa_col_sums2_bf16": ("bn_stats", [_VP] * 6 + [_INT] * 4 + [_VP]),
+    "ofa_bn_backward_bf16": ("bn_stats", [_VP] * 9 + [_INT] * 3 + [_VP]),
 }
 SOURCES = tuple(sorted({src for src, _ in _FUNCTIONS.values()}))
 _fns = {}   # C name -> the bound ctypes function
@@ -125,20 +127,24 @@ def load(name):
     return lib
 
 
-def require_cuda_f32(device, **tensors):
-    """Raise unless every tensor is a contiguous float32 tensor on `device`
+def require_cuda(device, dtype, **tensors):
+    """Raise unless every tensor is a contiguous `dtype` tensor on `device`
     (a CUDA device): what the kernels take, since they read raw pointers."""
     if device.type != "cuda":
         raise ValueError("the CUDA kernels take CUDA tensors, got %s" % device)
     index = device.index
     for name, t in tensors.items():
         # attribute reads, not device objects: this runs on every launch
-        if not (t.is_cuda and t.get_device() == index and t.dtype is torch.float32
+        if not (t.is_cuda and t.get_device() == index and t.dtype is dtype
                 and t.is_contiguous()):
             raise ValueError(
-                "%s must be a contiguous float32 tensor on %s; got %s %s "
-                "contiguous=%s" % (name, device, t.dtype, t.device,
+                "%s must be a contiguous %s tensor on %s; got %s %s "
+                "contiguous=%s" % (name, dtype, device, t.dtype, t.device,
                                    t.is_contiguous()))
+
+
+def require_cuda_f32(device, **tensors):
+    require_cuda(device, torch.float32, **tensors)
 
 
 def launch(fn_name, device, *args):

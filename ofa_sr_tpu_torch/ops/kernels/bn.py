@@ -13,6 +13,13 @@ added in PyTorch, so the op stays a correct primitive where the moments feed
 differentiable consumers; in the trainer they feed only the
 running-statistics update, outside autograd, and those terms are skipped.
 
+x may be float32 or bfloat16 (the trainer's bf16 compute): the moments,
+the normalize and dx are computed in float32, y and dx come back in x's type
+(the kernel rounds dx once), dscale and dbias in the BN parameters' float32.
+Where the moments have cotangents of their own (never in the trainer) their
+terms are added to the kernel's dx after it, so a bf16 dx is then rounded
+twice.
+
 The kernels take row-contiguous (N, C) views, so x and dy are made
 contiguous with `.contiguous()`: free for an NHWC-contiguous tensor, a copy
 otherwise (an `aten::copy_` elementwise kernel in a profile).

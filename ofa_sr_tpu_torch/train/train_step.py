@@ -10,7 +10,14 @@ Per optimizer step, as the reference trainer does:
 - BN runs in train mode and its running statistics thread through the
   subnets in order, unless `bn_frozen` (BN in eval mode throughout);
 - PSNR-Y is computed on the device; the step returns the mean loss and PSNR
-  over its subnets as 0-d tensors, so it never waits on the device.
+  over its subnets as 0-d tensors, so it never waits on the device;
+- with `compute_dtype` (bf16) the student's forward runs in mixed precision
+  under the JAX package's rule (`cast_params_for_compute`): the LR input
+  and every conv bank are cast at use, while the BN parameters,
+  kernel-transform matrices, master parameters, optimizer state, loss and
+  PSNR stay float32 (the loss takes `out.float()` against the float32 HR
+  frame; the KD teacher's forward stays float32). The casts are explicit,
+  not `torch.autocast`, whose per-op rules would round elsewhere.
 
 PyTorch runs eagerly, so the JAX step's jit, donation and `lax.switch` over
 pixel_d have no counterpart; a step is plain Python over the subnets.
@@ -32,16 +39,19 @@ class SRTrainer:
     teacher: optional (teacher net, its SubnetConfig, its pixel_d) for KD;
     it runs in eval mode under no_grad. use_kernels (default: on for a CUDA
     net) takes train-mode BN through the BN-statistics kernels.
+    compute_dtype: None (float32) or the mixed-precision type, torch.bfloat16.
     """
 
     def __init__(self, net, *, opt_type="adam", weight_decay=3e-5, momentum=0.9,
                  nesterov=True, clip_grad_norm=None, kd_ratio=0.0,
-                 bn_frozen=False, teacher=None, use_kernels: Optional[bool] = None):
+                 bn_frozen=False, teacher=None, use_kernels: Optional[bool] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         self.net = net
         self.kd_ratio = kd_ratio
         self.bn_frozen = bn_frozen
         self.clip_grad_norm = clip_grad_norm
         self.teacher = teacher
+        self.compute_dtype = compute_dtype
         if kd_ratio > 0 and teacher is None:
             raise ValueError("kd_ratio > 0 needs a teacher")
         self.use_kernels = (net.device.type == "cuda" if use_kernels is None
@@ -51,7 +61,7 @@ class SRTrainer:
     def _forward(self, batch, cfg, *, bn_training):
         pd = cfg.pixel_d
         return self.net(batch["x%d" % 2 ** pd], cfg, pd, bn_training=bn_training,
-                        use_kernels=self.use_kernels)
+                        use_kernels=self.use_kernels, compute_dtype=self.compute_dtype)
 
     def _subnet_loss(self, batch, cfg, teacher_out):
         out = self._forward(batch, cfg, bn_training=not self.bn_frozen).float()
@@ -92,9 +102,11 @@ class SRTrainer:
         return {"loss": torch.stack(losses).mean(), "psnr": torch.stack(psnrs).mean()}
 
     def eval_step(self, batch, cfg):
-        """MSE and PSNR-Y of subnet `cfg` with BN in eval mode."""
+        """MSE and PSNR-Y of subnet `cfg` with BN in eval mode; "output" in
+        the compute type, loss and PSNR of it in float32 (the JAX eval step
+        forms PSNR-Y in the output's bf16 instead, weights rounded to bf16)."""
         with torch.no_grad():
             out = self._forward(batch, cfg, bn_training=False)
-            hr = batch["image"]
-            return {"loss": torch.mean(torch.square(out - hr)),
-                    "psnr": psnr_y_device(out, hr), "output": out}
+            outf, hr = out.float(), batch["image"]
+            return {"loss": torch.mean(torch.square(outf - hr)),
+                    "psnr": psnr_y_device(outf, hr), "output": out}

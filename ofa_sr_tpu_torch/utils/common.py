@@ -49,3 +49,22 @@ def int2list(val, repeat_time=1):
         return list(val)
     else:
         return [val for _ in range(repeat_time)]
+
+
+class AverageMeter:
+    """Running average (the reference's AverageMeter)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count

@@ -235,3 +235,128 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="update_var"):
         tnorm.batch_norm_train(torch.zeros(1, 2, 2, 3), torch.ones(3), torch.zeros(3),
                                torch.zeros(3), torch.ones(3), update_var="neither")
+
+
+# -- bf16 activations (the trainer's bf16 compute) --------------------------
+# Both packages read bf16 operands and accumulate in float32, so the sums and
+# moments are held as the float32 ones are; a bf16 dx is rounded once from
+# float32 in both, so where the two float32 values straddle a rounding
+# boundary they differ by one bf16 ulp: rtol 2^-7 (one ulp of the larger
+# value), plus float32 cancellation noise on the O(1) terms (atol 1e-5).
+BF16_CHANNELS = [3, 64, 384]
+BF16_ULP_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+
+
+def _bf16(a):
+    """(numpy float32 array of bf16 values, torch bf16, jax bf16) of `a`."""
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    return t.float().numpy(), t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("c", BF16_CHANNELS)
+@pytest.mark.parametrize("shape", [(2, 5, 7), (8, 11, 13)])  # N 70, 1144: ragged 512-row tiles
+def test_bn_moments_bf16_matches_pallas(c, shape):
+    _, xt, xj = _bf16(_rand(shape + (c,), c, scale=1.5, shift=0.3))
+    jm, jv = jbs.bn_moments_pallas(xj, interpret=True)
+    tm, tv = tbs.bn_moments(xt)
+    assert tm.dtype == tv.dtype == torch.float32
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), **MOMENT_TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c", BF16_CHANNELS)
+@pytest.mark.parametrize("n", [37, 1000])
+def test_bn_backward_bf16_matches_pallas_and_vjp(c, n):
+    """bf16 dy and x: the two sums against the Pallas `bn_bwd_sums` (bf16
+    operands, interpret mode), and (dx, dscale, dbias) of
+    `bn_backward_reference` against `jax.vjp` of the JAX custom VJP, dx in
+    bf16 within one ulp, dscale and dbias float32."""
+    xf, xt, xj = _bf16(_rand((n, 1, 1, c), 5 * c + n, scale=1.3, shift=0.4))
+    dyf, dyt, dyj = _bf16(_rand((n, 1, 1, c), 7 * c + n))
+    scale = _rand((c,), c + 11, scale=0.3, shift=1.0)
+    bias = _rand((c,), c + 12, scale=0.2)
+    (_, jm, jv), vjp = jax.vjp(lambda x, s, b: jbn.bn_train_fused(x, s, b, 1e-5, True),
+                               xj, jnp.asarray(scale), jnp.asarray(bias))
+    jdx, jds, jdb = vjp((dyj, jnp.zeros(c, jnp.float32), jnp.zeros(c, jnp.float32)))
+    assert jdx.dtype == jnp.bfloat16
+    mean = torch.from_numpy(np.array(jm))
+    inv = torch.rsqrt(torch.from_numpy(np.array(jv)) + 1e-5)
+    j1, j2 = jbs.bn_bwd_sums(dyj.reshape(n, c), xj.reshape(n, c), jnp.asarray(mean.numpy()),
+                             jnp.asarray(inv.numpy()), interpret=True)
+    t1, t2 = tbs.bn_bwd_sums(dyt.view(n, c), xt.view(n, c), mean, inv)
+    np.testing.assert_allclose(t1.numpy(), np.asarray(j1), **_sum_tol(n))
+    np.testing.assert_allclose(t2.numpy(), np.asarray(j2), **_sum_tol(n))
+    dx, ds, db = tbs.bn_backward(dyt, xt, torch.from_numpy(scale), mean, inv)
+    assert dx.dtype == torch.bfloat16 and ds.dtype == db.dtype == torch.float32
+    assert torch.equal(dx, tbs.bn_backward_reference(dyt, xt, torch.from_numpy(scale), mean, inv)[0])
+    np.testing.assert_allclose(dx.float().numpy(), np.asarray(jdx.astype(jnp.float32)),
+                               **BF16_ULP_TOL)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(jds), **GRAD_TOL)
+    np.testing.assert_allclose(db.numpy(), np.asarray(jdb), **GRAD_TOL)
+
+
+def test_bn_backward_reference_keeps_dy_dtype():
+    """dx comes back in dy's type (one rounding from float32), the sums in
+    float32; a float32 dy is unchanged by the rule."""
+    dy, x, scale, mean, inv, _ = _bn_backward_case(50, 16)
+    dx32, ds32, db32 = tbs.bn_backward_reference(dy, x, scale, mean, inv)
+    dx16, ds16, db16 = tbs.bn_backward_reference(dy.bfloat16(), x.bfloat16(), scale, mean, inv)
+    assert dx32.dtype == torch.float32 and dx16.dtype == torch.bfloat16
+    assert ds16.dtype == db16.dtype == torch.float32
+    ref = tbs.bn_backward_reference(dy.bfloat16().float(), x.bfloat16().float(), scale, mean, inv)
+    assert torch.equal(dx16, ref[0].bfloat16())
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("c", [3, 64])
+def test_bn_train_fused_bf16_matches_pallas(c, use_kernels):
+    """Train-mode BN of a bf16 activation with float32 scale and bias, the
+    kernels' branch (bn_train_fused) and the plain one, against the JAX
+    custom VJP in interpret mode: y and dx bf16 within one ulp, dscale and
+    dbias float32, no layout copy."""
+    _, xt, xj = _bf16(_rand((2, 6, 7, c), c, scale=1.3, shift=0.4))
+    scale, bias = _rand((c,), c + 1, scale=0.3, shift=1.0), _rand((c,), c + 2, scale=0.2)
+    _, wyt, wyj = _bf16(_rand((2, 6, 7, c), c + 3))
+    (yj, _, _), vjp = jax.vjp(lambda x, s, b: jbn.bn_train_fused(x, s, b, 1e-5, True),
+                              xj, jnp.asarray(scale), jnp.asarray(bias))
+    jdx, jds, jdb = vjp((wyj, jnp.zeros(c, jnp.float32), jnp.zeros(c, jnp.float32)))
+    xt.requires_grad_()
+    st, bt = (torch.from_numpy(a).requires_grad_() for a in (scale, bias))
+    rm, rv = torch.zeros(c), torch.ones(c)
+    yt = tnorm.batch_norm_train(xt, st, bt, rm, rv, use_kernels=use_kernels)
+    yt.backward(wyt)
+    assert yt.dtype == xt.grad.dtype == torch.bfloat16
+    assert st.grad.dtype == bt.grad.dtype == torch.float32
+    np.testing.assert_allclose(yt.detach().float().numpy(), np.asarray(yj.astype(jnp.float32)),
+                               **BF16_ULP_TOL)
+    np.testing.assert_allclose(xt.grad.float().numpy(), np.asarray(jdx.astype(jnp.float32)),
+                               **BF16_ULP_TOL)
+    np.testing.assert_allclose(st.grad.numpy(), np.asarray(jds), **GRAD_TOL)
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(jdb), **GRAD_TOL)
+    assert tbn.bn_train_fused.layout_copies == 0
+
+
+def test_kernel_dtype_rule():
+    """The kernels take float32 or bf16 activations of one type: a bf16 dy
+    with a float32 x, and float16, raise before the device is looked at (so
+    on the card too, where the C entry points would read the wrong type)."""
+    def meta(dtype, *shape):
+        return torch.empty(*shape, device="meta", dtype=dtype)
+
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    assert tbs.kernel_suffix(meta(f32, 4, 3), meta(f32, 4, 3)) == "f32"
+    assert tbs.kernel_suffix(meta(bf16, 4, 3), meta(bf16, 4, 3)) == "bf16"
+    c = meta(f32, 3)
+    for dy, x in [(meta(bf16, 4, 3), meta(f32, 4, 3)), (meta(f32, 4, 3), meta(bf16, 4, 3)),
+                  (meta(f16, 4, 3), meta(f16, 4, 3))]:
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            tbs.bn_backward(dy, x, c, c, c)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            tbs.bn_bwd_sums(dy, x, c, c)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            tbs.col_sums2(dy, x)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tbs.bn_moments(meta(f16, 2, 4, 4, 3))
+    # the right types get past the rule, to the device check
+    with pytest.raises(ValueError, match="CUDA"):
+        tbs.bn_backward(meta(bf16, 4, 3), meta(bf16, 4, 3), c, c, c)

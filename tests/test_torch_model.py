@@ -15,6 +15,7 @@ from ofa_sr_tpu.models.materialize import get_active_subnet as jax_get_active_su
 from ofa_sr_tpu.train.checkpoint import import_torch_s4
 from ofa_sr_tpu_torch.entry import entry, serve
 from ofa_sr_tpu_torch.models import OFAMobileNetS4, SearchSpace, get_active_subnet, sample_subnet
+from ofa_sr_tpu_torch import ops as tops
 from ofa_sr_tpu_torch.models.arch import uniform_subnet
 from ofa_sr_tpu_torch.ops.kernels import fused_mbconv_infer, fused_shuffle_tail
 from ofa_sr_tpu_torch.train.checkpoint import s4_state_dict_from_jax
@@ -183,3 +184,62 @@ def test_default_device_needs_cuda():
         serve([_x((1, 4, 4, 3), 0)])
     with pytest.raises(RuntimeError, match="cuda"):
         OFAMobileNetS4(SearchSpace(**SPACE_KW))
+
+
+@pytest.mark.parametrize("pixel_d", [1, 2])
+@pytest.mark.parametrize("hw", [(7, 9), (10, 12)])
+def test_bucketed_eval_matches_jax(nets, pixel_d, hw):
+    """A frame zero-padded into a 10x12 bucket with valid_hw: the valid
+    region equals the unpadded frame's output and JAX's bucketed forward;
+    train-mode BN raises."""
+    jnet, p, s, tnet = nets
+    h, w = hw
+    cfg = jarch.sample_subnet(jnet.space, seed=6)
+    tcfg = sample_subnet(tnet.space, seed=6)
+    x = _x((2, h, w, 3), h)
+    padded = np.zeros((2, 10, 12, 3), np.float32)
+    padded[:, :h, :w] = x
+    f = 2 ** pixel_d
+    y_j, _ = jnet.apply(p, s, jnp.asarray(padded), cfg.to_device(jnet.space), pixel_d=pixel_d,
+                        valid_hw=jnp.asarray([h, w], jnp.int32))
+    with torch.no_grad():
+        y_b = tnet(torch.from_numpy(padded), tcfg, pixel_d, valid_hw=(h, w))
+        y_u = tnet(torch.from_numpy(x), tcfg, pixel_d)
+    assert tuple(y_b.shape) == (2, 10 * f, 12 * f, 3)
+    np.testing.assert_allclose(y_b.numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(y_b[:, :h * f, :w * f].numpy(), y_u.numpy(), **TOL)
+    assert not y_b[:, h * f:].any() and not y_b[:, :, w * f:].any()
+    with pytest.raises(ValueError, match="eval-mode"):
+        tnet(torch.from_numpy(padded), tcfg, pixel_d, bn_training=True, valid_hw=(h, w))
+
+
+def test_icnr_init_matches_jax():
+    """ICNR shuffle convs: output channel c*4 + s repeats filter c in both
+    packages, so conv -> PixelShuffle(2) is a nearest-neighbour upsample at
+    init; an ICNR net bridged to JAX gives the JAX forward."""
+    space_kw = dict(SPACE_KW, pixel_d_list=[1, 2])
+    net = OFAMobileNetS4(SearchSpace(**space_kw), device="cpu", icnr=True,
+                         generator=torch.Generator().manual_seed(4))
+    jnet = JaxS4(jarch.SearchSpace(**space_kw), icnr=True)
+    jp, _ = jnet.init(jax.random.PRNGKey(4))
+    plain = OFAMobileNetS4(SearchSpace(**space_kw), device="cpu",
+                           generator=torch.Generator().manual_seed(4))
+    for i, layer in enumerate(net.shuffle_blocks):
+        w = layer.conv.weight.detach()
+        w_j = torch.from_numpy(np.array(jp["shuffle_blocks"][i]["conv"]["w"]).transpose(3, 2, 0, 1))
+        for t in (w, w_j):
+            groups = t.reshape(t.shape[0] // 4, 4, *t.shape[1:])
+            assert torch.equal(groups, groups[:, :1].expand_as(groups))
+        assert not torch.equal(w, plain.shuffle_blocks[i].conv.weight.detach())
+        x = torch.from_numpy(_x((1, 5, 6, w.shape[1]), i))
+        y = tops.pixel_shuffle(tops.conv2d(x, w), 2)
+        torch.testing.assert_close(y, y[:, ::2, ::2].repeat_interleave(2, 1).repeat_interleave(2, 2),
+                                   rtol=0, atol=0)
+    jp2, js2 = import_torch_s4(net.state_dict(), JaxS4(jarch.SearchSpace(**space_kw)))
+    cfg = jarch.sample_subnet(jnet.space, seed=2)
+    x = _x((1, 6, 7, 3), 2)
+    for pixel_d in (1, 2):
+        y_j, _ = jnet.apply(jp2, js2, jnp.asarray(x), cfg.to_device(jnet.space), pixel_d=pixel_d)
+        with torch.no_grad():
+            y_t = net(torch.from_numpy(x), sample_subnet(net.space, seed=2), pixel_d)
+        np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **TOL)
