@@ -43,7 +43,23 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    paths (CUDA events, in the order f32 plain, f32 kernels, bf16 kernels,
    bf16 plain, then back), and (profiled in phase 5) the device's idle
    share and top kernels.
-5. Per-kernel numbers at the paths' shapes (kernel, plain version, the
+5. The run-management path through the port's two command-line entry
+   points, in a temporary directory, at full width: the teacher trainer
+   (`cli.train_teacher_net_sr_simple`, synthetic data, BN in train mode)
+   for 2 epochs of 4 steps with validation, its BN-kernel launches counted
+   and held to 3*sum(d) + pixel_d + 4 a step, its checkpoint and log files
+   checked; again with 3 epochs, which must resume at epoch 2 and run one;
+   once in bf16, where every BN launch must be a bf16 one. Then the SR
+   evaluator (`cli.eval_ofa_net_sr --materialize`, ks7/e6/d2/pixel_d 2,
+   synthetic 720x720 HR frames: LR 180x180) from the teacher's checkpoint,
+   its MBConv and shuffle-tail launches held to sum(d) and pixel_d a frame,
+   and its mean PSNR-Y held within 1e-3 dB of the same subnet on the plain
+   path. Times: the run manager's ms per step (CUDA events around
+   `train_one_epoch`) against `entry.train`'s on the same net and against
+   the epoch's data path alone (the loader, and the loader with the copies
+   to the card), in alternating rounds; epoch wall seconds; eval ms per
+   frame.
+6. Per-kernel numbers at the paths' shapes (kernel, plain version, the
    card's least time, and for the BN kernels one PyTorch call computing the
    same function as a yardstick the port never calls), the BN kernels in
    float32 and in bf16. Then the torch.profiler
@@ -66,6 +82,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -82,6 +99,9 @@ from ofa_sr_tpu_torch.entry import (  # noqa: E402
     synthetic_batch,
     train,
 )
+from ofa_sr_tpu_torch.cli import eval_ofa_net_sr, train_teacher_net_sr_simple  # noqa: E402
+from ofa_sr_tpu_torch.cli.common import make_net, make_sr_provider  # noqa: E402
+from ofa_sr_tpu_torch.data import SyntheticSRProvider  # noqa: E402
 from ofa_sr_tpu_torch.models import OFAMobileNetS4, SearchSpace, get_active_subnet  # noqa: E402
 from ofa_sr_tpu_torch.models.arch import uniform_subnet  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels import _build  # noqa: E402
@@ -102,7 +122,9 @@ from ofa_sr_tpu_torch.ops.kernels.shuffle_tail import (  # noqa: E402
     shuffle_tail_reference,
 )
 from ofa_sr_tpu_torch.ops.norm import batch_norm_train  # noqa: E402
-from ofa_sr_tpu_torch.train import SRTrainer  # noqa: E402
+from ofa_sr_tpu_torch.train import RunConfig, SRRunManager, SRTrainer  # noqa: E402
+from ofa_sr_tpu_torch.train.checkpoint import load_weights_lenient  # noqa: E402
+from ofa_sr_tpu_torch.utils.metrics import psnr_y_device  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. The shuffle
@@ -160,6 +182,13 @@ BN_ROW_KERNELS = {"col_sums2": ("col_partials_kernel<1,", "finish_kernel<1>"),
 # runs one type only)
 BF16_ROWS = {"col_sums2": "col_sums2 (bf16)", BWD_ROW: "bn_bwd_sums+dx (bn_backward, bf16)"}
 DEVICE = "cuda"                       # the card; a CPU rehearsal sets "cpu"
+# phase 5: the CLIs' synthetic data (cli.common.make_sr_provider: 64
+# training images at the batch size, 4 validation frames)
+TEACHER_EPOCH_STEPS = 64 // BS
+EVAL_HR = 720                         # the evaluator's HR frames: LR 180x180 at pixel_d 2
+EVAL_FRAMES = 4
+PSNR_TOL_DB = 1e-3                    # evaluator's mean PSNR-Y, kernels vs plain path
+RM_ROUNDS = 3                         # rounds of (entry.train, train_one_epoch) timing
 
 
 def fail(msg):
@@ -284,7 +313,36 @@ def kernel_parity(g):
             ref64 = shuffle_tail_reference(x.double(), w.double(), b.double())
             errs["shuffle_tail_vs_f64"] = f64_check(
                 "shuffle_tail %s" % (shape,), got, shuffle_tail_reference(x, w, b), ref64)
+    serving_bf16_operands(g)
     return errs
+
+
+def serving_bf16_operands(g):
+    """As the Pallas kernels: bf16 weights with a float32 x go through the
+    float32 kernel on the weights upcast (exact), and a bf16 x is refused
+    without a launch."""
+    bf = lambda d: {k: v.to(BF16) for k, v in d.items()}  # noqa: E731
+    x, w = mbconv_case(g, (1, 37, 50, 64), 384, 7)
+    got = launched(fused_mbconv_infer, lambda: fused_mbconv_infer(x, **bf(w)))
+    torch.cuda.synchronize()
+    check_close("mbconv (1, 37, 50, 64) M=384 k=7, bf16 weights", got,
+                mbconv_reference(x, **{k: v.float() for k, v in bf(w).items()}), TOL)
+    xt, wt, bt = shuffle_case(g, (1, 37, 50, 64))
+    got = launched(fused_shuffle_tail, lambda: fused_shuffle_tail(xt, wt.to(BF16), bt.to(BF16)))
+    torch.cuda.synchronize()
+    check_close("shuffle_tail (1, 37, 50, 64), bf16 weights", got,
+                shuffle_tail_reference(xt, wt.to(BF16).float(), bt.to(BF16).float()), TOL)
+    before = fused_mbconv_infer.launches, fused_shuffle_tail.launches
+    for name, fn in (("mbconv", lambda: fused_mbconv_infer(x.to(BF16), **w)),
+                     ("shuffle_tail", lambda: fused_shuffle_tail(xt.to(BF16), wt, bt))):
+        try:
+            fn()
+        except ValueError as e:
+            print("  refused on the card: %s with a bf16 x (%s)" % (name, str(e)[:60]), flush=True)
+            continue
+        fail("%s took a bf16 x on the card" % name)
+    if (fused_mbconv_infer.launches, fused_shuffle_tail.launches) != before:
+        fail("a refused serving-kernel call launched a kernel")
 
 
 def f64_check(name, got, plain, ref64):
@@ -745,7 +803,207 @@ def step_times():
     return out, profiles
 
 
-# -- phase 5: per-kernel numbers at the path's shapes ------------------------
+# -- phase 5: the run-management path through the CLIs ----------------------
+
+def teacher_space():
+    """The teacher CLI's search space at its defaults (ks5/e3/d2/pixel_d 1)."""
+    return SearchSpace(ks_list=[5], expand_list=[3], depth_list=[2], pixel_d_list=[1])
+
+
+class EpochTimes:
+    """Wraps SRRunManager.train_one_epoch while active, recording each
+    epoch's index, (ms per step from CUDA events, host ms per step) and its
+    wall seconds."""
+
+    def __init__(self):
+        self.epochs = []
+
+    def __enter__(self):
+        real = self.real = SRRunManager.train_one_epoch
+
+        def timed_epoch(rm, epoch, *a, **k):
+            n = len(rm.provider.train)
+            box = []
+            t0 = time.perf_counter()
+            ms, host_ms = timed_steps(lambda: box.append(real(rm, epoch, *a, **k)), n)
+            self.epochs.append({"epoch": epoch, "steps": n, "ms_per_step": ms,
+                                "host_ms_per_step": host_ms,
+                                "wall_s": time.perf_counter() - t0})
+            return box[0]
+
+        SRRunManager.train_one_epoch = timed_epoch
+        return self
+
+    def __exit__(self, *exc):
+        SRRunManager.train_one_epoch = self.real
+
+
+def counted_cli(main_fn, argv):
+    """main_fn(argv + --device) with every kernel's counters set to 0 just
+    before and read just after: a main path's run. Returns (its result,
+    {counter: launches}, wall seconds)."""
+    for k in BN_KERNELS:
+        k.launches = k.launches_bf16 = 0
+    fused_mbconv_infer.launches = fused_shuffle_tail.launches = 0
+    t0 = time.perf_counter()
+    out = main_fn(argv + ["--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in BN_KERNELS}
+    counts.update({k.__name__ + "_bf16": k.launches_bf16 for k in BN_KERNELS})
+    counts.update(mbconv=fused_mbconv_infer.launches, shuffle_tail=fused_shuffle_tail.launches)
+    return out, counts, wall
+
+
+def check_bn_launches(label, counts, n_steps, bf16):
+    cfg = uniform_subnet(teacher_space(), 5, 3, 2, 1)
+    expect = n_steps * bn_launches_expected([cfg])
+    print("  %s: BN-kernel launches %s (expected %d each%s)"
+          % (label, counts, expect, ", all bf16" if bf16 else ""), flush=True)
+    if any(counts[k.__name__] != expect for k in BN_KERNELS):
+        fail("%s did not launch each BN kernel once per train-mode BN" % label)
+    if any(counts[k.__name__ + "_bf16"] != (expect if bf16 else 0) for k in BN_KERNELS):
+        fail("%s launched BN kernels of the other type" % label)
+    if counts["mbconv"] or counts["shuffle_tail"]:
+        fail("%s launched a serving kernel" % label)
+    return expect
+
+
+def teacher_runs(tmp):
+    """The teacher CLI: 2 epochs; 3 epochs resumed from the first run's
+    checkpoint; 1 epoch in bf16. Returns the record and the checkpoint dir."""
+    run_dir = os.path.join(tmp, "teacher")
+    base = ["--synthetic", "--bn_mode", "train", "--warmup_epochs", "0"]
+    out = {}
+    with EpochTimes() as et:
+        best, counts, wall = counted_cli(train_teacher_net_sr_simple.main,
+                                         base + ["--path", run_dir, "--n_epochs", "2"])
+        check_bn_launches("teacher, 2 epochs", counts, 2 * TEACHER_EPOCH_STEPS, False)
+        for f in ("checkpoint/latest.txt", "checkpoint/checkpoint.pth.tar",
+                  "checkpoint/model_best.pth.tar", "logs/train_console.txt",
+                  "logs/valid_console.txt", "net_info.txt", "run.config"):
+            if not os.path.isfile(os.path.join(run_dir, f)):
+                fail("the teacher run wrote no %s" % f)
+        if not np.isfinite(best):
+            fail("the teacher run's best PSNR is %s" % best)
+        out["f32"] = {"best_psnr": best, "launches": counts, "wall_s": wall,
+                      "epochs": list(et.epochs)}
+        n0 = len(et.epochs)
+        _, counts, wall = counted_cli(train_teacher_net_sr_simple.main,
+                                      base + ["--path", run_dir, "--n_epochs", "3"])
+        resumed = [e["epoch"] for e in et.epochs[n0:]]
+        with open(os.path.join(run_dir, "logs", "valid_console.txt")) as f:
+            log = f.read()
+        print("  teacher, 3 epochs: resumed epochs %s" % resumed, flush=True)
+        if resumed != [2] or "=> loaded checkpoint (epoch 2)" not in log:
+            fail("the teacher run did not resume at epoch 2 (ran epochs %s)" % resumed)
+        check_bn_launches("teacher, resumed", counts, TEACHER_EPOCH_STEPS, False)
+        out["f32_resumed"] = {"launches": counts, "wall_s": wall, "epochs": et.epochs[n0:]}
+        n0 = len(et.epochs)
+        best, counts, wall = counted_cli(
+            train_teacher_net_sr_simple.main,
+            base + ["--path", os.path.join(tmp, "teacher_bf16"), "--n_epochs", "1",
+                    "--compute_dtype", "bf16"])
+        check_bn_launches("teacher, bf16, 1 epoch", counts, TEACHER_EPOCH_STEPS, True)
+        if not np.isfinite(best):
+            fail("the bf16 teacher run's best PSNR is %s" % best)
+        out["bf16"] = {"best_psnr": best, "launches": counts, "wall_s": wall,
+                       "epochs": et.epochs[n0:]}
+    return out, os.path.join(run_dir, "checkpoint")
+
+
+def eval_run(tmp, ckpt_dir):
+    """The SR evaluator with --materialize from the teacher's checkpoint,
+    counted; then the same subnet from the same checkpoint on the plain
+    path, scored on the same frames."""
+    frame_log = os.path.join(tmp, "frames.jsonl")
+    argv = ["--path", os.path.join(tmp, "eval"), "--synthetic", "--dataset", "div2k",
+            "--materialize", "--checkpoint", ckpt_dir, "--image_size", str(EVAL_HR),
+            "--frame_log", frame_log]
+    psnr, counts, wall = counted_cli(eval_ofa_net_sr.main, argv)
+    cfg = uniform_subnet(SearchSpace(), 7, 6, 2, 2)
+    expect = {"mbconv": sum(cfg.d) * EVAL_FRAMES, "shuffle_tail": cfg.pixel_d * EVAL_FRAMES}
+    got = {k: counts[k] for k in expect}
+    print("  eval_ofa_net_sr --materialize, %d frames of %dx%d HR: launches %s (expected %s), "
+          "mean PSNR-Y %.6f" % (EVAL_FRAMES, EVAL_HR, EVAL_HR, got, expect, psnr), flush=True)
+    if got != expect or any(counts[k.__name__] for k in BN_KERNELS):
+        fail("the evaluator did not go through the serving kernels as expected")
+    with open(frame_log) as f:
+        frames = [json.loads(line) for line in f]
+    if len(frames) != EVAL_FRAMES or not all(np.isfinite(r["psnr"]) for r in frames):
+        fail("the evaluator's frame log: %s" % frames)
+
+    args = eval_ofa_net_sr.build_args(argv + ["--device", DEVICE])
+    net = make_net(OFAMobileNetS4, SearchSpace(), args)
+    load_weights_lenient(ckpt_dir, net)
+    sub = get_active_subnet(net, cfg, use_kernels=False)
+    psnrs = []
+    with torch.inference_mode():
+        for batch in make_sr_provider(args, None).test:
+            x = torch.from_numpy(batch["x4"]).to(net.device)
+            out = sub(x)
+            if tuple(out.shape) != (1, EVAL_HR, EVAL_HR, 3) or not bool(torch.isfinite(out).all()):
+                fail("plain-path frame: shape %s" % (tuple(out.shape),))
+            psnrs.append(float(psnr_y_device(out, torch.from_numpy(batch["image"]).to(net.device))))
+    plain = float(np.mean(psnrs))
+    diff = abs(plain - psnr)
+    print("  the same subnet on the plain path: mean PSNR-Y %.6f (|diff| %.2e dB, at most %.0e)"
+          % (plain, diff, PSNR_TOL_DB), flush=True)
+    if not diff <= PSNR_TOL_DB:
+        fail("the evaluator's kernel path and plain path differ by %.3e dB" % diff)
+    ms = [1e3 * r["sec"] for r in frames]
+    return {"launches": counts, "expected": expect, "mean_psnr": psnr, "plain_mean_psnr": plain,
+            "frame_ms": ms, "frame_ms_after_first_median": float(np.median(ms[1:])),
+            "wall_s": wall}
+
+
+def run_manager_times(tmp):
+    """ms per step of the run manager (CUDA events around train_one_epoch,
+    4 steps of the synthetic provider) against entry.train's on the same
+    teacher net and batch shape, and of the epoch's data path alone, in
+    RM_ROUNDS rounds of alternating order."""
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    net = OFAMobileNetS4(teacher_space(), device=DEVICE, generator=gen())
+    rm = SRRunManager(os.path.join(tmp, "timing"), net,
+                      RunConfig(n_epochs=2 * RM_ROUNDS + 1, base_lr=1e-3),
+                      SyntheticSRProvider(n_train=64, n_valid=4, hr_size=HR,
+                                          train_batch_size=BS))
+    net_e = OFAMobileNetS4(teacher_space(), device=DEVICE, generator=gen())
+    rm.train_one_epoch(0)  # warm both
+    train(TEACHER_EPOCH_STEPS, device=DEVICE, net=net_e)
+    loader = rm.provider.train
+    # the epoch's data path alone: the loader's batches (made on the host),
+    # and those batches copied to the card as train_one_epoch copies them
+    runs = {"run manager": None,
+            "entry.train": functools.partial(train, TEACHER_EPOCH_STEPS, device=DEVICE,
+                                             net=net_e),
+            "loader": lambda: list(loader),
+            "loader + copies": lambda: [rm._to_device(b) for b in loader]}
+    times = {name: [] for name in runs}
+    for r in range(RM_ROUNDS):
+        for name in (runs if r % 2 == 0 else list(runs)[::-1]):
+            run = runs[name] or functools.partial(rm.train_one_epoch, r + 1)
+            times[name].append(timed_steps(run, TEACHER_EPOCH_STEPS))
+    out = {}
+    for name, ts in times.items():
+        ev, host = zip(*ts)
+        out[name] = {"ms": list(ev), "host_ms": list(host), "median_ms": float(np.median(ev)),
+                     "median_host_ms": float(np.median(host))}
+        print("  %s: ms per step (CUDA events) %s, median %.4f; host %s"
+              % (name, [round(t, 3) for t in ev], np.median(ev), [round(t, 3) for t in host]),
+              flush=True)
+    return out
+
+
+def cli_phase():
+    with tempfile.TemporaryDirectory(prefix="ofa_sr_cli_") as tmp:
+        teacher, ckpt_dir = teacher_runs(tmp)
+        ev = eval_run(tmp, ckpt_dir)
+        times = run_manager_times(tmp)
+    return {"teacher": teacher, "eval": ev, "step_times": times}
+
+
+# -- phase 6: per-kernel numbers at the path's shapes ------------------------
 
 def steady_ms(fn, repeats=3):
     """Median of `repeats` time_ms runs (20 calls each): a call of the BN
@@ -974,18 +1232,35 @@ def main():
     training_checks()
     step_ms, train_runs_to_profile = step_times()
 
-    print("phase 5: per-kernel numbers", flush=True)
+    print("phase 5: the run-management path through the CLIs (teacher trainer, SR evaluator)",
+          flush=True)
+    cli = cli_phase()
+
+    print("phase 6: per-kernel numbers", flush=True)
     bn_rows = bn_kernel_numbers(g, bn_counts, errs)
     bn_rows_bf16 = bn_kernel_numbers(g, bn_counts, errs, BF16)
     rows = kernel_numbers(g, cfg, counts, errs) + bn_rows + bn_rows_bf16
+    # each row's launches in phase 5's counted CLI runs: the BN rows in the
+    # teacher runs of their type, the serving rows in the evaluator's
+    t = cli["teacher"]
+    for r, n in zip(rows, (cli["eval"]["launches"]["mbconv"],
+                           cli["eval"]["launches"]["shuffle_tail"],
+                           t["f32"]["launches"]["col_sums2"]
+                           + t["f32_resumed"]["launches"]["col_sums2"],
+                           t["f32"]["launches"]["bn_backward"]
+                           + t["f32_resumed"]["launches"]["bn_backward"],
+                           t["bf16"]["launches"]["col_sums2_bf16"],
+                           t["bf16"]["launches"]["bn_backward_bf16"])):
+        r["launches_cli"] = n
     for r in rows:
-        print("  %-20s %d launches  %.4f ms/%s  plain %.4f  bound %.4f (%s)  library %s"
-              % (r["name"], r["launches"], r["ms"], r["per"], r["plain_ms"], r["bound_ms"],
-                 r["bound_by"], r["library_ms"]), flush=True)
+        print("  %-20s %d launches (CLIs %d)  %.4f ms/%s  plain %.4f  bound %.4f (%s)  "
+              "library %s" % (r["name"], r["launches"], r["launches_cli"], r["ms"], r["per"],
+                              r["plain_ms"], r["bound_ms"], r["bound_by"], r["library_ms"]),
+              flush=True)
     # last: a torch.profiler session leaves the launch path slower for the
     # rest of the process, so every timing above comes first, and the steps
     # are timed once more after the profiles to show by how much
-    print("phase 5: device profiles", flush=True)
+    print("phase 6: device profiles", flush=True)
     profiles = [device_profile(*p, "frame") for p in profiles]
     train_profiles = [device_profile(*p, "step") for p in train_runs_to_profile]
     by_path = {p["path"]: p for p in train_profiles}
@@ -1004,7 +1279,7 @@ def main():
     print(json.dumps({"kernels": rows, "frame_ms": frame_ms, "frame_profile": profiles,
                       "entry_ms": entry_ms, "train_runs": train_runs,
                       "train_runs_bf16": train_runs_bf16, "step_ms": step_ms,
-                      "step_profile": train_profiles, "build_s": build_s,
+                      "step_profile": train_profiles, "cli": cli, "build_s": build_s,
                       "mbconv_smem_bytes": mb_smem, "gpu": smi_line}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

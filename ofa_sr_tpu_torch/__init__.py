@@ -7,6 +7,7 @@ functions keep JAX's NHWC layout; weights are held in PyTorch's OIHW layout
 (the reference state_dict layout), except at the hand-written kernels'
 interfaces, which take the same weight layouts as their Pallas counterparts.
 
-Entry points (`entry.entry`, `entry.serve`) run on the GPU unless the caller
-passes `device="cpu"`.
+Entry points (`entry.entry`, `entry.serve`, `entry.train`) run on the GPU
+unless the caller passes `device="cpu"`; the command-line entry points in
+`cli/` unless given `--device cpu`.
 """

@@ -1,0 +1,23 @@
+from .datasets import PairedImageDataset, SRImageDataset, SyntheticSRDataset, list_images
+from .providers import DataProvider, Div2KSetXXProvider, Loader, SyntheticSRProvider
+from .transforms import (
+    CenterCrop,
+    Compose,
+    EntropyCrop,
+    ModCrop,
+    NineRandomCrop,
+    RandomCrop,
+    RandomHorizontalFlip,
+    RandomRotation,
+    Scale,
+    bicubic_downscale_pil,
+    to_numpy,
+)
+
+__all__ = [
+    "CenterCrop", "Compose", "EntropyCrop", "ModCrop", "NineRandomCrop",
+    "RandomCrop", "RandomHorizontalFlip", "RandomRotation", "Scale",
+    "bicubic_downscale_pil", "to_numpy",
+    "PairedImageDataset", "SRImageDataset", "SyntheticSRDataset", "list_images",
+    "DataProvider", "Div2KSetXXProvider", "Loader", "SyntheticSRProvider",
+]

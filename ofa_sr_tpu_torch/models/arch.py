@@ -72,6 +72,9 @@ class SubnetConfig:
     d: tuple
     pixel_d: int
 
+    def describe(self) -> str:
+        return "ks%s_e%s_d%s_pd%d" % (list(self.ks), list(self.e), list(self.d), self.pixel_d)
+
 
 def max_subnet(space: SearchSpace, n_trunks: int = 1) -> SubnetConfig:
     n_blocks = space.blocks_per_trunk * n_trunks

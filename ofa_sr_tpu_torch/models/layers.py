@@ -56,10 +56,13 @@ def cast(w, compute_dtype):
 def bn_apply(y, bn: nn.BatchNorm2d, n=None, *, bn_training=False, use_kernels=False):
     """BN with the first `n` channels of `bn` (all if None): train mode
     (updating that prefix of the running statistics) when `bn_training`,
-    else normalized with the running statistics."""
+    else normalized with the running statistics. A module's `update_var`
+    attribute, where set ("biased" during BN recalibration), picks the
+    variance the running statistics take."""
     if bn_training:
         return batch_norm_train(y, bn.weight[:n], bn.bias[:n], bn.running_mean[:n],
                                 bn.running_var[:n], momentum=bn.momentum, eps=bn.eps,
+                                update_var=getattr(bn, "update_var", "unbiased"),
                                 use_kernels=use_kernels)
     return batch_norm(y, bn.weight[:n], bn.bias[:n], bn.running_mean[:n],
                       bn.running_var[:n], eps=bn.eps)

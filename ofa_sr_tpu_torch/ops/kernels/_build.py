@@ -147,6 +147,17 @@ def require_cuda_f32(device, **tensors):
     require_cuda(device, torch.float32, **tensors)
 
 
+def serving_operands(kernel, x, weights):
+    """The serving kernels' operand rule, the Pallas kernels': x must be
+    float32 (Pallas writes x into a float32 scratch and refuses a bf16 x);
+    bf16 weights are taken as float32, which is exact (Pallas' `jnp.dot`
+    promotes them the same way). Returns the weights, bf16 ones upcast."""
+    if x.dtype is not torch.float32:
+        raise ValueError("%s takes a float32 x, got %s: the Pallas kernel refuses it too "
+                         "(it stores x into a float32 scratch)" % (kernel, x.dtype))
+    return [w.float() if w.dtype is torch.bfloat16 else w for w in weights]
+
+
 def launch(fn_name, device, *args):
     """Call the launch function `fn_name` of csrc/ on the current stream of
     `device` and raise on the cudaError_t it returns. `args` are, in the C

@@ -12,7 +12,8 @@ pl_w [M,C]; pl_b [C] (the Pallas kernel's layouts).
 a CUDA tensor and takes the plain version, `mbconv_reference`, only for a CPU
 tensor. The kernel takes any H, W and M, k in {3, 5, 7}, and C a
 multiple of 4 up to 64; other inputs raise. `fused_mbconv_infer.launches` counts kernel
-launches.
+launches. As in the Pallas kernel, bf16 weights are taken (upcast to float32,
+which is exact, on both paths) and a bf16 x is refused.
 
 The kernel multiplies both 1x1 convs on the tensor cores in 3xTF32 (as the
 shuffle tail does): each float32 operand v is split as big = tf32(v),
@@ -62,7 +63,10 @@ def mbconv_3xtf32_emulated(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=Tr
 
 
 def fused_mbconv_infer(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=True):
-    """Fused MBConv on NHWC `x`; returns a new [B,H,W,C] float32 tensor."""
+    """Fused MBConv on NHWC `x`; returns a new [B,H,W,C] float32 tensor.
+    x is float32; the weights float32 or bf16 (taken as float32, exact)."""
+    ib_w, ib_b, dw_w, dw_b, pl_w, pl_b = _build.serving_operands(
+        "fused_mbconv_infer", x, (ib_w, ib_b, dw_w, dw_b, pl_w, pl_b))
     if x.device.type == "cpu":
         return mbconv_reference(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b,
                                 residual=residual)

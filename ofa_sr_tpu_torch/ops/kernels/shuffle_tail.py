@@ -11,7 +11,9 @@ HWIO; b: (4C,). Returns [B,2H,2W,C].
 `fused_shuffle_tail` launches the hand-written kernel in
 csrc/shuffle_tail.cu for a CUDA tensor and takes the plain version,
 `shuffle_tail_reference`, only for a CPU tensor.
-`fused_shuffle_tail.launches` counts kernel launches.
+`fused_shuffle_tail.launches` counts kernel launches. As in the Pallas
+kernel, bf16 weights are taken (upcast to float32, which is exact, on both
+paths) and a bf16 x is refused.
 
 The kernel multiplies on the tensor cores in 3xTF32: each float32 operand v
 is split as big = tf32(v), small = tf32(v - big), and it accumulates
@@ -61,7 +63,9 @@ def shuffle_tail_3xtf32_emulated(x, w, b):
 
 
 def fused_shuffle_tail(x, w, b):
-    """conv5x5(C -> 4C, SAME, +bias) + PixelShuffle(2), fused."""
+    """conv5x5(C -> 4C, SAME, +bias) + PixelShuffle(2), fused. x is
+    float32; w and b float32 or bf16 (taken as float32, exact)."""
+    w, b = _build.serving_operands("fused_shuffle_tail", x, (w, b))
     if x.device.type == "cpu":
         return shuffle_tail_reference(x, w, b)
     bsz, h, wd, cin = x.shape

@@ -1,20 +1,110 @@
-"""Weight bridge from the JAX package's pytrees to the port's state_dict.
+"""Checkpoints of the port, and the weight bridge from the JAX package.
 
-Counterpart of the torch-interop half of ofa_sr_tpu/train/checkpoint.py
-(which reads the reference state_dict layout into JAX pytrees:
-`import_torch_s4` there reads the port's `state_dict()` unchanged). This is
-the other direction: the JAX package's `(params, state)` for
-OFAMobileNetS4, as numpy arrays (or anything `np.asarray` takes), become a
-state_dict that `OFAMobileNetS4.load_state_dict` accepts.
+The store (counterpart of the native half of
+ofa_sr_tpu/train/checkpoint.py): one `torch.save` file per checkpoint
+holding {"epoch", "best_acc", "model": state_dict, "optimizer":
+state_dict}, `latest.txt` naming the newest, and `model_best.pth.tar`
+holding {"model"} on a new best. The port does not read the JAX package's
+msgpack checkpoints (the bridge below covers weights), but it reads a
+reference `.pth.tar` or a raw state_dict: the port's state_dict has the
+reference layout.
 
-Conv kernels HWIO -> OIHW; depthwise [k,k,1,C] -> [C,1,k,k]; BN
-scale/bias/mean/var -> weight/bias/running_mean/running_var.
+The bridge (counterpart of the torch-interop half, whose `import_torch_s4`
+reads the port's `state_dict()` unchanged) goes the other direction: the
+JAX package's `(params, state)` for OFAMobileNetS4, as numpy arrays (or
+anything `np.asarray` takes), become a state_dict that
+`OFAMobileNetS4.load_state_dict` accepts. Conv kernels HWIO -> OIHW;
+depthwise [k,k,1,C] -> [C,1,k,k]; BN scale/bias/mean/var ->
+weight/bias/running_mean/running_var.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+CHECKPOINT_NAME = "checkpoint.pth.tar"
+BEST_NAME = "model_best.pth.tar"
+
+
+def save_checkpoint(save_dir, ckpt, *, name=CHECKPOINT_NAME, is_best=False,
+                    best_name=BEST_NAME):
+    """Write `ckpt` (a dict with "model") to save_dir/name, point
+    latest.txt at it, and on `is_best` write {"model"} to `best_name`."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, name)
+    torch.save(ckpt, path)
+    with open(os.path.join(save_dir, "latest.txt"), "w") as f:
+        f.write(path + "\n")
+    if is_best:
+        torch.save({"model": ckpt["model"]}, os.path.join(save_dir, best_name))
+    return path
+
+
+def save_weights(save_dir, state_dict, name):
+    """A weights-only checkpoint {"model"} (per-corner best gating); it
+    leaves latest.txt alone, so resuming is unaffected."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, name)
+    torch.save({"model": state_dict}, path)
+    return path
+
+
+def load_checkpoint(path_or_dir):
+    """The checkpoint dict at a file, or at a directory's latest.txt."""
+    path = path_or_dir
+    if os.path.isdir(path_or_dir):
+        with open(os.path.join(path_or_dir, "latest.txt")) as f:
+            path = f.read().strip()
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _strip_prefixes(sd):
+    """Reference state_dict keys as the port names them: no 'module.', and
+    the dynamic layers' '.bn.bn.' / '.conv.conv.' / '.linear.linear.'
+    nestings collapsed."""
+    out = {}
+    for k, v in sd.items():
+        k = k.replace("module.", "")
+        k = k.replace(".bn.bn.", ".bn.")
+        k = k.replace(".conv.conv.", ".conv.")
+        k = k.replace(".linear.linear.", ".linear.")
+        out[k] = v
+    return out
+
+
+def checkpoint_state_dict(ckpt):
+    """The weights of a loaded checkpoint: the port's {"model"}, a reference
+    {"state_dict"}, or a raw state_dict; reference key prefixes stripped."""
+    for key in ("model", "state_dict"):
+        if isinstance(ckpt, dict) and isinstance(ckpt.get(key), dict):
+            ckpt = ckpt[key]
+            break
+    return _strip_prefixes(ckpt)
+
+
+def load_weights_lenient(path_or_dir, net):
+    """Warm-start `net` in place with the reference's strict=False load:
+    tensors whose key and shape match are taken from the checkpoint; the
+    rest of the net keeps its init. This is how checkpoints chain across
+    elastic spaces (a ks [7] net has no transform matrices; another expand
+    list gives other bank shapes).
+
+    Returns {"kept_template": net entries left at their init,
+    "dropped": checkpoint entries the net has no place for}."""
+    raw = checkpoint_state_dict(load_checkpoint(path_or_dir))
+    own = net.state_dict()
+    kept = 0
+    with torch.no_grad():
+        for k, v in own.items():
+            src = raw.get(k)
+            if src is None or tuple(src.shape) != tuple(v.shape):
+                kept += 1
+                continue
+            v.copy_(src)
+    return {"kept_template": kept, "dropped": sum(1 for k in raw if k not in own)}
 
 
 def _tensor(a):

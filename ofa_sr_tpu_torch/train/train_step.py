@@ -29,6 +29,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..ops.elastic import spatial_valid_mask
 from ..utils.metrics import psnr_y_device
 from .optim import build_optimizer
 
@@ -103,10 +104,31 @@ class SRTrainer:
 
     def eval_step(self, batch, cfg):
         """MSE and PSNR-Y of subnet `cfg` with BN in eval mode; "output" in
-        the compute type, loss and PSNR of it in float32 (the JAX eval step
-        forms PSNR-Y in the output's bf16 instead, weights rounded to bf16)."""
+        the compute type. As in the JAX eval step, PSNR-Y quantizes the
+        output and forms its Y in the output's type (bf16 under
+        `compute_dtype`); loss and PSNR come out float32."""
         with torch.no_grad():
             out = self._forward(batch, cfg, bn_training=False)
-            outf, hr = out.float(), batch["image"]
-            return {"loss": torch.mean(torch.square(outf - hr)),
-                    "psnr": psnr_y_device(outf, hr), "output": out}
+            hr = batch["image"]
+            return {"loss": torch.mean(torch.square(out.float() - hr)),
+                    "psnr": psnr_y_device(out, hr), "output": out}
+
+    def bucketed_eval_step(self, batch, cfg):
+        """Shape-bucketed evaluation (the JAX `make_bucketed_eval_step`): the
+        batch holds zero-padded frames and "valid_hw", the (h, w) of the real
+        LR frame; loss and PSNR-Y average over the valid HR region only.
+        Like the JAX step, it runs the float32 weights whatever
+        `compute_dtype` is (that step calls `net.apply` on the master
+        params), so PSNR-Y is formed in float32."""
+        pd = cfg.pixel_d
+        vh, vw = (int(v) for v in batch["valid_hw"])
+        with torch.no_grad():
+            out = self.net(batch["x%d" % 2 ** pd], cfg, pd, bn_training=False,
+                           use_kernels=self.use_kernels, valid_hw=(vh, vw))
+            hr = batch["image"]
+            mask = spatial_valid_mask(vh * 2 ** pd, vw * 2 ** pd, hr.shape[1], hr.shape[2],
+                                      hr.dtype, hr.device)
+            loss = (torch.square(out - hr) * mask).sum() / (mask.sum() * hr.shape[0]
+                                                           * hr.shape[-1])
+            return {"loss": loss, "psnr": psnr_y_device(out, hr, valid_mask=mask),
+                    "output": out}

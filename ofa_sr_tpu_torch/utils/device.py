@@ -6,14 +6,19 @@ import torch
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """`device` as a torch.device; a CUDA device must exist.
+    """`device` as a torch.device; a CUDA device must exist, and comes back
+    with its index ("cuda" as "cuda:<current>"), so it compares equal to a
+    tensor's device.
 
     The port runs on the GPU unless the caller asks for the CPU: there is no
     silent fallback when no GPU is present.
     """
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device %r requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run on the CPU" % str(device))
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device %r requested but torch.cuda.is_available() is False; "
+                "pass device='cpu' to run on the CPU" % str(device))
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

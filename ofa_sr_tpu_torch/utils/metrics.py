@@ -5,6 +5,12 @@ ofa_sr_tpu/utils/metrics.py).
 clamp to [0, 1], x255, round, ITU-R 601 Y with a second round, MSE,
 20*log10(255/sqrt(mse)); inf where the images are equal. `torch.round`
 rounds half to even, as `jnp.round` does.
+
+Each image is quantized and its Y formed in its own dtype, as the JAX
+package does: a bf16 prediction has its Y weights rounded to bf16, the
+weighted sum taken in float32 and rounded to bf16 once (a dot with float32
+accumulation, as XLA computes JAX's bf16 `tensordot`), then /255 and +16 in
+bf16. The MSE of a bf16 Y against a float32 target's is float32.
 """
 
 from __future__ import annotations
@@ -23,10 +29,12 @@ def quantize_img(x):
 
 
 def rgb2y_device(img255, channel_axis=-1):
-    """uint8-valued float RGB (0..255) -> rounded Y channel."""
-    r, g, b = torch.unbind(img255, dim=channel_axis)
-    y = (r * Y_WEIGHTS[0] + g * Y_WEIGHTS[1] + b * Y_WEIGHTS[2]) / 255.0 + 16.0
-    return torch.round(y)
+    """uint8-valued float RGB (0..255) -> rounded Y channel, in img255's
+    dtype."""
+    w = torch.tensor(Y_WEIGHTS, dtype=img255.dtype).float().tolist()
+    r, g, b = torch.unbind(img255.float(), dim=channel_axis)
+    y = (r * w[0] + g * w[1] + b * w[2]).to(img255.dtype)
+    return torch.round(y / 255.0 + 16.0)
 
 
 def psnr_y_device(pred, target, channel_axis=-1, valid_mask=None):

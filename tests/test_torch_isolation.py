@@ -18,14 +18,19 @@ def _port_modules():
 
 
 def test_importing_the_port_loads_no_jax():
+    """Nor PIL: the GPU machine may lack it, and the synthetic data path and
+    the CLIs run without it (PIL is imported where an image is opened)."""
     mods = _port_modules()
-    assert "ofa_sr_tpu_torch.ops.kernels.mbconv" in mods
+    for m in ("ops.kernels.mbconv", "data.providers", "data.transforms", "data.datasets",
+              "train.run_manager", "train.bn_recalib", "cli.common",
+              "cli.train_teacher_net_sr_simple", "cli.eval_ofa_net_sr"):
+        assert "ofa_sr_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         "for m in %r + ['chip_smoke', 'bn_path_times']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'ofa_sr_tpu'))\n"
+        "('jax', 'jaxlib', 'ofa_sr_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n" % mods)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -96,6 +96,57 @@ def test_shuffle_tail_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+def _bf16(a):
+    """numpy float32 -> (jnp bf16, torch bf16) holding the same values."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(torch.bfloat16)
+
+
+def test_mbconv_bf16_weights_match_pallas_interpret():
+    """bf16 weights with a float32 x: the Pallas kernel promotes the weights
+    in its dots and returns float32; the port upcasts them (exact), so both
+    compute the float32 kernel on the same values (TOL)."""
+    rng = np.random.RandomState(6)
+    x = rng.randn(1, 16, 16, 8).astype(np.float32)
+    w = {k: _bf16(v) for k, v in _mbconv_weights(8, 24, 7, seed=6).items()}
+    ref = jmb.fused_mbconv_infer(jnp.asarray(x), **{k: v[0] for k, v in w.items()},
+                                 interpret=True)
+    got = tmb.fused_mbconv_infer(torch.from_numpy(x), **{k: v[1] for k, v in w.items()})
+    assert ref.dtype == jnp.float32 and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    up = tmb.mbconv_reference(torch.from_numpy(x), **{k: v[1].float() for k, v in w.items()})
+    assert torch.equal(got, up)
+
+
+def test_shuffle_tail_bf16_weights_match_pallas_interpret():
+    rng = np.random.RandomState(7)
+    x = rng.rand(1, 6, 8, 16).astype(np.float32)
+    (wj, wt), (bj, bt) = _bf16(rng.randn(5, 5, 16, 64) * 0.05), _bf16(rng.randn(64) * 0.1)
+    ref = jst.fused_shuffle_tail(jnp.asarray(x), wj, bj, interpret=True)
+    got = tst.fused_shuffle_tail(torch.from_numpy(x), wt, bt)
+    assert ref.dtype == jnp.float32 and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    assert torch.equal(got, tst.shuffle_tail_reference(torch.from_numpy(x), wt.float(), bt.float()))
+
+
+def test_serving_kernels_refuse_bf16_x_in_both_packages():
+    """A bf16 x: Pallas fails storing it into its float32 scratch; the port's
+    wrappers raise before either path runs."""
+    rng = np.random.RandomState(8)
+    x = rng.rand(1, 8, 8, 8).astype(np.float32)
+    w = _mbconv_weights(8, 16, 3, seed=8)
+    xj, xt = _bf16(x)
+    with pytest.raises(ValueError, match="dtype"):
+        jmb.fused_mbconv_infer(xj, **{k: jnp.asarray(v) for k, v in w.items()}, interpret=True)
+    with pytest.raises(ValueError, match="Pallas kernel refuses"):
+        tmb.fused_mbconv_infer(xt, **_torch(w))
+    wt, bt = rng.randn(5, 5, 8, 32).astype(np.float32), rng.randn(32).astype(np.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        jst.fused_shuffle_tail(xj, jnp.asarray(wt), jnp.asarray(bt), interpret=True)
+    with pytest.raises(ValueError, match="Pallas kernel refuses"):
+        tst.fused_shuffle_tail(xt, torch.from_numpy(wt), torch.from_numpy(bt))
+
+
 def test_shuffle_tail_channel_order():
     """Distinct per-channel biases with a zero conv: HR channel c at
     sub-pixel (y, x) holds bias[4c + 2y + x]."""
