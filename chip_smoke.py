@@ -8,12 +8,16 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    in parallel).
 2. Kernel parity on the card: each kernel against its plain PyTorch version
    on the same inputs, at the serving and training paths' shapes and a few
-   ragged ones (the fused BN backward `bn_backward`: dx, dscale, dbias; the
+   ragged ones (the fused BN forward `bn_forward`: the moments, and inv, y
+   and the running statistics, prefix views included, bit for bit against
+   the plain ops on the kernel's moments, two calls giving the same bits;
+   the fused BN backward `bn_backward`: dx, dscale, dbias; the
    shuffle tail and the MBConv also against float64, each no less accurate
    than its cuDNN float32 composition);
    train-mode BN through the BN kernels (`bn_train_fused`) against the
    plain autograd branch: y, dx, dscale, dbias. Then the bf16 forms of the
-   BN kernels (`ofa_col_sums2_bf16`, `ofa_bn_backward_bf16`) the same way on
+   BN kernels (`ofa_bn_forward_bf16`, `ofa_col_sums2_bf16`,
+   `ofa_bn_backward_bf16`) the same way on
    bf16 tensors, at every BN shape of the training path plus C = 3, ragged
    C and misaligned rows (sums and moments at the float32 rows' tolerance,
    dx within one bf16 ulp), and float16 or a bf16 dy with a float32 x
@@ -29,10 +33,10 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    held against the same forward on the CPU; then training through
    `entry.train` on the full-width supernet (bs16, 96x96 HR, Adam, weight
    decay 3e-5): 8 one-subnet steps (both pixel_d among their subnets) and 2
-   steps of 4 subnets with KD, each BN wrapper's launches (col_sums2,
-   bn_moments, bn_backward) read around each run and held to
-   3*sum(d) + pixel_d + 4 a subnet (the
-   teacher's eval forward launches none); then the same two runs in bf16
+   steps of 4 subnets with KD, each BN wrapper's launches read around each
+   run: bn_forward and bn_backward held to 3*sum(d) + pixel_d + 4 a subnet
+   (the teacher's eval forward launches none), col_sums2 and bn_moments
+   (off the path) to 0; then the same two runs in bf16
    mixed precision (`compute_dtype=torch.bfloat16`, the JAX bench's own
    training envelope), where every BN launch must be a bf16 one, and the
    one-subnet bf16 run once more on the plain path (losses held to the
@@ -47,7 +51,8 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    points, in a temporary directory, at full width: the teacher trainer
    (`cli.train_teacher_net_sr_simple`, synthetic data, BN in train mode)
    for 2 epochs of 4 steps with validation, its BN-kernel launches counted
-   and held to 3*sum(d) + pixel_d + 4 a step, its checkpoint and log files
+   (bn_forward, bn_backward) and held to 3*sum(d) + pixel_d + 4 a step,
+   col_sums2 and bn_moments to 0, its checkpoint and log files
    checked; again with 3 epochs, which must resume at epoch 2 and run one;
    once in bf16, where every BN launch must be a bf16 one. Then the SR
    evaluator (`cli.eval_ofa_net_sr --materialize`, ks7/e6/d2/pixel_d 2,
@@ -61,8 +66,9 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    frame.
 6. Per-kernel numbers at the paths' shapes (kernel, plain version, the
    card's least time, and for the BN kernels one PyTorch call computing the
-   same function as a yardstick the port never calls), the BN kernels in
-   float32 and in bf16. Then the torch.profiler
+   same function as a yardstick the port never calls: F.batch_norm in train
+   mode for the fused forward), the BN kernels in float32 and in bf16. Then
+   the torch.profiler
    sessions of phases 3 and 4, last, because a profiler session leaves the
    launch path slower for the rest of the process: device time and kernels
    per frame and per step, and the BN kernels' own device time. One JSON line of all of it, the
@@ -111,6 +117,9 @@ from ofa_sr_tpu_torch.ops.kernels.bn_stats import (  # noqa: E402
     bn_backward_reference,
     bn_bwd_sums,
     bn_bwd_sums_reference,
+    bn_forward,
+    bn_forward_from_moments,
+    bn_forward_reference,
     bn_moments,
     bn_moments_reference,
     col_sums2,
@@ -167,20 +176,29 @@ TRAIN_STEPS = 8                       # one-subnet steps; steps 0-7 sample both 
 KD_STEPS = 2                          # steps of 4 subnets with KD
 STEP_ROUNDS = 3                       # rounds of (plain, kernels, kernels, plain) timing
 # the BN wrappers the training path calls, one launch each per train-mode BN
-BN_KERNELS = (col_sums2, bn_moments, bn_backward)
+# (the fused forward and the fused backward), and the BN wrappers that are
+# off the path (entry points of the Pallas functions, held in phase 2)
+BN_KERNELS = (bn_forward, bn_backward)
+BN_OFF_PATH = (col_sums2, bn_moments)
 # the __global__ functions of csrc/*.cu, as the profiler names them
-PORT_KERNELS = ("col_partials_kernel", "finish_kernel", "bn_dx_kernel", "mbconv_kernel",
-                "shuffle_tail_kernel")
+PORT_KERNELS = ("col_partials_kernel", "finish_kernel", "bn_dx_kernel", "bn_fwd_finish_kernel",
+                "bn_norm_kernel", "mbconv_kernel", "shuffle_tail_kernel")
 # the kernels of each BN row, as the profiler names them (the mode is the
-# template argument: 1 moments, 2 backward)
+# template argument: 1 moments, 2 backward, 3 the forward's moments)
 # the backward row times `bn_backward`: bn_bwd_sums' sums and dx in one call
 BWD_ROW = "bn_bwd_sums+dx (bn_backward)"
-BN_ROW_KERNELS = {"col_sums2": ("col_partials_kernel<1,", "finish_kernel<1>"),
+BN_ROW_KERNELS = {"bn_forward": ("col_partials_kernel<3,", "bn_fwd_finish_kernel",
+                                 "bn_norm_kernel"),
+                  "col_sums2": ("col_partials_kernel<1,", "finish_kernel<1>"),
                   BWD_ROW: ("col_partials_kernel<2,", "finish_kernel<2>", "bn_dx_kernel")}
 # the bf16 forms' rows: the same kernels, instantiated for __nv_bfloat16
 # (finish_kernel reads float32 partials and is shared; each step profile
 # runs one type only)
-BF16_ROWS = {"col_sums2": "col_sums2 (bf16)", BWD_ROW: "bn_bwd_sums+dx (bn_backward, bf16)"}
+BF16_ROWS = {"bn_forward": "bn_forward (bf16)", "col_sums2": "col_sums2 (bf16)",
+             BWD_ROW: "bn_bwd_sums+dx (bn_backward, bf16)"}
+BN_EPS = 1e-5
+# the running statistics' update of each phase-2 forward case, in turn
+BN_UPDATES = ((0.1, "unbiased"), (1.0, "biased"), (0.1, "biased"), (1.0, "unbiased"))
 DEVICE = "cuda"                       # the card; a CPU rehearsal sets "cpu"
 # phase 5: the CLIs' synthetic data (cli.common.make_sr_provider: 64
 # training images at the batch size, 4 validation frames)
@@ -448,14 +466,98 @@ def bn_parity(g, dtype=torch.float32):
     return errs
 
 
+def check_bits(name, got, ref):
+    """got and ref bit for bit (same shape and type); on a mismatch, fails
+    with the largest distance in steps of their type."""
+    same = got.dtype == ref.dtype and got.shape == ref.shape and torch.equal(got, ref)
+    if not same:
+        ints = {torch.float32: torch.int32, BF16: torch.int16}[ref.dtype]
+
+        def order(t):  # the bit patterns in a monotonic integer order
+            i = t.contiguous().view(ints).long()
+            return torch.where(i < 0, torch.iinfo(ints).min - i, i)
+        steps = int((order(got.to(ref.dtype)) - order(ref)).abs().max())
+        fail("%s differs from its plain version by up to %d steps of %s (expected the same "
+             "bits: same association)" % (name, steps, ref.dtype))
+    return same
+
+
+def bn_forward_parity(g, dtype=torch.float32):
+    """`bn_forward` against its plain version on the card, at every BN
+    shape of the training path and at C 3, 17, 100 (a ragged second tile of
+    64 columns), N 1 and rows off a 16-byte boundary (4 bytes in float32;
+    2 and 4 in bf16, and C 6 and 24 there), the running statistics as
+    prefix views of longer buffers and the four (momentum, update_var)
+    pairs in turn. The moments are held to `bn_moments_reference` (other sum
+    order: MOMENT_TOL); inv, y and both running statistics, bit for bit, to
+    the plain ops on the kernel's own moments (`bn_forward_from_moments`,
+    the same association); y also to the whole plain version (TOL, a bf16 y
+    within one ulp: BF16_DX_TOL); a second call on the same input gives the
+    same bits. Returns {"bn_forward"[_bf16]: max abs err of y against the
+    plain version at the path's shapes}."""
+    bf16 = dtype is BF16
+    tag, key = (" bf16", "_bf16") if bf16 else ("", "")
+    err_key = "bn_forward" + key
+    errs = {err_key: 0.0}
+    cases = [(s, True, 0) for s in path_bn_shapes()]
+    cases += [((n, 1, 1, c), False, 0) for n in (1000, 37) for c in (3, 17, 100)]
+    cases += [((1, 1, 1, 8), False, 0), ((300, 1, 1, 64), False, 1)]
+    if bf16:
+        cases += [((1000, 1, 1, 6), False, 0), ((37, 1, 1, 24), False, 0),
+                  ((300, 1, 1, 64), False, 2)]
+    y_tol = BF16_DX_TOL if bf16 else TOL
+    for i, (shape, on_path, k) in enumerate(cases):
+        momentum, update_var = BN_UPDATES[i % len(BN_UPDATES)]
+        c = shape[3]
+        x = offset((1.5 * randn(g, *shape) + 0.3).to(dtype).contiguous(), k)
+        scale, bias = (0.5 + torch.rand(c, generator=g)).to(DEVICE), randn(g, c, scale=0.2)
+        rm0, rv0 = randn(g, c + 5, scale=0.2), (0.5 + torch.rand(c + 5, generator=g)).to(DEVICE)
+        kw = dict(momentum=momentum, eps=BN_EPS, update_var=update_var)
+        runs = []
+        for _ in range(2):  # the second: the determinism check
+            rm, rv = rm0.clone(), rv0.clone()
+            out = launched(bn_forward, lambda: bn_forward(x, scale, bias, rm[:c], rv[:c], **kw),
+                           bf16)
+            runs.append(out + (rm, rv))
+        torch.cuda.synchronize()
+        y, mean, var, inv, rm, rv = runs[0]
+        name = "bn_forward%s %s m=%s %s" % (tag, shape, momentum, update_var)
+        if y.dtype is not dtype or y.shape != x.shape or inv.dtype is not torch.float32:
+            fail("%s returned y %s %s, inv %s" % (name, y.dtype, tuple(y.shape), inv.dtype))
+        for a, b in zip(runs[0], runs[1]):
+            if not torch.equal(a, b):
+                fail("%s: two calls on one input gave different bits" % name)
+        for j, (u, v) in enumerate(zip((mean, var), bn_moments_reference(x))):
+            check_close("%s %s" % (name, ("mean", "var")[j]), u, v, MOMENT_TOL)
+        rm_p, rv_p = rm0.clone(), rv0.clone()
+        y_m, _, _, inv_m = bn_forward_from_moments(x, scale, bias, rm_p[:c], rv_p[:c], mean,
+                                                   var, **kw)
+        for part, u, v in (("inv", inv, inv_m), ("y", y, y_m), ("running_mean", rm, rm_p),
+                           ("running_var", rv, rv_p)):
+            check_bits("%s %s" % (name, part), u, v)
+        if not (torch.equal(rm[c:], rm0[c:]) and torch.equal(rv[c:], rv0[c:])):
+            fail("%s wrote past the running statistics' prefix" % name)
+        y_p = bn_forward_reference(x, scale, bias, rm0.clone()[:c], rv0.clone()[:c], **kw)[0]
+        err = check_close(name + " y vs plain", y.float(), y_p.float(), y_tol)
+        print("  %-58s inv, y, running stats bit for bit; deterministic" % name, flush=True)
+        if on_path:
+            errs[err_key] = max(errs[err_key], err)
+    return errs
+
+
 def bn_dtype_rule():
     """The BN wrappers refuse, on the card, activations the kernels do not
     take (float16; a bf16 dy with a float32 x), launching nothing."""
     x16 = torch.zeros(64, 8, device=DEVICE, dtype=torch.float16)
     xb, xf = torch.zeros(64, 8, device=DEVICE, dtype=BF16), torch.zeros(64, 8, device=DEVICE)
     v = torch.ones(8, device=DEVICE)
-    before = [(k.launches, k.launches_bf16) for k in BN_KERNELS]
+    kernels = BN_KERNELS + BN_OFF_PATH + (bn_bwd_sums,)
+    before = [(k.launches, k.launches_bf16) for k in kernels]
     for name, fn in (("float16 moments", lambda: bn_moments(x16.view(1, 8, 8, 8))),
+                     ("float16 forward", lambda: bn_forward(x16.view(1, 8, 8, 8), v, v, v, v,
+                                                            momentum=0.1)),
+                     ("bf16 running stats", lambda: bn_forward(xf, v, v, v.to(BF16), v,
+                                                               momentum=0.1)),
                      ("float16 backward", lambda: bn_backward(x16, x16, v, v, v)),
                      ("bf16 dy, float32 x", lambda: bn_backward(xb, xf, v, v, v)),
                      ("float32 a, bf16 b", lambda: col_sums2(xf, xb))):
@@ -465,13 +567,14 @@ def bn_dtype_rule():
             print("  refused on the card: %-24s (%s)" % (name, str(e)[:70]), flush=True)
             continue
         fail("the BN wrappers took %s on the card" % name)
-    if [(k.launches, k.launches_bf16) for k in BN_KERNELS] != before:
+    if [(k.launches, k.launches_bf16) for k in kernels] != before:
         fail("a refused BN call launched a kernel")
 
 
 def bn_grad_check(g, dtype=torch.float32):
-    """Train-mode BN through the kernels (bn_train_fused) against the plain
-    autograd branch on the card: y, dx, dscale, dbias, running stats; on
+    """Train-mode BN through the kernels (bn_train_fused: one bn_forward and
+    one bn_backward launch) against the plain autograd branch on the card:
+    y, dx, dscale, dbias, running stats; on
     bf16 x with float32 scale and bias for the bf16 forms (y and dx within
     one bf16 ulp)."""
     bf16 = dtype is BF16
@@ -491,12 +594,12 @@ def bn_grad_check(g, dtype=torch.float32):
             x = x0.clone().requires_grad_()
             scale, bias = (t.to(x0.device).requires_grad_() for t in (scale0, bias0))
             rm, rv = rm0.to(x0.device), rv0.to(x0.device)
-            before = bn_backward.launches, bn_backward.launches_bf16
+            before = [(k.launches, k.launches_bf16) for k in BN_KERNELS]
             y = batch_norm_train(x, scale, bias, rm, rv, use_kernels=uk)
             y.backward(w)
-            if uk and x.is_cuda and (bn_backward.launches, bn_backward.launches_bf16) != (
-                    before[0] + 1, before[1] + bf16):
-                fail("bn_train_fused's backward did not launch bn_backward")
+            if uk and x.is_cuda and [(k.launches, k.launches_bf16) for k in BN_KERNELS] != [
+                    (n + 1, nb + bf16) for n, nb in before]:
+                fail("bn_train_fused did not launch bn_forward and bn_backward once each")
             out[uk] = (y.detach(), x.grad, scale.grad, bias.grad, rm, rv)
         torch.cuda.synchronize()
         (y, dx, ds, db, rm, rv), (y_p, dx_p, ds_p, db_p, rm_p, rv_p) = out[True], out[False]
@@ -637,22 +740,47 @@ def device_profile(name, run, n, unit_ms, unit):
 # -- phase 4: training -------------------------------------------------------
 
 def bn_launches_expected(cfgs):
-    """Launches of each BN-statistics wrapper for a step over `cfgs`: one per
-    train-mode BN, 3*sum(d) + pixel_d + 4 a subnet."""
+    """Launches of each BN wrapper of the path (bn_forward, bn_backward) for
+    a step over `cfgs`: one per train-mode BN, 3*sum(d) + pixel_d + 4 a
+    subnet."""
     return sum(3 * sum(c.d) + c.pixel_d + 4 for c in cfgs)
 
 
+def zero_bn_counts():
+    for k in BN_KERNELS + BN_OFF_PATH:
+        k.launches = k.launches_bf16 = 0
+
+
+def bn_counts():
+    """{wrapper: launches, wrapper_bf16: its bf16 launches} of the path's BN
+    wrappers and of those off the path."""
+    counts = {k.__name__: k.launches for k in BN_KERNELS + BN_OFF_PATH}
+    counts.update({k.__name__ + "_bf16": k.launches_bf16 for k in BN_KERNELS + BN_OFF_PATH})
+    return counts
+
+
+def bn_launches_wrong(counts, expect, bf16):
+    """Why `counts` is not one launch of each path wrapper per train-mode BN
+    (`expect`), all of the run's type, and none off the path; None if it
+    is."""
+    if any(counts[k.__name__] != expect for k in BN_KERNELS):
+        return "did not launch bn_forward and bn_backward once per train-mode BN"
+    if any(counts[k.__name__ + "_bf16"] != (expect if bf16 else 0) for k in BN_KERNELS):
+        return "launched BN kernels of the other type"
+    if any(counts[k.__name__] for k in BN_OFF_PATH):
+        return "launched col_sums2 / bn_moments, which are off the path"
+    return None
+
+
 def counted_train(steps, **kw):
-    """entry.train with the BN-statistics counters read around it: the main
+    """entry.train with the BN wrappers' counters read around it: the main
     path's run. Returns (metrics, {kernel: launches, kernel_bf16: its bf16
     launches})."""
-    for k in BN_KERNELS:
-        k.launches = k.launches_bf16 = 0
+    zero_bn_counts()
     bn_train_fused.layout_copies = 0
     metrics = train(steps, device=DEVICE, **kw)
     torch.cuda.synchronize()
-    counts = {k.__name__: k.launches for k in BN_KERNELS}
-    counts.update({k.__name__ + "_bf16": k.launches_bf16 for k in BN_KERNELS})
+    counts = bn_counts()
     counts["layout_copies"] = bn_train_fused.layout_copies
     return metrics, counts
 
@@ -672,11 +800,9 @@ def training_main_path(compute_dtype=None):
               "pixel_d %s, losses %s" % (steps, label, ", bf16" if bf16 else "", counts, expect,
                                          sorted({c.pixel_d for c in cfgs}),
                                          [round(m["loss"], 5) for m in metrics]), flush=True)
-        if any(counts[k.__name__] != expect for k in BN_KERNELS):
-            fail("the training path did not launch each BN kernel once per train-mode BN")
-        if any(counts[k.__name__ + "_bf16"] != (expect if bf16 else 0) for k in BN_KERNELS):
-            fail("the %s training path launched BN kernels of the other type"
-                 % ("bf16" if bf16 else "float32"))
+        wrong = bn_launches_wrong(counts, expect, bf16)
+        if wrong:
+            fail("the %s training path %s" % ("bf16" if bf16 else "float32", wrong))
         if not all(np.isfinite(m["loss"]) and np.isfinite(m["psnr"]) for m in metrics):
             fail("non-finite training metrics: %s" % metrics)
         runs[label] = {"steps": steps, "launches": counts, "expected": expect,
@@ -842,15 +968,13 @@ def counted_cli(main_fn, argv):
     """main_fn(argv + --device) with every kernel's counters set to 0 just
     before and read just after: a main path's run. Returns (its result,
     {counter: launches}, wall seconds)."""
-    for k in BN_KERNELS:
-        k.launches = k.launches_bf16 = 0
+    zero_bn_counts()
     fused_mbconv_infer.launches = fused_shuffle_tail.launches = 0
     t0 = time.perf_counter()
     out = main_fn(argv + ["--device", DEVICE])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k.__name__: k.launches for k in BN_KERNELS}
-    counts.update({k.__name__ + "_bf16": k.launches_bf16 for k in BN_KERNELS})
+    counts = bn_counts()
     counts.update(mbconv=fused_mbconv_infer.launches, shuffle_tail=fused_shuffle_tail.launches)
     return out, counts, wall
 
@@ -860,10 +984,9 @@ def check_bn_launches(label, counts, n_steps, bf16):
     expect = n_steps * bn_launches_expected([cfg])
     print("  %s: BN-kernel launches %s (expected %d each%s)"
           % (label, counts, expect, ", all bf16" if bf16 else ""), flush=True)
-    if any(counts[k.__name__] != expect for k in BN_KERNELS):
-        fail("%s did not launch each BN kernel once per train-mode BN" % label)
-    if any(counts[k.__name__ + "_bf16"] != (expect if bf16 else 0) for k in BN_KERNELS):
-        fail("%s launched BN kernels of the other type" % label)
+    wrong = bn_launches_wrong(counts, expect, bf16)
+    if wrong:
+        fail("%s %s" % (label, wrong))
     if counts["mbconv"] or counts["shuffle_tail"]:
         fail("%s launched a serving kernel" % label)
     return expect
@@ -926,7 +1049,7 @@ def eval_run(tmp, ckpt_dir):
     got = {k: counts[k] for k in expect}
     print("  eval_ofa_net_sr --materialize, %d frames of %dx%d HR: launches %s (expected %s), "
           "mean PSNR-Y %.6f" % (EVAL_FRAMES, EVAL_HR, EVAL_HR, got, expect, psnr), flush=True)
-    if got != expect or any(counts[k.__name__] for k in BN_KERNELS):
+    if got != expect or any(counts[k.__name__] for k in BN_KERNELS + BN_OFF_PATH):
         fail("the evaluator did not go through the serving kernels as expected")
     with open(frame_log) as f:
         frames = [json.loads(line) for line in f]
@@ -1093,6 +1216,8 @@ def bn_kernel_numbers(g, launches, errs, dtype=torch.float32):
     at the path's shapes (the subnets of the counted one-subnet steps,
     launches averaged per step), against its plain version, the card's least
     time (bytes), and one PyTorch call computing the same function:
+    torch.nn.functional.batch_norm(training=True) on the channels-last NCHW
+    view with copies of the running statistics for the fused forward,
     torch.var_mean for the moments, and aten.native_batch_norm_backward with
     the full output mask (dx, dscale = sum dy*xhat, dbias = sum dy) on the
     channels-last NCHW view for the fused backward, checked here to return
@@ -1107,12 +1232,43 @@ def bn_kernel_numbers(g, launches, errs, dtype=torch.float32):
     for i in range(TRAIN_STEPS):
         for shp in bn_train_shapes(space, step_subnets(space, i, 1)[0], BS, HR):
             per_step[shp] = per_step.get(shp, 0) + 1.0 / TRAIN_STEPS
-    mom, bwd = [], []
-    library_note = None
+    fwd, mom, bwd = [], [], []
+    library_note = fwd_note = None
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731  channels-last NCHW view
     for shp in sorted(per_step):
         n, c = int(np.prod(shp[:3])), shp[3]
         k = per_step[shp]
         x = (1.5 * randn(g, *shp) + 0.3).to(dtype).contiguous()
+        scale, bias = (0.5 + torch.rand(c, generator=g)).to(DEVICE), randn(g, c, scale=0.2)
+        rm0, rv0 = randn(g, c, scale=0.2), (0.5 + torch.rand(c, generator=g)).to(DEVICE)
+        stats = [t.clone() for t in (rm0, rv0) * 3]  # kernel, plain, library
+        kw = dict(momentum=0.1, eps=BN_EPS, update_var="unbiased")
+
+        def fwd_library(rm=stats[4], rv=stats[5]):
+            return torch.nn.functional.batch_norm(nchw(x), rm, rv, scale, bias, training=True,
+                                                  momentum=0.1, eps=BN_EPS)
+
+        lib_fwd = fwd_library
+        try:
+            lib_y = fwd_library(*[t.clone() for t in (rm0, rv0)])
+            if lib_y.dtype is not dtype:
+                raise RuntimeError("it returned %s" % lib_y.dtype)
+        except RuntimeError as e:  # a yardstick only: the port never calls it
+            fwd_note = "batch_norm(training=True) refused %s input: %s" % (
+                dtype, str(e).splitlines()[0][:160])
+            print("  " + fwd_note, flush=True)
+            lib_fwd = None
+        if lib_fwd is not None:
+            check_close("batch_norm(training=True)%s y %s" % (" bf16" if bf16 else "", shp),
+                        lib_y.permute(0, 2, 3, 1).float(),
+                        bn_forward_reference(x, scale, bias, rm0.clone(), rv0.clone(),
+                                             **kw)[0].float(),
+                        BF16_DX_TOL if bf16 else TOL)
+        fwd.append(measure_shape(
+            lambda: bn_forward(x, scale, bias, stats[0], stats[1], **kw),
+            lambda: bn_forward_reference(x, scale, bias, stats[2], stats[3], **kw),
+            flops=6 * n * c, nbytes_=2 * nbytes(x) + 9 * c * 4, launches=k, unit="step",
+            library=lib_fwd, shape=list(shp)))
         mom.append(measure_shape(
             lambda: bn_moments(x), lambda: bn_moments_reference(x),
             flops=3 * n * c, nbytes_=nbytes(x) + 2 * c * 4, launches=k,
@@ -1121,9 +1277,7 @@ def bn_kernel_numbers(g, launches, errs, dtype=torch.float32):
         dy = randn(g, *shp).to(dtype)
         mean, var = bn_moments_reference(x)
         inv = torch.rsqrt(var + 1e-5)
-        scale = (0.5 + torch.rand(c, generator=g)).to(DEVICE)
         dyf = dy.view(n, c).float()
-        nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731  channels-last NCHW view
 
         def library():
             return torch.ops.aten.native_batch_norm_backward(
@@ -1154,15 +1308,21 @@ def bn_kernel_numbers(g, launches, errs, dtype=torch.float32):
             unit="step", library=library, shape=list(shp)))
     key = "_bf16" if bf16 else ""
     info = dict(unit="step", dtype=str(dtype).replace("torch.", ""))
-    if library_note:
-        info["library_note"] = library_note
-    names = (BF16_ROWS["col_sums2"], BF16_ROWS[BWD_ROW]) if bf16 else ("col_sums2", BWD_ROW)
-    return [kernel_row(names[0], "ofa_sr_tpu_torch/csrc/bn_stats.cu",
-                       "ofa_sr_tpu/ops/pallas/bn_stats.py:94", launches["col_sums2" + key],
-                       errs["col_sums2" + key], mom, wrapper="bn_moments", **info),
-            kernel_row(names[1], "ofa_sr_tpu_torch/csrc/bn_stats.cu",
-                       "ofa_sr_tpu/ops/pallas/bn_stats.py:196", launches["bn_backward" + key],
-                       errs["bn_bwd_sums" + key], bwd, wrapper="bn_backward", **info)]
+    names = [BF16_ROWS[r] if bf16 else r for r in BN_ROW_KERNELS]
+    src = "ofa_sr_tpu_torch/csrc/bn_stats.cu"
+    return [kernel_row(names[0], src, "ofa_sr_tpu/ops/pallas/bn_stats.py:94",
+                       launches["bn_forward" + key], errs["bn_forward" + key], fwd,
+                       wrapper="bn_forward", replaces_also="the XLA normalize after the "
+                       "Pallas moments (ofa_sr_tpu/ops/pallas/bn.py:47-51) and the running "
+                       "statistics' EMA (ofa_sr_tpu/ops/norm.py:86-90)",
+                       **dict(info, **({"library_note": fwd_note} if fwd_note else {}))),
+            kernel_row(names[1], src, "ofa_sr_tpu/ops/pallas/bn_stats.py:94",
+                       launches["col_sums2" + key], errs["col_sums2" + key], mom,
+                       wrapper="bn_moments (off the training path)", **info),
+            kernel_row(names[2], src, "ofa_sr_tpu/ops/pallas/bn_stats.py:196",
+                       launches["bn_backward" + key], errs["bn_bwd_sums" + key], bwd,
+                       wrapper="bn_backward",
+                       **dict(info, **({"library_note": library_note} if library_note else {})))]
 
 
 def main():
@@ -1195,9 +1355,11 @@ def main():
     g = torch.Generator().manual_seed(1234)
     print("phase 2: kernel parity on the card", flush=True)
     errs = kernel_parity(g)
+    errs.update(bn_forward_parity(g))
     errs.update(bn_parity(g))
     bn_grad_check(g)
     print("phase 2: the BN kernels' bf16 forms", flush=True)
+    errs.update(bn_forward_parity(g, BF16))
     errs.update(bn_parity(g, BF16))
     bn_grad_check(g, BF16)
     bn_dtype_rule()
@@ -1224,11 +1386,11 @@ def main():
     print("phase 4: entry.train in bf16 mixed precision (compute_dtype=torch.bfloat16)",
           flush=True)
     train_runs_bf16 = training_main_path(BF16)
-    bn_counts = {}
+    path_counts = {}
     for runs, key in ((train_runs, ""), (train_runs_bf16, "_bf16")):
-        for k in BN_KERNELS:
+        for k in BN_KERNELS + BN_OFF_PATH:
             name = k.__name__ + key
-            bn_counts[name] = sum(r["launches"][name] for r in runs.values())
+            path_counts[name] = sum(r["launches"][name] for r in runs.values())
     training_checks()
     step_ms, train_runs_to_profile = step_times()
 
@@ -1237,20 +1399,18 @@ def main():
     cli = cli_phase()
 
     print("phase 6: per-kernel numbers", flush=True)
-    bn_rows = bn_kernel_numbers(g, bn_counts, errs)
-    bn_rows_bf16 = bn_kernel_numbers(g, bn_counts, errs, BF16)
+    bn_rows = bn_kernel_numbers(g, path_counts, errs)
+    bn_rows_bf16 = bn_kernel_numbers(g, path_counts, errs, BF16)
     rows = kernel_numbers(g, cfg, counts, errs) + bn_rows + bn_rows_bf16
     # each row's launches in phase 5's counted CLI runs: the BN rows in the
     # teacher runs of their type, the serving rows in the evaluator's
     t = cli["teacher"]
-    for r, n in zip(rows, (cli["eval"]["launches"]["mbconv"],
-                           cli["eval"]["launches"]["shuffle_tail"],
-                           t["f32"]["launches"]["col_sums2"]
-                           + t["f32_resumed"]["launches"]["col_sums2"],
-                           t["f32"]["launches"]["bn_backward"]
-                           + t["f32_resumed"]["launches"]["bn_backward"],
-                           t["bf16"]["launches"]["col_sums2_bf16"],
-                           t["bf16"]["launches"]["bn_backward_bf16"])):
+    f32_cli = [t["f32"]["launches"][k] + t["f32_resumed"]["launches"][k]
+               for k in ("bn_forward", "col_sums2", "bn_backward")]
+    bf16_cli = [t["bf16"]["launches"][k + "_bf16"] for k in ("bn_forward", "col_sums2",
+                                                             "bn_backward")]
+    for r, n in zip(rows, [cli["eval"]["launches"]["mbconv"],
+                           cli["eval"]["launches"]["shuffle_tail"]] + f32_cli + bf16_cli):
         r["launches_cli"] = n
     for r in rows:
         print("  %-20s %d launches (CLIs %d)  %.4f ms/%s  plain %.4f  bound %.4f (%s)  "
@@ -1267,6 +1427,9 @@ def main():
     # the kernels' own device time in the kernel path's step of their type
     for rows_, path in ((bn_rows, "train kernels"), (bn_rows_bf16, "train bf16 kernels")):
         for r, names in zip(rows_, BN_ROW_KERNELS.values()):
+            if not r["launches"]:  # off the path: not in the step's profile
+                r["device_ms"] = None
+                continue
             r["device_ms"] = sum(k["ms_per_step"] for k in by_path[path]["port_kernels"]
                                  if any(n in k["kernel"] for n in names))
             print("  %s: %.4f ms per step on the device (bound %.4f)"

@@ -1,5 +1,6 @@
 // Column reductions for BatchNorm statistics, and the train-mode BN
-// backward built on them, for sm_90a, on float32 or bfloat16 activations.
+// forward and backward built on them, for sm_90a, on float32 or bfloat16
+// activations.
 //
 // Replaces the Pallas kernels of ofa_sr_tpu/ops/pallas/bn_stats.py:
 //   `col_sums2` (`_kernel`)       -> (sum_n a[n,c], sum_n a[n,c]*b[n,c])
@@ -9,6 +10,14 @@
 // (B*H*W, C)), accumulated in float32. The moments of BN are col_sums2(x, x)
 // finalized as mean = s1/N, var = s2/N - mean^2 (`bn_moments_pallas`); the
 // moments mode reads x once and finalizes in pass 2.
+//
+// `ofa_bn_forward_*` is the whole train-mode BN forward: the Pallas moments
+// (`bn_moments_pallas`, called from ofa_sr_tpu/ops/pallas/bn.py `_fwd_impl`),
+// the normalize XLA fuses after them there
+//   inv = rsqrt(var + eps), y = (x - mean)*(inv*scale) + bias
+// and the running statistics' EMA of ofa_sr_tpu/ops/norm.py `batch_norm`
+//   r = (1 - m)*r + m*stat   (stat: mean, and var*(N/(N-1)) or var)
+// in one call, where eager PyTorch ran ~15 small kernels after the moments.
 //
 // `ofa_bn_backward_*` is the whole backward of `bn_train_fused`
 // (ofa_sr_tpu/ops/pallas/bn.py `_bwd`, without the moments' cotangents):
@@ -22,17 +31,18 @@
 // they come in and accumulate in float32 (`.astype(jnp.float32)` on each
 // tile); under the JAX trainer's bf16 compute (`cast_params_for_compute`)
 // BN receives bf16 activations. So each entry point has two forms: `_f32`
-// (float a, b / dy, x, dx) and `_bf16` (__nv_bfloat16 a, b / dy, x, dx),
-// one template instantiated twice. Both convert every element to float32
-// with the intrinsics, add in the same fixed order, and write float32 sums,
-// moments and coefficients; the bf16 dx is rounded once, from its float32
-// value (`__floats2bfloat162_rn` / `__float2bfloat16_rn`), as the JAX VJP's
-// `dx.astype(x.dtype)` does. scale, mean and inv are float32 in both.
+// (float a, b / dy, x, dx / x, y) and `_bf16` (__nv_bfloat16), one template
+// instantiated twice. Both convert every element to float32 with the
+// intrinsics, add in the same fixed order, and write float32 sums, moments
+// and coefficients; a bf16 dx or y is rounded once, from its float32 value
+// (`__floats2bfloat162_rn` / `__float2bfloat16_rn`), as the JAX package's
+// `.astype(x.dtype)` does. scale, bias, mean, inv and the running
+// statistics are float32 in both.
 //
-// What bounds it on the H100: bytes. Each element is read once and costs 2
-// to 5 FLOP, far below the card's float32 FLOP/byte ridge (67 TFLOP/s over
-// 3.35 TB/s = 20), so the least time is N*C*s bytes (moments), 2*N*C*s
-// bytes (backward sums) or 3*N*C*s bytes (backward with dx) over the memory
+// What bounds it on the H100: bytes. Each element costs 2 to 5 FLOP, far
+// below the card's float32 FLOP/byte ridge (67 TFLOP/s over 3.35 TB/s = 20),
+// so the least time is N*C*s bytes (moments), 2*N*C*s (forward: x read, y
+// written; backward sums) or 3*N*C*s (backward with dx) over the memory
 // rate, s = 4 (float32) or 2 (bf16): the bf16 forms' bound is half.
 //
 // Design. The Pallas kernel walks row tiles in order and adds into one
@@ -49,21 +59,36 @@
 //           threads read neighbouring addresses at every C (C=3 too: 255
 //           threads cover 85 consecutive rows of 3). Rows past N are never
 //           read. The row groups of a column are then summed in shared
-//           memory, in order, and the block writes its pair to
+//           memory, in order, by one thread a column, and the block writes
+//           its pair to
 //           partial[(k*C + c)*G + g] (k = 0 for the first sum, 1 for the
 //           second).
 //   pass 2: one warp per column c sums its G partials of both sums: lane l
 //           takes g = l, l+32, ... in order, then a fixed shuffle tree; the
 //           moments mode writes (mean, var) in place of (s1, s2), the
 //           backward also the column's dx coefficients (inv*scale, s1/N,
-//           s2/N).
-//   pass 3 (backward): dx, one grid-stride pass, with pass 1's vector
-//           width where dy, x and dx are aligned for it. The grid is a
-//           multiple of W / gcd(W, THREADS) (W = C / V groups a row) so
-//           that a thread's columns stay the same on every step and their
-//           coefficients are loaded once.
-// The scratch `partial` (2*C*G floats), `out` (2*C) and `coef` (3*C) are
-// allocated by the caller.
+//           s2/N), the forward the column's statistics and the running
+//           statistics' update (`bn_fwd_finish_kernel`).
+//   pass 3 (backward, forward): dx or y, one grid-stride pass, with pass
+//           1's vector width where the operands are aligned for it. The
+//           grid is a multiple of W / gcd(W, THREADS) (W = C / V groups a
+//           row) so that a thread's columns stay the same on every step and
+//           their coefficients are loaded once.
+// The forward's finalize rounds each product and sum on its own
+// (`__fmul_rn`, `__fadd_rn`, `__fdiv_rn`: no FMA contraction), in the
+// association of the plain version's PyTorch ops, so that given the same
+// moments the kernel's inv, y and running statistics are those ops' bits.
+// The forward takes three launches, not two. Two were tried: pass 2 in
+// pass 1's kernel, done by the last block of each column tile to arrive (an
+// arrival counter), with 64-column tiles and G <= 128 to bound what that
+// block reads. In chip_smoke.py's step profile on an H100 it took 1.679 ms
+// of device time a one-subnet step in float32 and 1.522 in bf16, against
+// 1.360 and 0.979 for three launches: the lone last block finalized its
+// columns one after another, its 108 registers a thread halved pass 1's
+// blocks an SM, and the narrow tiles cut bf16 rows into 128-byte pieces,
+// while a finish launch costs 2-3 us.
+// The scratch `partial` (2*C*G floats), `out` (2*C), `coef` (3*C) and
+// `stats` (4*C) are allocated by the caller.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,7 +102,8 @@ constexpr int WARPS2 = 8;      // pass 2: warps (columns) per block
 constexpr int DX_BLOCKS = 1024;  // pass 3: blocks aimed at (before rounding)
 
 // MOMENTS reads `a` once (b = a) and finalizes in pass 2
-enum Mode { SUMS2 = 0, MOMENTS = 1, BWD = 2 };
+// FWD is MOMENTS for the forward, apart in a profile
+enum Mode { SUMS2 = 0, MOMENTS = 1, BWD = 2, FWD = 3 };
 
 // V adjacent elements at p (aligned to V elements) as float32
 template <int V>
@@ -144,6 +170,7 @@ col_partials_kernel(const T* __restrict__ a, const T* __restrict__ b,
                     const float* __restrict__ mean,
                     const float* __restrict__ inv,
                     float* __restrict__ partial, int N, int C) {
+  constexpr bool ONE = MODE == MOMENTS || MODE == FWD;  // reads a alone
   __shared__ float sh1[THREADS * V];
   __shared__ float sh2[THREADS * V];
   const int c0 = blockIdx.y * THREADS * V;
@@ -172,10 +199,10 @@ col_partials_kernel(const T* __restrict__ a, const T* __restrict__ b,
       const size_t i = (size_t)r * C + col;
       float av[V], bv[V];
       load_vec<V>(a + i, av);
-      if (MODE != MOMENTS) load_vec<V>(b + i, bv);
+      if (!ONE) load_vec<V>(b + i, bv);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        float x = MODE == MOMENTS ? av[e] : bv[e];
+        float x = ONE ? av[e] : bv[e];
         if (MODE == BWD) x = (x - m[e]) * iv[e];
         s1[e] += av[e];
         s2[e] = fmaf(av[e], x, s2[e]);
@@ -188,18 +215,18 @@ col_partials_kernel(const T* __restrict__ a, const T* __restrict__ b,
     sh2[tid * V + e] = s2[e];
   }
   __syncthreads();
-  if (tid < cq) {
-    const size_t G = gridDim.x;
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      float t1 = 0.f, t2 = 0.f;
-      for (int j = 0; j < rp; ++j) {
-        t1 += sh1[(j * cq + tid) * V + e];
-        t2 += sh2[(j * cq + tid) * V + e];
-      }
-      partial[(size_t)(col + e) * G + blockIdx.x] = t1;
-      partial[((size_t)C + col + e) * G + blockIdx.x] = t2;
+  // column c0 + k of the tile: its rp row groups summed in order, one
+  // thread a column (not a column group: V times fewer additions in a row)
+  const size_t G = gridDim.x;
+  for (int k = tid; k < cq * V; k += THREADS) {
+    const int q = k / V, e = k % V;
+    float t1 = 0.f, t2 = 0.f;
+    for (int j = 0; j < rp; ++j) {
+      t1 += sh1[(j * cq + q) * V + e];
+      t2 += sh2[(j * cq + q) * V + e];
     }
+    partial[(size_t)(c0 + k) * G + blockIdx.x] = t1;
+    partial[((size_t)C + c0 + k) * G + blockIdx.x] = t2;
   }
 }
 
@@ -276,6 +303,96 @@ bn_dx_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   }
 }
 
+// Column c's statistics from its sums (s1, s2) over N rows: mean, var,
+// inv, k = inv*scale into stats[c], [C + c], [2C + c], [3C + c], and the
+// running statistics' EMA in place from their values rm_c, rv_c (skipped
+// where rm and rv are null).
+// Every product and sum is rounded on its own (no FMA contraction), in the
+// order of the plain version's PyTorch ops.
+__device__ __forceinline__ void bn_fwd_finalize(int c, float s1, float s2, int N, int C,
+                                                float scale, float* __restrict__ rm,
+                                                float* __restrict__ rv, float rm_c,
+                                                float rv_c, float* __restrict__ stats,
+                                                float one_minus_m, float m,
+                                                int unbiased, float unbias,
+                                                float eps) {
+  // mean = s1/n, var = s2/n - mean^2 (no clamp), inv = rsqrt(var + eps):
+  // rsqrtf is what torch.rsqrt runs on the card
+  const float n = (float)N;
+  const float mean = __fdiv_rn(s1, n);
+  const float var = __fsub_rn(__fdiv_rn(s2, n), __fmul_rn(mean, mean));
+  const float inv = rsqrtf(__fadd_rn(var, eps));
+  stats[c] = mean;
+  stats[C + c] = var;
+  stats[2 * C + c] = inv;
+  stats[3 * C + c] = __fmul_rn(inv, scale);
+  if (rm != nullptr) {
+    // r = (1 - m)*r + m*stat, from the unbiased var*(n/(n-1)) or the
+    // biased var
+    const float v = unbiased ? __fmul_rn(var, unbias) : var;
+    rm[c] = __fadd_rn(__fmul_rn(one_minus_m, rm_c), __fmul_rn(m, mean));
+    rv[c] = __fadd_rn(__fmul_rn(one_minus_m, rv_c), __fmul_rn(m, v));
+  }
+}
+
+// the forward's pass 2: one warp per column sums its G partials as
+// finish_kernel does, then finalizes the column (bn_fwd_finalize)
+__global__ void __launch_bounds__(WARPS2 * 32)
+bn_fwd_finish_kernel(const float* __restrict__ partial,
+                     const float* __restrict__ scale, float* __restrict__ rm,
+                     float* __restrict__ rv, float* __restrict__ stats, int N,
+                     int C, int G, float one_minus_m, float m, int unbiased,
+                     float unbias, float eps) {
+  const int c = blockIdx.x * WARPS2 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (c >= C) return;  // the whole warp leaves together
+  // the column's vectors are read first, under the partials' latency
+  const float sc = scale[c];
+  const float rm_c = rm != nullptr ? rm[c] : 0.f;
+  const float rv_c = rv != nullptr ? rv[c] : 0.f;
+  const float* p1 = partial + (size_t)c * G;
+  const float* p2 = partial + ((size_t)C + c) * G;
+  float s1 = 0.f, s2 = 0.f;
+  for (int g = lane; g < G; g += 32) {
+    s1 += p1[g];
+    s2 += p2[g];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    s1 += __shfl_down_sync(0xffffffffu, s1, off);
+    s2 += __shfl_down_sync(0xffffffffu, s2, off);
+  }
+  if (lane == 0)
+    bn_fwd_finalize(c, s1, s2, N, C, sc, rm, rv, rm_c, rv_c, stats, one_minus_m,
+                    m, unbiased, unbias, eps);
+}
+
+// the forward's pass 3: y = (x - mean)*k + bias in float32, each operation
+// rounded on its own as the plain version's PyTorch ops; grid as
+// bn_dx_kernel's, so a thread's coefficients load once
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+bn_norm_kernel(const T* __restrict__ x, const float* __restrict__ stats,
+               const float* __restrict__ bias, T* __restrict__ y,
+               long long units, int C) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * THREADS;
+  if (t >= units) return;
+  const int c0 = (int)(t % (C / V)) * V;
+  float m[V], k[V], b[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    m[e] = stats[c0 + e], k[e] = stats[3 * C + c0 + e], b[e] = bias[c0 + e];
+  for (long long u = t; u < units; u += stride) {
+    float xv[V], r[V];
+    load_vec<V>(x + u * V, xv);
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      r[e] = __fadd_rn(__fmul_rn(__fsub_rn(xv[e], m[e]), k[e]), b[e]);
+    store_vec<V>(y + u * V, r);
+  }
+}
+
 bool aligned(const void* p, size_t bytes) { return ((uintptr_t)p % bytes) == 0; }
 
 // the widest group of columns every row of `p`s can be read in: 16 bytes
@@ -303,11 +420,11 @@ void launch_partials(const T* a, const T* b, const float* mean,
          stream>>>(a, b, mean, inv, partial, N, C);
 }
 
+// pass 1 at the widest column group a and b allow
 template <int MODE, typename T>
-cudaError_t launch(const T* a, const T* b, const float* mean,
-                   const float* inv, const float* scale, float* partial,
-                   float* out, float* coef, int N, int C, int G,
-                   cudaStream_t stream) {
+cudaError_t launch_pass1(const T* a, const T* b, const float* mean,
+                         const float* inv, float* partial, int N, int C, int G,
+                         cudaStream_t stream) {
   constexpr int wide = 16 / sizeof(T);
   const int v = vec_width<T>(C, a, b);
   if (v == wide)
@@ -320,7 +437,15 @@ cudaError_t launch(const T* a, const T* b, const float* mean,
   } else {
     launch_partials<MODE, T, 1>(a, b, mean, inv, partial, N, C, G, stream);
   }
-  cudaError_t e = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <int MODE, typename T>
+cudaError_t launch(const T* a, const T* b, const float* mean,
+                   const float* inv, const float* scale, float* partial,
+                   float* out, float* coef, int N, int C, int G,
+                   cudaStream_t stream) {
+  cudaError_t e = launch_pass1<MODE, T>(a, b, mean, inv, partial, N, C, G, stream);
   if (e != cudaSuccess) return e;
   finish_kernel<MODE><<<(C + WARPS2 - 1) / WARPS2, WARPS2 * 32, 0, stream>>>(
       partial, out, scale, inv, coef, N, C, G);
@@ -340,20 +465,37 @@ int gcd(int a, int b) {
   return a;
 }
 
-template <typename T, int V>
-cudaError_t launch_dx(const T* dy, const T* x, const float* mean,
-                      const float* inv, const float* coef, T* dx, int N,
-                      int C, cudaStream_t stream) {
-  const int width = C / V;  // units per row
-  const long long units = (long long)N * width;
-  // blocks: a multiple of q, so that stride * k covers whole rows
+// blocks of an elementwise pass over N rows of `width` units: about
+// DX_BLOCKS, rounded up to a multiple of width / gcd(width, THREADS) so that
+// a grid stride covers whole rows; -1 where that is more than a grid holds
+long long elementwise_blocks(long long units, int width) {
   const int q = width / gcd(width, THREADS);
   long long blocks = (units + THREADS - 1) / THREADS;
   if (blocks > DX_BLOCKS) blocks = DX_BLOCKS;
   blocks = (blocks + q - 1) / q * q;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return blocks > 0x7fffffffLL ? -1 : blocks;
+}
+
+template <typename T, int V>
+cudaError_t launch_dx(const T* dy, const T* x, const float* mean,
+                      const float* inv, const float* coef, T* dx, int N,
+                      int C, cudaStream_t stream) {
+  const long long units = (long long)N * (C / V);
+  const long long blocks = elementwise_blocks(units, C / V);
+  if (blocks < 0) return cudaErrorInvalidValue;
   bn_dx_kernel<T, V><<<(unsigned)blocks, THREADS, 0, stream>>>(
       dy, x, mean, inv, coef, dx, units, C);
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+cudaError_t launch_norm(const T* x, const float* stats, const float* bias,
+                        T* y, int N, int C, cudaStream_t stream) {
+  const long long units = (long long)N * (C / V);
+  const long long blocks = elementwise_blocks(units, C / V);
+  if (blocks < 0) return cudaErrorInvalidValue;
+  bn_norm_kernel<T, V><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      x, stats, bias, y, units, C);
   return cudaGetLastError();
 }
 
@@ -402,6 +544,35 @@ int bn_backward(const T* dy, const T* x, const float* scale,
   return (int)launch_dx<T, 1>(dy, x, mean, inv, coef, dx, N, C, s);
 }
 
+// the train-mode BN forward: the moments' pass 1, the finish with the
+// running statistics, the normalize
+template <typename T>
+int bn_forward(const T* x, const float* scale, const float* bias, float* rm,
+               float* rv, float* stats, float* partial, T* y, int N, int C,
+               int G, double momentum, double eps, int unbiased, void* stream) {
+  if (bad_shape(N, C, G) || !x || !scale || !bias || !stats || !partial ||
+      !y || (rm == nullptr) != (rv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = launch_pass1<FWD, T>(x, x, nullptr, nullptr, partial, N, C, G, s);
+  if (err != cudaSuccess) return (int)err;
+  // the plain version's scalars: Python doubles, rounded to float32 where
+  // PyTorch multiplies a float32 tensor by them
+  bn_fwd_finish_kernel<<<(C + WARPS2 - 1) / WARPS2, WARPS2 * 32, 0, s>>>(
+      partial, scale, rm, rv, stats, N, C, G, (float)(1.0 - momentum),
+      (float)momentum, unbiased,
+      (float)((double)N / (double)(N > 1 ? N - 1 : 1)), (float)eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  constexpr int wide = 16 / sizeof(T);
+  const int vy = vec_width<T>(C, x, y);
+  if (vy == wide) return (int)launch_norm<T, wide>(x, stats, bias, y, N, C, s);
+  if constexpr (sizeof(T) == 2) {
+    if (vy == 2) return (int)launch_norm<T, 2>(x, stats, bias, y, N, C, s);
+  }
+  return (int)launch_norm<T, 1>(x, stats, bias, y, N, C, s);
+}
+
 }  // namespace
 
 // `partial` holds 2*C*G floats, `out` 2*C: out[c] is the first result of
@@ -445,6 +616,33 @@ extern "C" int ofa_bn_backward_bf16(const __nv_bfloat16* dy,
                                     void* stream) {
   return bn_backward<__nv_bfloat16>(dy, x, scale, mean, inv, partial, coef,
                                     out, dx, N, C, G, stream);
+}
+
+// The train-mode BN forward: y (N, C) in x's type; stats = [mean | biased
+// var | inv = rsqrt(var + eps) | inv*scale], 4*C floats; running_mean and
+// running_var (C floats each, both or neither) take the momentum EMA in
+// place, from the unbiased var (unbiased != 0) or the biased one. `partial`
+// holds 2*C*G floats.
+extern "C" int ofa_bn_forward_f32(const float* x, const float* scale,
+                                  const float* bias, float* running_mean,
+                                  float* running_var, float* stats,
+                                  float* partial, float* y, int N, int C,
+                                  int G, double momentum, double eps,
+                                  int unbiased, void* stream) {
+  return bn_forward<float>(x, scale, bias, running_mean, running_var, stats,
+                           partial, y, N, C, G, momentum, eps, unbiased,
+                           stream);
+}
+
+extern "C" int ofa_bn_forward_bf16(const __nv_bfloat16* x, const float* scale,
+                                   const float* bias, float* running_mean,
+                                   float* running_var, float* stats,
+                                   float* partial, __nv_bfloat16* y, int N,
+                                   int C, int G, double momentum, double eps,
+                                   int unbiased, void* stream) {
+  return bn_forward<__nv_bfloat16>(x, scale, bias, running_mean, running_var,
+                                   stats, partial, y, N, C, G, momentum, eps,
+                                   unbiased, stream);
 }
 
 extern "C" const char* ofa_cuda_error_string(int e) {

@@ -8,6 +8,8 @@ from .bn_stats import (
     bn_backward_reference,
     bn_bwd_sums,
     bn_bwd_sums_reference,
+    bn_forward,
+    bn_forward_reference,
     bn_moments,
     bn_moments_reference,
     col_sums2,
@@ -21,6 +23,8 @@ __all__ = [
     "bn_backward_reference",
     "bn_bwd_sums",
     "bn_bwd_sums_reference",
+    "bn_forward",
+    "bn_forward_reference",
     "bn_moments",
     "bn_moments_reference",
     "bn_train_fused",

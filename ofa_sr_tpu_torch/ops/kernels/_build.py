@@ -75,10 +75,10 @@ def _finish(name, job):
     return None
 
 
-_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_VP, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # each launch function, by C name: its source, then its argument types:
-# pointers (tensors), ints (shapes, flags), then the CUDA stream; it returns
-# the cudaError_t of its launches
+# pointers (tensors), ints (shapes, flags), doubles (scalars), then the CUDA
+# stream; it returns the cudaError_t of its launches
 _FUNCTIONS = {
     "ofa_mbconv_f32": ("mbconv", [_VP] * 8 + [_INT] * 7 + [_VP]),
     "ofa_shuffle_tail_f32": ("shuffle_tail", [_VP] * 4 + [_INT] * 5 + [_VP]),
@@ -86,6 +86,8 @@ _FUNCTIONS = {
     "ofa_bn_backward_f32": ("bn_stats", [_VP] * 9 + [_INT] * 3 + [_VP]),
     "ofa_col_sums2_bf16": ("bn_stats", [_VP] * 6 + [_INT] * 4 + [_VP]),
     "ofa_bn_backward_bf16": ("bn_stats", [_VP] * 9 + [_INT] * 3 + [_VP]),
+    "ofa_bn_forward_f32": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP]),
+    "ofa_bn_forward_bf16": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP]),
 }
 SOURCES = tuple(sorted({src for src, _ in _FUNCTIONS.values()}))
 _fns = {}   # C name -> the bound ctypes function
@@ -162,7 +164,8 @@ def launch(fn_name, device, *args):
     """Call the launch function `fn_name` of csrc/ on the current stream of
     `device` and raise on the cudaError_t it returns. `args` are, in the C
     order, tensors (passed as their data pointers), ints (shapes, flags, or
-    pointers already offset into a tensor) and None (a null pointer).
+    pointers already offset into a tensor), floats and None (a null
+    pointer).
 
     Its host cost counts: a BN wrapper runs ~130 times a training step, so
     the current stream's handle is read as an int (no `Stream` object) and

@@ -1,24 +1,26 @@
 """Train-mode BatchNorm over the BN-statistics kernels: counterpart of
 ofa_sr_tpu/ops/pallas/bn.py.
 
-    forward : (mean, var) = bn_moments(x)              [kernel, one pass]
-              y = (x - mean) * (inv * scale) + bias    [plain PyTorch]
+    forward : (y, mean, var, inv) = bn_forward(x, scale, bias, running stats)
+              [one kernel call: the moments, inv = rsqrt(var + eps),
+               y = (x - mean) * (inv * scale) + bias, and the running
+               statistics' momentum EMA in place where they are given]
     backward: (dx, dscale, dbias) = bn_backward(dy, x, scale, mean, inv)
               [one kernel call: s1 = sum dy, s2 = sum dy*xhat, then
                dx = inv*scale*(dy - s1/n - xhat*s2/n), dscale = s2, dbias = s1]
 
-with inv = rsqrt(var + eps), the JAX package's association. The returned
-(mean, var) carry their own cotangent terms (dmean/n + dvar*2(x - mean)/n),
-added in PyTorch, so the op stays a correct primitive where the moments feed
-differentiable consumers; in the trainer they feed only the
-running-statistics update, outside autograd, and those terms are skipped.
+the JAX package's association. The returned (mean, var) carry their own
+cotangent terms (dmean/n + dvar*2(x - mean)/n), added in PyTorch, so the op
+stays a correct primitive where the moments feed differentiable consumers;
+in the trainer they feed only the running-statistics update, which the
+forward kernel makes, and those terms are skipped.
 
 x may be float32 or bfloat16 (the trainer's bf16 compute): the moments,
 the normalize and dx are computed in float32, y and dx come back in x's type
-(the kernel rounds dx once), dscale and dbias in the BN parameters' float32.
-Where the moments have cotangents of their own (never in the trainer) their
-terms are added to the kernel's dx after it, so a bf16 dx is then rounded
-twice.
+(the kernels round each once), dscale and dbias in the BN parameters'
+float32. Where the moments have cotangents of their own (never in the
+trainer) their terms are added to the kernel's dx after it, so a bf16 dx is
+then rounded twice.
 
 The kernels take row-contiguous (N, C) views, so x and dy are made
 contiguous with `.contiguous()`: free for an NHWC-contiguous tensor, a copy
@@ -31,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from .bn_stats import bn_backward, bn_moments
+from .bn_stats import bn_backward, bn_forward
 
 
 def _row_contiguous(t):
@@ -43,14 +45,13 @@ def _row_contiguous(t):
 
 class _BNTrainFused(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(ctx, x, scale, bias, eps, running_mean, running_var, momentum, update_var):
         x = _row_contiguous(x)
-        mean, var = bn_moments(x)
-        inv = torch.rsqrt(var + eps)
-        y = (x.float() - mean) * (inv * scale.float()) + bias.float()
+        y, mean, var, inv = bn_forward(x, scale, bias, running_mean, running_var,
+                                       momentum=momentum, eps=eps, update_var=update_var)
         ctx.save_for_backward(x, scale, mean, inv)
         ctx.set_materialize_grads(False)
-        return y.to(x.dtype), mean, var
+        return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, dmean, dvar):
@@ -66,14 +67,18 @@ class _BNTrainFused(torch.autograd.Function):
             dx = dx + dmean / n
         if dvar is not None:
             dx = dx + dvar * 2.0 * (x.float() - mean) / n
-        return dx.to(x.dtype), dscale, dbias, None
+        return dx.to(x.dtype), dscale, dbias, None, None, None, None, None
 
 
-def bn_train_fused(x, scale, bias, eps=1e-5):
+def bn_train_fused(x, scale, bias, eps=1e-5, running_mean=None, running_var=None, *,
+                   momentum=0.1, update_var="unbiased"):
     """Train-mode BN over NHWC `x` with the statistics kernels; returns
     (y, mean, var): y in x.dtype, the batch moments (biased var) in float32.
-    Differentiable in x, scale and bias."""
-    return _BNTrainFused.apply(x, scale, bias, eps)
+    Differentiable in x, scale and bias. Given `running_mean` and
+    `running_var`, the same call updates them in place with the momentum
+    EMA, from the unbiased or (`update_var="biased"`) the biased var."""
+    return _BNTrainFused.apply(x, scale, bias, eps, running_mean, running_var, momentum,
+                               update_var)
 
 
 bn_train_fused.layout_copies = 0

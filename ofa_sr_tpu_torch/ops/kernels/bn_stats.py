@@ -1,15 +1,27 @@
 """Column reductions for BatchNorm statistics, and the train-mode BN
-backward built on them: counterpart of ofa_sr_tpu/ops/pallas/bn_stats.py.
+forward and backward built on them: counterpart of
+ofa_sr_tpu/ops/pallas/bn_stats.py.
 
     col_sums2(a, b)            -> (sum_n a, sum_n a*b)        a, b: (N, C)
     bn_moments(x)              -> (mean, biased var) of NHWC x over (B, H, W)
     bn_bwd_sums(dy, x, m, inv) -> (sum_n dy, sum_n dy*(x - m)*inv)
+    bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps,
+               update_var)     -> (y, mean, var, inv)
     bn_backward(dy, x, scale, m, inv) -> (dx, dscale, dbias)
 
 all accumulated in float32, from float32 or bfloat16 activations (a, b,
-dy, x of one type; the vectors mean, inv, scale float32). `bn_moments` is col_sums2(x, x) with
-mean = s1/n and var = s2/n - mean^2, the JAX package's formula; on the card
-the col_sums2 kernel computes that finalize itself in its second pass.
+dy, x of one type; the vectors mean, inv, scale, bias and the running
+statistics float32). `bn_moments` is col_sums2(x, x) with mean = s1/n and
+var = s2/n - mean^2, the JAX package's formula; on the card the col_sums2
+kernel computes that finalize itself in its second pass.
+`bn_forward` is the whole train-mode BN forward: the moments, then
+inv = rsqrt(var + eps) and y = (x - mean)*(inv*scale) + bias (what XLA
+fuses after the Pallas moments in ofa_sr_tpu/ops/pallas/bn.py), then the
+running statistics' momentum EMA in place (ofa_sr_tpu/ops/norm.py), from
+the unbiased or the biased var; on the card one call of three launches
+(csrc/bn_stats.cu `ofa_bn_forward_f32` / `_bf16`: pass 1, the finish with
+the running statistics, the normalize). y comes back in x's type, rounded
+once from float32.
 `bn_backward` is the backward of train-mode BN with no cotangent on the
 moments (ofa_sr_tpu/ops/pallas/bn.py `_bwd`): bn_bwd_sums' two sums, then
 dx = inv*scale*(dy - s1/n - xhat*s2/n), dscale = s2, dbias = s1; on the
@@ -27,12 +39,14 @@ activations choosing; other inputs raise, among them float16 and a bf16 dy
 with a float32 x. `col_sums2.launches` counts the launches of the col_sums2
 kernel (from `col_sums2` or `bn_moments`), `bn_moments.launches` those made
 by `bn_moments`, `bn_bwd_sums.launches` those of the sums-only backward
-kernel and `bn_backward.launches` those of the fused backward, of both
-forms; each wrapper's `launches_bf16` counts its bf16 launches alone.
+kernel, `bn_forward.launches` those of the fused forward and
+`bn_backward.launches` those of the fused backward, of both forms; each
+wrapper's `launches_bf16` counts its bf16 launches alone.
 
 A wrapper call is host work the training step waits on (~90 calls a step):
 the pass-1 grid is cached per (N, C, device), and each call allocates one
-buffer for its results and scratch and makes no other tensor.
+buffer for its results and scratch (and its output, for the forward and
+the backward) and makes no other tensor.
 
 `_lane_fold` / `col_sums2_folded` of the JAX package are not carried over:
 they pack narrow channel counts into the TPU's 128-lane rows, and the CUDA
@@ -52,6 +66,7 @@ COL_TILE = 256        # threads of a pass-1 block = widest column tile
 BLOCKS_PER_SM = 4     # pass-1 blocks aimed at per SM
 MIN_ROW_STEPS = 8     # rows a pass-1 thread sums at least
 MODE_SUMS2, MODE_MOMENTS, MODE_BWD = 0, 1, 2  # csrc/bn_stats.cu
+UPDATE_VARS = ("unbiased", "biased")
 # the activation types the kernels take: the suffix of their C entry points,
 # and the column groups a pass-1 thread reads, widest first (16 bytes, then
 # for bf16 4 bytes, then one column: csrc/bn_stats.cu `vec_width`)
@@ -89,6 +104,33 @@ def bn_backward_reference(dy, x, scale, mean, inv):
     s1, s2 = bn_bwd_sums_reference(dyf.reshape(n, c), x.reshape(n, c), mean, inv)
     dx = (inv * scale.float()) * (dyf - s1 / n - xhat * s2 / n)
     return dx.to(dy.dtype), s2, s1
+
+
+def bn_forward_from_moments(x, scale, bias, running_mean, running_var, mean, var, *,
+                            momentum, eps, update_var):
+    """The forward's arithmetic after the moments, as PyTorch ops in the
+    kernel's association: inv, y (x's type) and the running statistics'
+    update in place (skipped where they are None). Returns (y, mean, var,
+    inv)."""
+    inv = torch.rsqrt(var + eps)
+    y = ((x.float() - mean) * (inv * scale.float()) + bias.float()).to(x.dtype)
+    if running_mean is not None:
+        with torch.no_grad():
+            n = x.numel() // x.shape[-1]
+            var_for_update = var * (n / max(n - 1, 1)) if update_var == "unbiased" else var
+            running_mean.copy_((1 - momentum) * running_mean + momentum * mean)
+            running_var.copy_((1 - momentum) * running_var + momentum * var_for_update)
+    return y, mean, var, inv
+
+
+def bn_forward_reference(x, scale, bias, running_mean, running_var, *, momentum, eps,
+                         update_var):
+    """(y, mean, var, inv) of train-mode BN over NHWC x (channels last),
+    updating the running statistics in place: the moments' plain version,
+    then `bn_forward_from_moments`."""
+    mean, var = bn_moments_reference(x)
+    return bn_forward_from_moments(x, scale, bias, running_mean, running_var, mean, var,
+                                   momentum=momentum, eps=eps, update_var=update_var)
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,6 +235,49 @@ def bn_bwd_sums(dy, x, mean, inv):
     return _launch(MODE_BWD, dy, x, mean, inv)[:2]
 
 
+def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
+               update_var="unbiased"):
+    """Train-mode BN of row-contiguous, channels-last x (an NHWC tensor or
+    its (N, C) view) in one kernel call: (y, mean, var, inv), y in x's
+    type and shape, the batch moments (biased var) and inv = rsqrt(var +
+    eps) float32 (C,). running_mean and running_var, float32 (C,) tensors
+    (prefix views of a wider BN's buffers too) or both None, take
+    r = (1 - momentum)*r + momentum*stat in place, from the unbiased var
+    (torch train mode) or the biased one (`update_var="biased"`, BN
+    recalibration)."""
+    if momentum is None:
+        raise ValueError("bn_forward takes a float momentum (the EMA), not None")
+    if update_var not in UPDATE_VARS:
+        raise ValueError("update_var must be 'unbiased' or 'biased', got %r" % (update_var,))
+    if (running_mean is None) != (running_var is None):
+        raise ValueError("bn_forward takes both running statistics or neither")
+    device = x.device
+    if device.type == "cpu":
+        return bn_forward_reference(x, scale, bias, running_mean, running_var,
+                                    momentum=momentum, eps=eps, update_var=update_var)
+    suffix = kernel_suffix(x)
+    c = x.shape[-1] if x.ndim else 0
+    for name, r in (("running_mean", running_mean), ("running_var", running_var)):
+        if r is not None and (r.dtype is not torch.float32 or r.shape != (c,)):
+            raise ValueError("%s must be a float32 (C,) = (%d,) tensor; got %s %s"
+                             % (name, c, r.dtype, tuple(r.shape)))
+    if not x.is_contiguous():
+        raise ValueError("bn_forward takes a row-contiguous x; got strides %s" % (x.stride(),))
+    n, c, suffix = _check(x, x, scale=scale, bias=bias, running_mean=running_mean,
+                          running_var=running_var)
+    g = _grid(n, c, suffix, device)
+    y = torch.empty_like(x)
+    # [mean | var | inv | inv*scale (4C) | partials (2CG)]
+    buf = torch.empty(c * (4 + 2 * g), device=device, dtype=torch.float32)
+    p = buf.data_ptr()
+    _build.launch("ofa_bn_forward_" + suffix, device, x, scale, bias, running_mean,
+                  running_var, p, p + 16 * c, y, n, c, g, momentum, eps,
+                  update_var == "unbiased")
+    _count(bn_forward, suffix)
+    mean, var, inv, _ = torch.split_with_sizes(buf, (c, c, c, c * (1 + 2 * g)))
+    return y, mean, var, inv
+
+
 def bn_backward(dy, x, scale, mean, inv):
     """(dx, dscale, dbias) of train-mode BN from the saved (x, scale, mean,
     inv) and the output's cotangent dy, in one kernel call: the two column
@@ -216,5 +301,5 @@ def bn_backward(dy, x, scale, mean, inv):
     return dx, dscale, dbias
 
 
-for _wrapper in (col_sums2, bn_moments, bn_bwd_sums, bn_backward):
+for _wrapper in (col_sums2, bn_moments, bn_bwd_sums, bn_forward, bn_backward):
     _wrapper.launches = _wrapper.launches_bf16 = 0

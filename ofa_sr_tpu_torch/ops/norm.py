@@ -42,19 +42,20 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *, momentum=0.1,
     """Train-mode BN of NHWC `x`; updates `running_mean` / `running_var` in
     place and returns y.
 
-    `use_kernels` routes the batch moments and the backward's reductions
-    through the BN-statistics kernels (`bn_train_fused`, for every channel
-    count); otherwise the plain autograd branch runs.
+    `use_kernels` routes the forward (moments, normalize and the running
+    statistics' update, one call) and the backward through the
+    BN-statistics kernels (`bn_train_fused`, for every channel count);
+    otherwise the plain autograd branch runs.
     """
     if update_var not in ("unbiased", "biased"):
         raise ValueError("update_var must be 'unbiased' or 'biased', got %r" % update_var)
     if use_kernels:
-        y, mean, var = bn_train_fused(x, scale, bias, eps)
-    else:
-        xf = x.float()
-        mean, var = batch_moments(xf)
-        inv = torch.reciprocal(torch.sqrt(var + eps))
-        y = ((xf - mean) * inv * scale.float() + bias.float()).to(x.dtype)
+        return bn_train_fused(x, scale, bias, eps, running_mean, running_var,
+                              momentum=momentum, update_var=update_var)[0]
+    xf = x.float()
+    mean, var = batch_moments(xf)
+    inv = torch.reciprocal(torch.sqrt(var + eps))
+    y = ((xf - mean) * inv * scale.float() + bias.float()).to(x.dtype)
     with torch.no_grad():
         n = x.numel() // x.shape[-1]
         var_for_update = var * (n / max(n - 1, 1)) if update_var == "unbiased" else var

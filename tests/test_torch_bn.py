@@ -38,7 +38,7 @@ def _sum_tol(n):
 
 @pytest.fixture(autouse=True)
 def _zero_counters():
-    kernels = (tbs.col_sums2, tbs.bn_moments, tbs.bn_bwd_sums, tbs.bn_backward)
+    kernels = (tbs.col_sums2, tbs.bn_moments, tbs.bn_bwd_sums, tbs.bn_forward, tbs.bn_backward)
     for k in kernels:
         k.launches = 0
     tbn.bn_train_fused.layout_copies = 0
@@ -360,3 +360,176 @@ def test_kernel_dtype_rule():
     # the right types get past the rule, to the device check
     with pytest.raises(ValueError, match="CUDA"):
         tbs.bn_backward(meta(bf16, 4, 3), meta(bf16, 4, 3), c, c, c)
+
+
+# -- the fused train-mode forward (`bn_forward`) ------------------------------
+# Against the JAX package: y, mean and var of `bn_train_fused` (Pallas
+# moments in interpret mode) and the new running statistics of
+# `batch_norm(training=True)` (its Pallas branch where C % 64 == 0, the XLA
+# branch otherwise). f32: within 1e-5 (rtol and atol), the moments summed in
+# other orders (~1e-7 of O(1) data) and carried through rsqrt, the
+# normalize and the EMA. bf16 x: y within one bf16 ulp (each side rounds its
+# float32 y once, and the two float32 values may straddle a rounding
+# boundary); the moments and running statistics are float32 computed from
+# the same bf16 values, so they are held at the f32 bound.
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+FWD_EPS = 1e-5
+
+
+def _bf16_ulps(a, b):
+    """Per-element distance in bf16 steps between two bf16 tensors (the
+    bit patterns mapped to a monotonic integer order)."""
+    def order(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+    return (order(a) - order(b)).abs()
+
+
+def _fwd_case(c, dtype, seed):
+    x = _rand((3, 5, 7, c), seed, scale=2.0, shift=-0.5)
+    if dtype == "bfloat16":
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    params = {"scale": _rand((c,), seed + 1, scale=0.3, shift=1.0),
+              "bias": _rand((c,), seed + 2, scale=0.2)}
+    state = {"mean": _rand((c,), seed + 3, scale=0.2), "var": np.abs(_rand((c,), seed + 4)) + 0.5}
+    return x, params, state
+
+
+def _jax_forward(monkeypatch, x, params, state, dtype, momentum, update_var):
+    """(y, mean, var) of the JAX `bn_train_fused` and the new state of
+    `batch_norm(training=True)`, on x in `dtype`."""
+    monkeypatch.setenv("OFA_SR_TPU_PALLAS_BN", "interpret")
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    jy, jm, jv = jbn.bn_train_fused(xj, jnp.asarray(params["scale"]),
+                                    jnp.asarray(params["bias"]), FWD_EPS, True)
+    _, js = jnorm.batch_norm(xj, {k: jnp.asarray(v) for k, v in params.items()},
+                             {k: jnp.asarray(v) for k, v in state.items()}, training=True,
+                             momentum=momentum, eps=FWD_EPS, update_var=update_var)
+    return jy, jm, jv, js
+
+
+@pytest.mark.parametrize("update_var", ["unbiased", "biased"])
+@pytest.mark.parametrize("momentum", [0.1, 1.0])
+@pytest.mark.parametrize("c", [3, 24, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_forward_matches_jax(monkeypatch, dtype, c, momentum, update_var):
+    """`bn_forward` on the CPU (its plain version, `bn_forward_reference`):
+    y, mean, var, inv and the running statistics updated in place."""
+    x, params, state = _fwd_case(c, dtype, c + int(10 * momentum))
+    jy, jm, jv, js = _jax_forward(monkeypatch, x, params, state, dtype, momentum, update_var)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    rm, rv = torch.from_numpy(state["mean"].copy()), torch.from_numpy(state["var"].copy())
+    y, mean, var, inv = tbs.bn_forward(xt, torch.from_numpy(params["scale"]),
+                                       torch.from_numpy(params["bias"]), rm, rv,
+                                       momentum=momentum, eps=FWD_EPS, update_var=update_var)
+    assert y.dtype == xt.dtype and y.shape == xt.shape
+    assert mean.dtype == var.dtype == inv.dtype == torch.float32
+    if dtype == "float32":
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), **FWD_TOL)
+    else:
+        jyt = torch.from_numpy(np.array(jy.astype(jnp.float32))).to(torch.bfloat16)
+        assert int(_bf16_ulps(y, jyt).max()) <= 1
+    for got, ref in ((mean, jm), (var, jv), (rm, js["mean"]), (rv, js["var"])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FWD_TOL)
+    np.testing.assert_allclose(inv.numpy(), 1 / np.sqrt(np.asarray(jv, np.float64) + FWD_EPS),
+                               **FWD_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_forward_updates_a_prefix_view(monkeypatch, dtype):
+    """Running statistics handed in as the active prefix of a wider BN's
+    buffers (`bn.running_mean[:n]`): the prefix takes the update a whole
+    buffer of the same values takes, bit for bit, and matches JAX's masked
+    `batch_norm`; the tail stays untouched."""
+    c, wide = 24, 40
+    x, params, state = _fwd_case(c, dtype, 5)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    s, b = torch.from_numpy(params["scale"]), torch.from_numpy(params["bias"])
+    long_m = torch.from_numpy(np.concatenate([state["mean"], _rand((wide - c,), 6)]))
+    long_v = torch.from_numpy(np.concatenate([state["var"], np.abs(_rand((wide - c,), 7)) + 1]))
+    tail = long_m[c:].clone(), long_v[c:].clone()
+    rm, rv = torch.from_numpy(state["mean"].copy()), torch.from_numpy(state["var"].copy())
+    kw = dict(momentum=0.1, eps=FWD_EPS, update_var="unbiased")
+    y_view = tbs.bn_forward(xt, s, b, long_m[:c], long_v[:c], **kw)[0]
+    y_whole = tbs.bn_forward(xt, s, b, rm, rv, **kw)[0]
+    assert torch.equal(y_view, y_whole)
+    assert torch.equal(long_m[:c], rm) and torch.equal(long_v[:c], rv)
+    assert torch.equal(long_m[c:], tail[0]) and torch.equal(long_v[c:], tail[1])
+    _, _, _, js = _jax_forward(monkeypatch, x, params, state, dtype, 0.1, "unbiased")
+    np.testing.assert_allclose(long_m[:c].numpy(), np.asarray(js["mean"]), **FWD_TOL)
+    np.testing.assert_allclose(long_v[:c].numpy(), np.asarray(js["var"]), **FWD_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [3, 64])
+def test_bn_train_fused_with_running_stats_matches_jax_vjp(dtype, c):
+    """`bn_train_fused` handed the running statistics (as the trainer's
+    `batch_norm_train(use_kernels=True)` does): its gradients through the
+    fused forward against `jax.vjp` of the JAX custom VJP (cotangent on y
+    alone), the running statistics updated once, as JAX `batch_norm`'s."""
+    x, params, state = _fwd_case(c, dtype, 40 + c)
+    jd = getattr(jnp, dtype)
+    wy = _rand(x.shape, 50 + c)
+    if dtype == "bfloat16":
+        wy = torch.from_numpy(wy).to(torch.bfloat16).float().numpy()
+    (_, _, _), vjp = jax.vjp(lambda x, s, b: jbn.bn_train_fused(x, s, b, FWD_EPS, True),
+                             jnp.asarray(x).astype(jd), jnp.asarray(params["scale"]),
+                             jnp.asarray(params["bias"]))
+    jgrads = vjp((jnp.asarray(wy).astype(jd), jnp.zeros(c, jnp.float32),
+                  jnp.zeros(c, jnp.float32)))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
+    st, bt = (torch.from_numpy(params[k]).requires_grad_() for k in ("scale", "bias"))
+    rm, rv = torch.from_numpy(state["mean"].copy()), torch.from_numpy(state["var"].copy())
+    y, _, _ = tbn.bn_train_fused(xt, st, bt, FWD_EPS, rm, rv, momentum=0.1)
+    y.backward(torch.from_numpy(wy).to(xt.dtype))
+    dx = xt.grad.float().numpy()
+    jdx = np.asarray(jgrads[0].astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(dx, jdx, **GRAD_TOL)
+    else:
+        np.testing.assert_allclose(dx, jdx, **BF16_ULP_TOL)
+    np.testing.assert_allclose(st.grad.numpy(), np.asarray(jgrads[1]), **GRAD_TOL)
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(jgrads[2]), **GRAD_TOL)
+    _, js = jnorm.batch_norm(jnp.asarray(x).astype(jd),
+                             {k: jnp.asarray(v) for k, v in params.items()},
+                             {k: jnp.asarray(v) for k, v in state.items()}, training=True,
+                             eps=FWD_EPS)
+    np.testing.assert_allclose(rm.numpy(), np.asarray(js["mean"]), **FWD_TOL)
+    np.testing.assert_allclose(rv.numpy(), np.asarray(js["var"]), **FWD_TOL)
+    assert tbs.bn_forward.launches == 0 and tbn.bn_train_fused.layout_copies == 0
+
+
+def test_bn_forward_takes_the_plain_version_only_on_the_cpu():
+    """Off the CPU `bn_forward` goes to the kernel, which refuses a
+    non-CUDA device; what the kernel does not take is refused first, on
+    meta tensors as on the card: float16 x, running statistics of another
+    type or length, one running statistic without the other, a strided x.
+    momentum=None and an unknown update_var are refused on the CPU too."""
+    def meta(dtype, *shape):
+        return torch.empty(*shape, device="meta", dtype=dtype)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    v = meta(f32, 3)
+    kw = dict(momentum=0.1, eps=FWD_EPS)
+    for x in (meta(f32, 2, 4, 4, 3), meta(bf16, 2, 4, 4, 3)):
+        with pytest.raises(ValueError, match="CUDA"):
+            tbs.bn_forward(x, v, v, v, v, **kw)
+        with pytest.raises(ValueError, match="CUDA"):
+            tbs.bn_forward(x, v, v, None, None, **kw)
+    x = meta(f32, 2, 4, 4, 3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tbs.bn_forward(meta(torch.float16, 2, 4, 4, 3), v, v, v, v, **kw)
+    with pytest.raises(ValueError, match="running_mean must be a float32"):
+        tbs.bn_forward(x, v, v, meta(bf16, 3), v, **kw)
+    with pytest.raises(ValueError, match="running_var must be a float32"):
+        tbs.bn_forward(x, v, v, v, meta(f32, 4), **kw)
+    with pytest.raises(ValueError, match="both running statistics"):
+        tbs.bn_forward(x, v, v, v, None, **kw)
+    with pytest.raises(ValueError, match="row-contiguous"):
+        tbs.bn_forward(meta(f32, 2, 3, 4, 4).permute(0, 2, 3, 1), v, v, v, v, **kw)
+    cpu = torch.zeros(2, 2, 2, 3)
+    with pytest.raises(ValueError, match="momentum"):
+        tbs.bn_forward(cpu, torch.ones(3), torch.zeros(3), None, None, momentum=None)
+    with pytest.raises(ValueError, match="update_var"):
+        tbs.bn_forward(cpu, torch.ones(3), torch.zeros(3), None, None, momentum=0.1,
+                       update_var="neither")

@@ -21,7 +21,8 @@ def test_importing_the_port_loads_no_jax():
     """Nor PIL: the GPU machine may lack it, and the synthetic data path and
     the CLIs run without it (PIL is imported where an image is opened)."""
     mods = _port_modules()
-    for m in ("ops.kernels.mbconv", "data.providers", "data.transforms", "data.datasets",
+    for m in ("ops.kernels.mbconv", "ops.kernels.bn_stats", "ops.kernels.bn", "ops.norm",
+              "data.providers", "data.transforms", "data.datasets",
               "train.run_manager", "train.bn_recalib", "cli.common",
               "cli.train_teacher_net_sr_simple", "cli.eval_ofa_net_sr"):
         assert "ofa_sr_tpu_torch." + m in mods, m
