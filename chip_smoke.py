@@ -71,8 +71,30 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    the torch.profiler
    sessions of phases 3 and 4, last, because a profiler session leaves the
    launch path slower for the rest of the process: device time and kernels
-   per frame and per step, and the BN kernels' own device time. One JSON line of all of it, the
+   per frame and per step, and the BN kernels' own device time (and the X4 frames' profiles of phase
+   7). One JSON line of all of it, the
    nvidia-smi line, and the result line {"ok": true, "device": {...}}.
+7. (run after phase 5, before phase 6's timings and profiles) The X4
+   supernet (learned downscale + SR), full width, seeded weights: the
+   ks7/e6/d2/pixel_d 2 subnet (both trunks) serves 8 frames through
+   `entry.serve` in sr mode (LR 180x320 -> 720p) and in autoencoder mode
+   (720p in, 720p out), MBConv launches held to sum(d) of the trunks run
+   (8 and 16 a frame) and shuffle-tail launches to 0 (the X4's shuffle
+   convs are 3x3; the tail kernel is 5x5 only), frames against the plain
+   path (the autoencoder's against float64: no less accurate than the
+   plain path, see F64_FRAME_RATIO) and a small frame against the CPU,
+   frame ms with fold_tail on and off, each mode's kernel frame profiled with phase 6's; `entry.train` on
+   the X4 (bs16, 96 px, Adam) 4 one-subnet steps in each mode in float32
+   and bf16, BN launches held to 3*sum(d_dec) + pixel_d + 4 a subnet (sr)
+   and 3*(sum(d_enc) + sum(d_dec)) + 2*pixel_d + 7 (autoencoder), bf16
+   ones apart, losses against the plain path, ms a step and host enqueue
+   ms; then the shrinking CLI (`cli.train_ofa_net_sr_simple`, synthetic
+   data) in a temporary directory: one expand stage in autoencoder mode
+   (it reorganizes both trunks; BN launches counted, stage file, stage
+   checkpoint, logs), its rerun (the stage is finished: nothing trains),
+   a pixelshuffle_depth stage in sr mode warm-started from it, and the
+   evaluator with `--x4_autoencoder --materialize` from that checkpoint
+   (16 MBConv launches a frame, PSNR-Y within 1e-3 dB of the plain path).
 
 Float32 with TF32 off for cuDNN and matmuls, so the card's numbers compare
 with the CPU's, apart from the bf16 training runs; the shuffle-tail and
@@ -105,11 +127,21 @@ from ofa_sr_tpu_torch.entry import (  # noqa: E402
     synthetic_batch,
     train,
 )
-from ofa_sr_tpu_torch.cli import eval_ofa_net_sr, train_teacher_net_sr_simple  # noqa: E402
+from ofa_sr_tpu_torch.cli import (  # noqa: E402
+    eval_ofa_net_sr,
+    train_ofa_net_sr_simple,
+    train_teacher_net_sr_simple,
+)
 from ofa_sr_tpu_torch.cli.common import make_net, make_sr_provider  # noqa: E402
 from ofa_sr_tpu_torch.data import SyntheticSRProvider  # noqa: E402
-from ofa_sr_tpu_torch.models import OFAMobileNetS4, SearchSpace, get_active_subnet  # noqa: E402
-from ofa_sr_tpu_torch.models.arch import uniform_subnet  # noqa: E402
+from ofa_sr_tpu_torch.models import (  # noqa: E402
+    OFAMobileNetS4,
+    OFAMobileNetX4,
+    SearchSpace,
+    SubnetConfig,
+    get_active_subnet,
+)
+from ofa_sr_tpu_torch.models.arch import sample_subnet, subnet_seed, uniform_subnet  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels import _build  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.bn import bn_train_fused  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.bn_stats import (  # noqa: E402
@@ -207,6 +239,18 @@ EVAL_HR = 720                         # the evaluator's HR frames: LR 180x180 at
 EVAL_FRAMES = 4
 PSNR_TOL_DB = 1e-3                    # evaluator's mean PSNR-Y, kernels vs plain path
 RM_ROUNDS = 3                         # rounds of (entry.train, train_one_epoch) timing
+# phase 7: the X4 supernet
+X4_STEPS = 4                          # one-subnet steps a (mode, type) run
+X4_ROUNDS = 2                         # rounds of (plain, kernels, kernels, plain) step timing
+X4_MODES = ("sr", "autoencoder")
+# the X4 autoencoder's frames (random BN statistics over two trunks: |y| up
+# to ~1.3e3) are held against float64: every float32 path, the plain cuDNN
+# one included, misses the elementwise FRAME_TOL there on a few of its
+# 2.8M values (where large terms cancel), at ~2e-6 of the frame's scale.
+# The kernel path's max abs error against float64 at most this many times
+# the larger of the two plain float32 paths' (PERF.md records the ratios
+# measured: about 1, both ways)
+F64_FRAME_RATIO = 1.25
 
 
 def fail(msg):
@@ -391,10 +435,16 @@ def check_sums(name, got, ref, terms):
 
 
 def path_bn_shapes():
-    """The training path's distinct BN shapes (the 1-subnet steps' subnets)."""
+    """The training paths' distinct BN shapes: the S4's 1-subnet steps' and
+    the X4's steps of phase 7 in both modes (the unshuffle convs' C 16 at
+    147,456 and 36,864 rows, the encoder output's C 3 at 9,216 and
+    36,864)."""
     space = SearchSpace()
     cfgs = [step_subnets(space, i, 1)[0] for i in range(TRAIN_STEPS)]
-    return sorted({s for c in cfgs for s in bn_train_shapes(space, c, BS, HR)})
+    shapes = {s for c in cfgs for s in bn_train_shapes(space, c, BS, HR)}
+    shapes |= {s for c in x4_step_cfgs() for mode in X4_MODES
+               for s in x4_bn_train_shapes(space, c, mode)}
+    return sorted(shapes)
 
 
 def offset(t, k):
@@ -1126,6 +1176,355 @@ def cli_phase():
     return {"teacher": teacher, "eval": ev, "step_times": times}
 
 
+# -- phase 7: the X4 supernet (learned downscale + SR) -----------------------
+
+def x4_step_cfgs():
+    """The subnets of phase 7's one-subnet X4 steps (both trunks' choices)."""
+    return [step_subnets(SearchSpace(), i, 1, n_trunks=2)[0] for i in range(X4_STEPS)]
+
+
+def decoder_cfg(space, cfg):
+    """The decoder trunk's half of an X4 subnet, as a one-trunk subnet."""
+    nb, ns = space.blocks_per_trunk, space.n_stages
+    return SubnetConfig(ks=cfg.ks[nb:], e=cfg.e[nb:], d=cfg.d[ns:], pixel_d=cfg.pixel_d)
+
+
+def x4_bn_train_shapes(space, cfg, mode):
+    """NHWC shapes of every train-mode BN of an X4 subnet's forward at
+    batch BS of HR x HR frames, in order: in autoencoder mode the
+    unshuffle convs (before their unshuffle), the encoder trunk and its
+    three final convs, then the decoder (the S4 topology on trunk 1)."""
+    bs, hr, pd = BS, HR, cfg.pixel_d
+    lr = hr // 2 ** pd
+    shapes = []
+    if mode == "autoencoder":
+        shapes += [(bs, hr // 2 ** i, hr // 2 ** i, space.width // 4) for i in range(pd)]
+        enc = SubnetConfig(ks=cfg.ks, e=cfg.e, d=cfg.d[:space.n_stages], pixel_d=pd)
+        trunk = (bs, lr, lr, space.width)
+        for stage in range(space.n_stages):
+            for i in range(enc.d[stage]):
+                mid = space.mid_channels(enc.e[stage * space.max_depth + i])
+                shapes += [(bs, lr, lr, mid)] * 2 + [trunk]
+        shapes += [trunk] * 2 + [(bs, lr, lr, 3)]
+    return shapes + bn_train_shapes(space, decoder_cfg(space, cfg), bs, hr)
+
+
+def x4_bn_launches_expected(cfgs, mode):
+    """Launches of each BN wrapper of the X4 path a step over `cfgs`: one
+    per train-mode BN, 3*sum(d_dec) + pixel_d + 4 a subnet in sr mode,
+    3*(sum(d_enc) + sum(d_dec)) + 2*pixel_d + 7 in autoencoder mode."""
+    ns = SearchSpace().n_stages
+    if mode == "sr":
+        return sum(3 * sum(c.d[ns:]) + c.pixel_d + 4 for c in cfgs)
+    return sum(3 * sum(c.d) + 2 * c.pixel_d + 7 for c in cfgs)
+
+
+def build_x4(device, seed=0):
+    net = OFAMobileNetX4(SearchSpace(), device=device,
+                         generator=torch.Generator().manual_seed(seed))
+    randomize_bn(net, torch.Generator().manual_seed(seed + 1))
+    return net
+
+
+def f64_frame_check(name, got, plains, y64):
+    """`got`'s max abs error against the float64 frame `y64` at most
+    F64_FRAME_RATIO times the largest of the plain float32 frames'
+    (`plains`); also fails on a non-finite value."""
+    err = lambda t: float((t.double() - y64).abs().max())  # noqa: E731
+    # values of each outside FRAME_TOL of float64: why this check replaces it
+    over = lambda t: int(((t.double() - y64).abs()  # noqa: E731
+                          > FRAME_TOL["atol"] + FRAME_TOL["rtol"] * y64.abs()).sum())
+    kern, plain = err(got), max(err(t) for t in plains)
+    ok = bool(torch.isfinite(got).all()) and kern <= F64_FRAME_RATIO * plain
+    print("  %-58s against float64: max_abs_err %.3e, plain float32 %.3e (at most %.2fx, "
+          "|y| max %.1f; outside FRAME_TOL of float64: %d, plain %s)  %s"
+          % (name, kern, plain, F64_FRAME_RATIO, float(y64.abs().max()), over(got),
+             [over(t) for t in plains], "ok" if ok else "FAIL"), flush=True)
+    if not ok:
+        fail("%s is less accurate than the plain float32 path against float64 (%.3e > %.2f x "
+             "%.3e)" % (name, kern, F64_FRAME_RATIO, plain))
+    return {"kernel": kern, "plain": plain, "outside_frame_tol": over(got),
+            "plain_outside_frame_tol": [over(t) for t in plains]}
+
+
+def x4_serving(net, net_cpu, net64):
+    """8 frames in each mode through entry.serve, counted: MBConv launches
+    sum(d_dec) a frame in sr mode and sum(d_enc) + sum(d_dec) in autoencoder
+    mode, no shuffle-tail launch (the X4's shuffle convs are 3x3, the tail
+    kernel 5x5 only); frames against the plain path (sr: at FRAME_TOL;
+    autoencoder: no less accurate against float64 than the plain paths,
+    F64_FRAME_RATIO), a small frame against the CPU; frame ms with fold_tail
+    on and off."""
+    cfg = uniform_subnet(net.space, 7, 6, 2, 2, n_trunks=2)
+    rng = np.random.RandomState(3)
+    out, profiles = {"cfg": cfg.describe()}, []
+    for mode in X4_MODES:
+        f = 1 if mode == "sr" else 2 ** cfg.pixel_d
+        in_hw = (LR_HW[0] * f, LR_HW[1] * f)
+        frames = [rng.rand(1, *in_hw, 3).astype(np.float32) for _ in range(N_FRAMES)]
+        torch.cuda.synchronize()
+        # the main path, counted
+        zero_bn_counts()
+        fused_mbconv_infer.launches = fused_shuffle_tail.launches = 0
+        ys = serve(frames, net=net, cfg=cfg, device=net.device, mode=mode)
+        torch.cuda.synchronize()
+        counts = {"mbconv": fused_mbconv_infer.launches,
+                  "shuffle_tail": fused_shuffle_tail.launches}
+        n_mb = sum(cfg.d[net.space.n_stages:]) if mode == "sr" else sum(cfg.d)
+        expect = {"mbconv": n_mb * N_FRAMES, "shuffle_tail": 0}
+        print("  X4 %s: launches during serve(%d frames of %dx%d): %s (expected %s)"
+              % ((mode, N_FRAMES) + in_hw + (counts, expect)), flush=True)
+        if counts != expect or any(bn_counts().values()):
+            fail("the X4 %s serving path did not go through the kernels as expected" % mode)
+        subs = {"kernels": get_active_subnet(net, cfg, mode=mode, use_kernels=True),
+                "kernels_no_fold": get_active_subnet(net, cfg, mode=mode, use_kernels=True,
+                                                     fold_tail=False),
+                "plain": get_active_subnet(net, cfg, mode=mode, use_kernels=False,
+                                           fold_tail=False),
+                "plain_fold_tail": get_active_subnet(net, cfg, mode=mode, use_kernels=False)}
+        if not (subs["kernels"].fold_tail and not subs["kernels"].tail_kernel):
+            fail("the X4 subnet with kernels should keep fold_tail and use no tail kernel")
+        hr = (1, LR_HW[0] * 2 ** cfg.pixel_d, LR_HW[1] * 2 ** cfg.pixel_d, 3)
+        sub64 = get_active_subnet(net64, cfg, mode=mode, use_kernels=False, fold_tail=False)
+        errs = {}
+        with torch.inference_mode():
+            for i, (x_np, y) in enumerate(zip(frames, ys)):
+                if tuple(y.shape) != hr or not bool(torch.isfinite(y).all()):
+                    fail("X4 %s frame %d: shape %s (expected %s) or not finite"
+                         % (mode, i, tuple(y.shape), hr))
+                if i not in (0, N_FRAMES - 1):
+                    continue
+                x = torch.from_numpy(x_np).to(net.device)
+                plain = [subs["plain"](x), subs["plain_fold_tail"](x)]
+                if mode == "sr":
+                    for name, ref in zip(("plain", "plain_fold_tail"), plain):
+                        check_close("X4 sr frame %d: kernels vs %s" % (i, name), y, ref,
+                                    FRAME_TOL)
+                    check_close("X4 sr frame %d: kernels vs kernels_no_fold" % i, y,
+                                subs["kernels_no_fold"](x), FRAME_TOL)
+                    continue
+                y64 = sub64(x.double())
+                for name in ("kernels", "kernels_no_fold"):
+                    got = y if name == "kernels" else subs[name](x)
+                    errs["frame %d %s" % (i, name)] = f64_frame_check(
+                        "X4 autoencoder frame %d: %s" % (i, name), got, plain, y64)
+            small = torch.from_numpy(rng.rand(1, 24 * f, 40 * f, 3).astype(np.float32))
+            sub_cpu = get_active_subnet(net_cpu, cfg, mode=mode, use_kernels=False,
+                                        fold_tail=False)
+            got, ref = subs["kernels"](small.to(net.device)).cpu(), sub_cpu(small)
+            if mode == "sr":
+                check_close("X4 sr small frame: card kernels vs CPU", got, ref, FRAME_TOL)
+            else:
+                errs["small frame, card vs CPU"] = f64_frame_check(
+                    "X4 autoencoder small frame: card kernels vs CPU", got, [ref],
+                    sub64(small.to(net.device).double()).cpu())
+            xs = [torch.from_numpy(x_np).to(net.device) for x_np in frames]
+            times = {name: time_ms(lambda sub=sub: [sub(x) for x in xs], iters=3,
+                                   warmup=1) / N_FRAMES for name, sub in subs.items()}
+        print("  X4 %s frame ms (CUDA events, mean of %d frames x 3): %s"
+              % (mode, N_FRAMES, {k: round(v, 4) for k, v in times.items()}), flush=True)
+        out[mode] = {"launches": counts, "expected": expect, "frame_ms": times,
+                     "input_hw": list(in_hw), "errors_vs_f64": errs}
+        profiles.append(("X4 %s kernels" % mode,
+                         lambda sub=subs["kernels"], xs=xs: [sub(x) for x in xs], N_FRAMES,
+                         times["kernels"]))
+    return out, profiles
+
+
+def x4_train_net():
+    return OFAMobileNetX4(SearchSpace(), device=DEVICE, generator=torch.Generator().manual_seed(0))
+
+
+def x4_training():
+    """entry.train on the full-width X4, 4 one-subnet steps in each mode, in
+    float32 and bf16, counted (BN launches per the formulas, bf16 apart);
+    the kernel path's losses against the plain path's (float32 at
+    STEP_TOL's rtol, bf16 at BF16_STEP_TOL); ms a step of both paths with
+    the host's enqueue time."""
+    cfgs = x4_step_cfgs()
+    batch = synthetic_batch(BS, HR, DEVICE)
+    out = {}
+    for mode in X4_MODES:
+        for cd in (None, BF16):
+            bf16 = cd is BF16
+            label = "%s%s" % (mode, " bf16" if bf16 else "")
+            zero_bn_counts()
+            metrics = train(X4_STEPS, device=DEVICE, net=x4_train_net(), compute_dtype=cd,
+                            mode=mode)
+            torch.cuda.synchronize()
+            counts = bn_counts()
+            expect = x4_bn_launches_expected(cfgs, mode)
+            print("  X4 entry.train(%d steps, %s): BN-kernel launches %s (expected %d each), "
+                  "losses %s" % (X4_STEPS, label, counts, expect,
+                                 [round(m["loss"], 5) for m in metrics]), flush=True)
+            wrong = bn_launches_wrong(counts, expect, bf16)
+            if wrong:
+                fail("the X4 %s training path %s" % (label, wrong))
+            if not all(np.isfinite(m["loss"]) and np.isfinite(m["psnr"]) for m in metrics):
+                fail("non-finite X4 training metrics: %s" % metrics)
+            plain = train(X4_STEPS, device=DEVICE, net=x4_train_net(), compute_dtype=cd,
+                          mode=mode, use_kernels=False)
+            tol = BF16_STEP_TOL if bf16 else dict(STEP_TOL, atol=0)
+            check_close("X4 %s: %d steps, losses: kernel path vs plain path" % (label, X4_STEPS),
+                        torch.tensor([m["loss"] for m in metrics]),
+                        torch.tensor([m["loss"] for m in plain]), tol)
+            trainers = {uk: SRTrainer(x4_train_net(), use_kernels=uk, compute_dtype=cd,
+                                      mode=mode) for uk in (False, True)}
+
+            def run(uk, trainers=trainers):
+                for c in cfgs:
+                    trainers[uk].train_step(batch, [c], 1e-4)
+
+            for uk in trainers:
+                run(uk)  # warm
+            times = {False: [], True: []}
+            for uk in (False, True, True, False) * X4_ROUNDS:
+                times[uk].append(timed_steps(lambda: run(uk), X4_STEPS))
+            rec = {"launches": counts, "expected": expect, "metrics": metrics,
+                   "plain_metrics": plain}
+            for uk, name in ((True, "kernels"), (False, "plain")):
+                ev, host = zip(*times[uk])
+                rec[name] = {"ms": list(ev), "host_enqueue_ms": list(host),
+                             "median_ms": float(np.median(ev)),
+                             "median_host_enqueue_ms": float(np.median(host))}
+                print("  X4 %s, %s: ms per step (CUDA events) %s, median %.4f; host enqueue "
+                      "%s" % (label, name, [round(t, 3) for t in ev], np.median(ev),
+                              [round(t, 3) for t in host]), flush=True)
+            out[label] = rec
+    return out
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def x4_cli(tmp):
+    """The shrinking CLI in a temporary directory: one expand stage in
+    autoencoder mode (it reorganizes both trunks), its rerun (the stage is
+    finished: nothing trains), the pixelshuffle_depth stage in sr mode
+    warm-started from it; then the evaluator with --x4_autoencoder
+    --materialize from that checkpoint, its PSNR-Y against the plain path's."""
+    out = {}
+    expand = os.path.join(tmp, "expand")
+    argv = ["--synthetic", "--task", "expand", "--phase", "1", "--mode", "autoencoder",
+            "--n_epochs", "1", "--path", expand]
+    preset = train_ofa_net_sr_simple.TASK_PHASES[("expand", 1)]
+    space = SearchSpace(**{k: preset[k] for k in ("ks_list", "expand_list", "depth_list",
+                                                 "pixel_d_list")})
+    supported = sorted(space.expand_list, reverse=True)[:2]
+    cfgs = [sample_subnet(space, seed=subnet_seed(0, TEACHER_EPOCH_STEPS, i, k), n_trunks=2,
+                          expand_candidates=supported)
+            for i in range(TEACHER_EPOCH_STEPS) for k in range(preset["dynamic_batch_size"])]
+    with EpochTimes() as et:
+        best, counts, wall = counted_cli(train_ofa_net_sr_simple.main, argv)
+        expect = x4_bn_launches_expected(cfgs, "autoencoder")
+        print("  shrink expand/1 autoencoder: BN-kernel launches %s (expected %d each), best "
+              "PSNR %.4f, %.1f s" % (counts, expect, best, wall), flush=True)
+        wrong = bn_launches_wrong(counts, expect, False)
+        if wrong or counts["mbconv"] or counts["shuffle_tail"]:
+            fail("the shrinking CLI %s" % (wrong or "launched a serving kernel"))
+        if read_json(os.path.join(expand, "expand.stage")) != {"stage": 1}:
+            fail("expand.stage: %s" % read_json(os.path.join(expand, "expand.stage")))
+        for f in ("checkpoint/expand_stage1.ckpt", "checkpoint/latest.txt",
+                  "logs/valid_console.txt", "logs/train_console.txt", "run.config"):
+            if not os.path.isfile(os.path.join(expand, f)):
+                fail("the expand stage wrote no %s" % f)
+        with open(os.path.join(expand, "logs", "valid_console.txt")) as f:
+            log = f.read()
+        if "Elastic expand: [6] -> [6, 4]" not in log or "stage 1:" not in log:
+            fail("the expand stage's log lacks its stage lines")
+        out["expand"] = {"best_psnr": best, "launches": counts, "expected": expect,
+                         "wall_s": wall, "epochs": list(et.epochs)}
+        n0 = len(et.epochs)
+        best2, counts, wall = counted_cli(train_ofa_net_sr_simple.main, argv)
+        print("  shrink expand/1 rerun: epochs %s, BN launches %s, best %s"
+              % (et.epochs[n0:], counts["bn_forward"], best2), flush=True)
+        if et.epochs[n0:] or counts["bn_forward"] or counts["bn_backward"] or best2 != -1e9:
+            fail("the rerun of a finished stage trained")
+        out["expand_rerun"] = {"epochs": len(et.epochs) - n0, "wall_s": wall}
+        n0 = len(et.epochs)
+        psd = os.path.join(tmp, "psd")
+        best, counts, wall = counted_cli(train_ofa_net_sr_simple.main, [
+            "--synthetic", "--task", "pixelshuffle_depth", "--phase", "1", "--mode", "sr",
+            "--n_epochs", "1", "--warmup_epochs", "0", "--path", psd, "--warmstart",
+            os.path.join(expand, "checkpoint")])
+        p_preset = train_ofa_net_sr_simple.TASK_PHASES[("pixelshuffle_depth", 1)]
+        p_space = SearchSpace(**{k: p_preset[k] for k in ("ks_list", "expand_list",
+                                                         "depth_list", "pixel_d_list")})
+        p_cfgs = [sample_subnet(p_space, seed=subnet_seed(0, TEACHER_EPOCH_STEPS, i, 0),
+                                n_trunks=2, pixel_d_candidates=[2, 1])
+                  for i in range(TEACHER_EPOCH_STEPS)]
+        expect = x4_bn_launches_expected(p_cfgs, "sr")
+        print("  shrink pixelshuffle_depth/1 sr (warm start): BN-kernel launches %s (expected "
+              "%d each), best PSNR %.4f, %.1f s" % (counts, expect, best, wall), flush=True)
+        if bn_launches_wrong(counts, expect, False) or \
+                read_json(os.path.join(psd, "pixelshuffle_depth.stage")) != {"stage": 1}:
+            fail("the pixelshuffle_depth stage did not run as expected")
+        with open(os.path.join(psd, "logs", "valid_console.txt")) as f:
+            if "warmstart:" not in f.read():
+                fail("the pixelshuffle_depth stage did not warm-start")
+        out["pixelshuffle_depth"] = {"best_psnr": best, "launches": counts, "expected": expect,
+                                     "wall_s": wall, "epochs": et.epochs[n0:]}
+    out["eval"] = x4_eval(tmp, os.path.join(psd, "checkpoint"))
+    return out
+
+
+def x4_eval(tmp, ckpt_dir):
+    frame_log = os.path.join(tmp, "x4_frames.jsonl")
+    argv = ["--path", os.path.join(tmp, "x4_eval"), "--synthetic", "--dataset", "div2k",
+            "--x4_autoencoder", "--materialize", "--checkpoint", ckpt_dir, "--image_size",
+            str(EVAL_HR), "--frame_log", frame_log]
+    psnr, counts, wall = counted_cli(eval_ofa_net_sr.main, argv)
+    cfg = uniform_subnet(SearchSpace(), 7, 6, 2, 2, n_trunks=2)
+    expect = {"mbconv": sum(cfg.d) * EVAL_FRAMES, "shuffle_tail": 0}
+    got = {k: counts[k] for k in expect}
+    print("  eval_ofa_net_sr --x4_autoencoder --materialize, %d frames of %dx%d HR: launches %s "
+          "(expected %s), mean PSNR-Y %.6f" % (EVAL_FRAMES, EVAL_HR, EVAL_HR, got, expect, psnr),
+          flush=True)
+    if got != expect or any(counts[k.__name__] for k in BN_KERNELS + BN_OFF_PATH):
+        fail("the X4 evaluator did not go through the serving kernels as expected")
+    frames = [json.loads(line) for line in open(frame_log)]
+    if len(frames) != EVAL_FRAMES or not all(np.isfinite(r["psnr"]) for r in frames):
+        fail("the X4 evaluator's frame log: %s" % frames)
+    args = eval_ofa_net_sr.build_args(argv + ["--device", DEVICE])
+    net = make_net(OFAMobileNetX4, SearchSpace(), args)
+    load_weights_lenient(ckpt_dir, net)
+    sub = get_active_subnet(net, cfg, mode="autoencoder", use_kernels=False)
+    psnrs = []
+    with torch.inference_mode():
+        for batch in make_sr_provider(args, None).test:
+            hr = torch.from_numpy(batch["image"]).to(net.device)
+            y = sub(hr)
+            if tuple(y.shape) != tuple(hr.shape) or not bool(torch.isfinite(y).all()):
+                fail("X4 plain-path frame: shape %s" % (tuple(y.shape),))
+            psnrs.append(float(psnr_y_device(y, hr)))
+    plain = float(np.mean(psnrs))
+    diff = abs(plain - psnr)
+    print("  the same X4 subnet on the plain path: mean PSNR-Y %.6f (|diff| %.2e dB, at most "
+          "%.0e)" % (plain, diff, PSNR_TOL_DB), flush=True)
+    if not diff <= PSNR_TOL_DB:
+        fail("the X4 evaluator's kernel path and plain path differ by %.3e dB" % diff)
+    ms = [1e3 * r["sec"] for r in frames]
+    return {"launches": counts, "expected": expect, "mean_psnr": psnr, "plain_mean_psnr": plain,
+            "frame_ms": ms, "frame_ms_after_first_median": float(np.median(ms[1:])),
+            "wall_s": wall}
+
+
+def x4_phase(dev):
+    t0 = time.perf_counter()
+    net, net_cpu, net64 = build_x4(dev), build_x4("cpu"), build_x4(dev).double()
+    serving_out, profiles = x4_serving(net, net_cpu, net64)
+    del net, net_cpu, net64
+    training_out = x4_training()
+    with tempfile.TemporaryDirectory(prefix="ofa_sr_x4_") as tmp:
+        cli_out = x4_cli(tmp)
+    wall = time.perf_counter() - t0
+    print("  phase 7 took %.1f s" % wall, flush=True)
+    return {"serving": serving_out, "training": training_out, "cli": cli_out,
+            "wall_s": wall}, profiles
+
+
 # -- phase 6: per-kernel numbers at the path's shapes ------------------------
 
 def steady_ms(fn, repeats=3):
@@ -1398,6 +1797,9 @@ def main():
           flush=True)
     cli = cli_phase()
 
+    print("phase 7: the X4 supernet: serving, training and the shrinking CLI", flush=True)
+    x4, x4_profiles = x4_phase(dev)
+
     print("phase 6: per-kernel numbers", flush=True)
     bn_rows = bn_kernel_numbers(g, path_counts, errs)
     bn_rows_bf16 = bn_kernel_numbers(g, path_counts, errs, BF16)
@@ -1412,6 +1814,22 @@ def main():
     for r, n in zip(rows, [cli["eval"]["launches"]["mbconv"],
                            cli["eval"]["launches"]["shuffle_tail"]] + f32_cli + bf16_cli):
         r["launches_cli"] = n
+    # each row's launches in phase 7's counted X4 runs: serving (per mode),
+    # the evaluator, training (per mode, of the row's type) and the
+    # shrinking CLI's two training stages
+    xs, xt, xc = x4["serving"], x4["training"], x4["cli"]
+    for r, key in zip(rows[:2], ("mbconv", "shuffle_tail")):
+        r["launches_x4"] = {"serve " + m: xs[m]["launches"][key] for m in X4_MODES}
+        r["launches_x4"]["eval cli"] = xc["eval"]["launches"][key]
+    rows[1]["launches_x4_note"] = ("0: the X4's shuffle convs are 3x3 and the tail kernel is "
+                                   "5x5 only, in both packages")
+    for r, name in zip(rows[2:], ("bn_forward", "col_sums2", "bn_backward") * 2):
+        bf16 = r["dtype"] == "bfloat16"
+        key = name + ("_bf16" if bf16 else "")
+        r["launches_x4"] = {"train " + m: xt[m + (" bf16" if bf16 else "")]["launches"][key]
+                            for m in X4_MODES}
+        r["launches_x4"]["shrink cli"] = (0 if bf16 else xc["expand"]["launches"][key]
+                                          + xc["pixelshuffle_depth"]["launches"][key])
     for r in rows:
         print("  %-20s %d launches (CLIs %d)  %.4f ms/%s  plain %.4f  bound %.4f (%s)  "
               "library %s" % (r["name"], r["launches"], r["launches_cli"], r["ms"], r["per"],
@@ -1421,7 +1839,7 @@ def main():
     # rest of the process, so every timing above comes first, and the steps
     # are timed once more after the profiles to show by how much
     print("phase 6: device profiles", flush=True)
-    profiles = [device_profile(*p, "frame") for p in profiles]
+    profiles = [device_profile(*p, "frame") for p in profiles + x4_profiles]
     train_profiles = [device_profile(*p, "step") for p in train_runs_to_profile]
     by_path = {p["path"]: p for p in train_profiles}
     # the kernels' own device time in the kernel path's step of their type
@@ -1442,7 +1860,8 @@ def main():
     print(json.dumps({"kernels": rows, "frame_ms": frame_ms, "frame_profile": profiles,
                       "entry_ms": entry_ms, "train_runs": train_runs,
                       "train_runs_bf16": train_runs_bf16, "step_ms": step_ms,
-                      "step_profile": train_profiles, "cli": cli, "build_s": build_s,
+                      "step_profile": train_profiles, "cli": cli, "x4": x4,
+                      "build_s": build_s,
                       "mbconv_smem_bytes": mb_smem, "gpu": smi_line}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Evaluate a subnet of a trained SR supernet (counterpart of
-ofa_sr_tpu/cli/eval_ofa_net_sr.py, the S4 path).
+ofa_sr_tpu/cli/eval_ofa_net_sr.py).
 
 Load a checkpoint leniently (`--checkpoint`), pick a subnet (default ks 7,
 e 6, d 2, pixel_d 2), optionally recalibrate its BN statistics
@@ -8,10 +8,12 @@ the run manager's `validate`, or with `--materialize` through the static
 subnet (`get_active_subnet`), which on a CUDA net runs the fused MBConv and
 shuffle-tail kernels. Materialized frames are timed with CUDA events on
 the card; `--frame_log` receives {"frame", "psnr", "sec"} per frame.
+`--x4_autoencoder` evaluates an OFAMobileNetX4 in autoencoder mode: the net
+takes the HR frame, downscales it and super-resolves it.
 
 Not ported yet, and refused: `--export` (ROADMAP queue 1 item 13),
-`--tile` / `--tile_mesh` / `--spatial_mesh` (item 10), `--x4_autoencoder`
-(item 9), and the oracle-video dataset (item 7) outside `--synthetic`.
+`--tile` / `--tile_mesh` / `--spatial_mesh` (item 10), and the oracle-video
+dataset (item 7) outside `--synthetic`.
 
 Run: python -m ofa_sr_tpu_torch.cli.eval_ofa_net_sr --checkpoint <dir> [--synthetic]
 """
@@ -26,7 +28,13 @@ import numpy as np
 import torch
 
 from ..data import Div2KSetXXProvider
-from ..models import OFAMobileNetS4, SearchSpace, get_active_subnet, uniform_subnet
+from ..models import (
+    OFAMobileNetS4,
+    OFAMobileNetX4,
+    SearchSpace,
+    get_active_subnet,
+    uniform_subnet,
+)
 from ..train import RunConfig, SRRunManager
 from ..utils.metrics import psnr_y_device
 from .common import add_common_args, make_net, make_sr_provider, set_seeds
@@ -55,7 +63,9 @@ def build_args(argv=None):
     p.add_argument("--tile", type=int, default=None, help="not ported yet")
     p.add_argument("--tile_mesh", action="store_true", help="not ported yet")
     p.add_argument("--spatial_mesh", action="store_true", help="not ported yet")
-    p.add_argument("--x4_autoencoder", action="store_true", help="not ported yet")
+    p.add_argument("--x4_autoencoder", action="store_true",
+                   help="evaluate an OFAMobileNetX4 in autoencoder mode (learned downscale + "
+                        "SR): the net takes the HR frame itself")
     return p.parse_args(argv)
 
 
@@ -64,7 +74,6 @@ _UNPORTED = (
     ("tile", "--tile (overlap-tiled inference, train/tiled_infer.py)", 10),
     ("tile_mesh", "--tile_mesh", 10),
     ("spatial_mesh", "--spatial_mesh (parallel/spatial.py)", 10),
-    ("x4_autoencoder", "--x4_autoencoder (OFAMobileNetX4)", 9),
 )
 
 
@@ -97,8 +106,9 @@ def _timed(fn, cuda):
 def materialized_eval(rm, sub_cfg, args):
     """Mean PSNR-Y of the static subnet over the test frames."""
     net = rm.net
-    subnet = get_active_subnet(net, sub_cfg, fold_tail=not args.no_fold_tail)
-    key = "x%d" % (2 ** sub_cfg.pixel_d)
+    subnet = get_active_subnet(net, sub_cfg, mode=rm.run_config.mode,
+                               fold_tail=not args.no_fold_tail)
+    key = "image" if subnet.mode == "autoencoder" else "x%d" % (2 ** sub_cfg.pixel_d)
     cuda = net.device.type == "cuda"
     psnrs, times = [], []
     log_f = open(args.frame_log, "a") if args.frame_log else None
@@ -130,15 +140,18 @@ def main(argv=None):
     set_seeds(args.manual_seed)
 
     space = SearchSpace()
-    net = make_net(OFAMobileNetS4, space, args)
+    ae = args.x4_autoencoder
+    net = make_net(OFAMobileNetX4 if ae else OFAMobileNetS4, space, args)
     provider = make_sr_provider(args, Div2KSetXXProvider)
     cfg = RunConfig(test_batch_size=1, image_size=args.image_size,
-                    bn_recalib_before_eval=args.bn_recalib)
+                    bn_recalib_before_eval=args.bn_recalib,
+                    mode="autoencoder" if ae else "sr")
     rm = SRRunManager(args.path, net, cfg, provider)
     if args.checkpoint:
         rm.load_weights(args.checkpoint)
 
-    sub_cfg = uniform_subnet(space, args.ks, args.expand, args.depth, args.pixel_d)
+    sub_cfg = uniform_subnet(space, args.ks, args.expand, args.depth, args.pixel_d,
+                             n_trunks=net.n_trunks)
     if args.bn_recalib:
         rm.reset_running_statistics(sub_cfg, n_images=64, batch_size=16)
     if args.materialize:

@@ -7,7 +7,9 @@ of a sampled subnet at batch 16, 48x48 LR, pixel_d 1.
 `serve(frames, ...)` is the serving path: it materializes a static subnet
 (default ks7/e6/d2/pixel_d 2, the reference eval envelope) and answers LR
 frames one at a time, like the JAX package's
-`cli/eval_ofa_net_sr.py --materialize`.
+`cli/eval_ofa_net_sr.py --materialize`; with `mode="autoencoder"` an
+OFAMobileNetX4 answers HR frames (learned downscale, then SR), as
+`--x4_autoencoder --materialize` does.
 
 `train(steps, ...)` is the training path: the bench's training envelopes
 (`bench.py` of the JAX package) on the full-width supernet, batch 16 of
@@ -16,6 +18,9 @@ more sampled subnets a step under the reference's seed contract, Adam with
 weight decay 3e-5 and, with `kd_ratio > 0`, KD against the bench's teacher
 (ks5/e3/d2/pixel_d 1); `compute_dtype=torch.bfloat16` is the JAX bench's
 own mixed-precision training (`SRTrainer(compute_dtype=jnp.bfloat16)`).
+An OFAMobileNetX4 trains in its `mode` ("sr": the decoder on the LR
+inputs; "autoencoder": encoder and decoder on the HR frame), its subnets
+sampled with both trunks' choices.
 
 All three run on the GPU unless the caller passes `device="cpu"`.
 """
@@ -36,6 +41,7 @@ from .models.arch import (
 )
 from .models.materialize import get_active_subnet
 from .models.ofa_s4 import OFAMobileNetS4
+from .models.ofa_x4 import OFAMobileNetX4
 from .train.train_step import SRTrainer
 from .utils.device import resolve_device
 
@@ -58,24 +64,35 @@ def entry(device="cuda"):
     return fn, (net, x2, cfg)
 
 
-def serve(frames: Iterable, *, net: Optional[OFAMobileNetS4] = None,
-          cfg: Optional[SubnetConfig] = None, device="cuda") -> List[torch.Tensor]:
-    """Super-resolve LR frames one at a time through a materialized subnet.
+def _default_net(net, mode, dev, caller):
+    """`net`, checked to be on `dev`; by default a seed-0 full-width
+    OFAMobileNetS4, or OFAMobileNetX4 for the autoencoder."""
+    if net is None:
+        return (OFAMobileNetX4 if mode == "autoencoder" else OFAMobileNetS4)(
+            SearchSpace(), device=dev)
+    if net.device != dev:
+        raise ValueError("net is on %s, %s was asked for %s" % (net.device, caller, dev))
+    return net
 
-    frames: NHWC float arrays or tensors, (1,H,W,3) or (H,W,3).
-    net: the supernet to slice (default: a seed-0 full-width OFAMobileNetS4
-    on `device`). cfg: the subnet (default ks7/e6/d2/pixel_d 2). On a CUDA
-    device the subnet runs the hand-written kernels.
-    Returns the HR frames, (1, H*2^pd, W*2^pd, 3) tensors on `device`.
+
+def serve(frames: Iterable, *, net=None, cfg: Optional[SubnetConfig] = None, device="cuda",
+          mode: str = "sr") -> List[torch.Tensor]:
+    """Super-resolve frames one at a time through a materialized subnet.
+
+    frames: NHWC float arrays or tensors, (1,H,W,3) or (H,W,3): LR frames,
+    or with `mode="autoencoder"` HR frames (sides multiples of 2^pixel_d).
+    net: the supernet to slice (default: a seed-0 full-width OFAMobileNetS4,
+    or OFAMobileNetX4 for the autoencoder, on `device`). cfg: the subnet
+    (default ks7/e6/d2/pixel_d 2). On a CUDA device the subnet runs the
+    hand-written kernels.
+    Returns the HR frames, (1, H*2^pd, W*2^pd, 3) tensors on `device` (the
+    input's size in autoencoder mode).
     """
     dev = resolve_device(device)
-    if net is None:
-        net = OFAMobileNetS4(SearchSpace(), device=dev)
-    elif net.device != dev:
-        raise ValueError("net is on %s, serve was asked for %s" % (net.device, dev))
+    net = _default_net(net, mode, dev, "serve")
     if cfg is None:
-        cfg = uniform_subnet(net.space, 7, 6, 2, 2)
-    subnet = get_active_subnet(net, cfg)
+        cfg = uniform_subnet(net.space, 7, 6, 2, 2, n_trunks=net.n_trunks)
+    subnet = get_active_subnet(net, cfg, mode=mode)
     out = []
     with torch.inference_mode():
         for frame in frames:
@@ -86,10 +103,11 @@ def serve(frames: Iterable, *, net: Optional[OFAMobileNetS4] = None,
     return out
 
 
-def step_subnets(space: SearchSpace, step: int, n_subnets: int) -> List[SubnetConfig]:
+def step_subnets(space: SearchSpace, step: int, n_subnets: int,
+                 n_trunks: int = 1) -> List[SubnetConfig]:
     """The subnets of training step `step` (epoch 0), in the reference's
-    seed contract."""
-    return [sample_subnet(space, seed=subnet_seed(0, N_BATCH, step, k))
+    seed contract, for a net of `n_trunks` trunks."""
+    return [sample_subnet(space, seed=subnet_seed(0, N_BATCH, step, k), n_trunks=n_trunks)
             for k in range(n_subnets)]
 
 
@@ -111,24 +129,23 @@ def kd_teacher(space: SearchSpace, device):
 
 
 def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda",
-          net: Optional[OFAMobileNetS4] = None, batch_size: int = 16, hr_size: int = 96,
+          net=None, batch_size: int = 16, hr_size: int = 96,
           lr: float = 1e-4, use_kernels: Optional[bool] = None,
-          compute_dtype: Optional[torch.dtype] = None) -> List[dict]:
-    """Train `net` (default: a seed-0 full-width OFAMobileNetS4 on `device`)
-    for `steps` optimizer steps of `n_subnets` subnets each, on one
-    synthetic batch. On a CUDA net train-mode BN runs the BN-statistics
-    kernels unless `use_kernels=False`. `compute_dtype` (None: float32;
-    torch.bfloat16: mixed precision, float32 masters) as `SRTrainer`'s.
+          compute_dtype: Optional[torch.dtype] = None, mode: str = "sr") -> List[dict]:
+    """Train `net` (default: a seed-0 full-width OFAMobileNetS4, or
+    OFAMobileNetX4 for the autoencoder, on `device`) for `steps` optimizer
+    steps of `n_subnets` subnets each, on one synthetic batch, in `mode`.
+    On a CUDA net train-mode BN runs the BN-statistics kernels unless
+    `use_kernels=False`. `compute_dtype` (None: float32; torch.bfloat16:
+    mixed precision, float32 masters) as `SRTrainer`'s.
     Returns each step's {"loss", "psnr"} as floats."""
     dev = resolve_device(device)
-    if net is None:
-        net = OFAMobileNetS4(SearchSpace(), device=dev)
-    elif net.device != dev:
-        raise ValueError("net is on %s, train was asked for %s" % (net.device, dev))
+    net = _default_net(net, mode, dev, "train")
     teacher = kd_teacher(net.space, dev) if kd_ratio > 0 else None
     trainer = SRTrainer(net, opt_type="adam", weight_decay=3e-5, kd_ratio=kd_ratio,
-                        teacher=teacher, use_kernels=use_kernels, compute_dtype=compute_dtype)
+                        teacher=teacher, use_kernels=use_kernels, compute_dtype=compute_dtype,
+                        mode=mode)
     batch = synthetic_batch(batch_size, hr_size, dev)
-    metrics = [trainer.train_step(batch, step_subnets(net.space, i, n_subnets), lr)
+    metrics = [trainer.train_step(batch, step_subnets(net.space, i, n_subnets, net.n_trunks), lr)
                for i in range(steps)]
     return [{k: float(v) for k, v in m.items()} for m in metrics]

@@ -10,9 +10,11 @@ from .arch import (
 )
 from .materialize import StaticSubnet, get_active_subnet
 from .ofa_s4 import OFAMobileNetS4
+from .ofa_x4 import OFAMobileNetX4
 
 __all__ = [
     "OFAMobileNetS4",
+    "OFAMobileNetX4",
     "SearchSpace",
     "StaticSubnet",
     "SubnetConfig",

@@ -76,6 +76,18 @@ class SubnetConfig:
         return "ks%s_e%s_d%s_pd%d" % (list(self.ks), list(self.e), list(self.d), self.pixel_d)
 
 
+def check_n_trunks(space: SearchSpace, cfg: SubnetConfig, n_trunks: int):
+    """Raise unless `cfg` has the lengths of a net of `n_trunks` trunks: a
+    subnet sampled for another trunk count would index out of range, or feed
+    one trunk's choices to the other."""
+    n_blocks, n_stages = space.blocks_per_trunk * n_trunks, space.n_stages * n_trunks
+    if (len(cfg.ks), len(cfg.e), len(cfg.d)) != (n_blocks, n_blocks, n_stages):
+        raise ValueError(
+            "subnet with %d/%d/%d ks/e/d entries for a net of %d trunk(s), which takes %d/%d/%d:"
+            " sample it with n_trunks=%d" % (len(cfg.ks), len(cfg.e), len(cfg.d), n_trunks,
+                                             n_blocks, n_blocks, n_stages, n_trunks))
+
+
 def max_subnet(space: SearchSpace, n_trunks: int = 1) -> SubnetConfig:
     n_blocks = space.blocks_per_trunk * n_trunks
     return SubnetConfig(

@@ -29,7 +29,7 @@ from ..ops.activations import relu6
 from ..ops.conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init, icnr_conv_init
 from ..ops.elastic import transform_kernel_chain, transform_matrices_init
 from ..ops.norm import batch_norm, batch_norm_train
-from ..ops.pixelshuffle import pixel_shuffle
+from ..ops.pixelshuffle import pixel_shuffle, pixel_unshuffle
 from .arch import SearchSpace
 
 
@@ -78,19 +78,34 @@ class ConvBN(nn.Module):
 
 
 class ConvLayer(ConvBN):
-    """Static conv -> BN -> [PixelShuffle(2)] (the shuffle takes the
-    reference's activation slot, after conv + BN; the S4 net has no other
-    activation there). `icnr`: ICNR init of a conv feeding the shuffle."""
+    """Static conv -> BN -> [PixelShuffle(2) | PixelUnshuffle(2)] (the
+    shuffle takes the reference's activation slot, after conv + BN; the SR
+    nets have no other activation there). `icnr`: ICNR init of a conv
+    feeding the shuffle."""
 
     def __init__(self, in_ch, out_ch, kernel_size, *, generator, icnr=False):
         init = icnr_conv_init if icnr else conv_init
         super().__init__(init(kernel_size, in_ch, out_ch, generator=generator))
 
-    def forward(self, x, *, shuffle=False, bn_training=False, use_kernels=False,
+    def forward(self, x, *, shuffle=None, bn_training=False, use_kernels=False,
                 compute_dtype=None):
+        """`shuffle`: None, "shuffle" or "unshuffle" (the JAX package's
+        `conv_layer_apply` slot)."""
         y = bn_apply(conv2d(x, cast(self.conv.weight, compute_dtype)), self.bn,
                      bn_training=bn_training, use_kernels=use_kernels)
-        return pixel_shuffle(y, 2) if shuffle else y
+        return shuffle_slot(y, shuffle)
+
+
+def shuffle_slot(y, shuffle):
+    """The pixel (un)shuffle slot after conv + BN: None, "shuffle" or
+    "unshuffle", by 2."""
+    if shuffle is None:
+        return y
+    if shuffle == "shuffle":
+        return pixel_shuffle(y, 2)
+    if shuffle == "unshuffle":
+        return pixel_unshuffle(y, 2)
+    raise ValueError("shuffle must be None, 'shuffle' or 'unshuffle', got %r" % (shuffle,))
 
 
 class DynamicMBConvLayer(nn.Module):

@@ -1,5 +1,6 @@
 """Materialize a static subnet from the supernet weight banks: the serving
-path. Counterpart of ofa_sr_tpu/models/materialize.py (`mode="sr"`).
+path. Counterpart of ofa_sr_tpu/models/materialize.py, for the S4 net and
+for the X4 net in `mode="sr"` and `mode="autoencoder"`.
 
 Slice the active kernel (through the transform chain), the active middle
 channels and the BN prefix into concrete tensors, optionally fold eval-mode
@@ -8,10 +9,10 @@ b' = beta - mean*gamma/sqrt(var+eps)), and run frames through the small
 static net.
 
 `use_kernels` (default: on for a CUDA net with folded BN) routes every MBConv
-block through the fused MBConv kernel and every shuffle layer through the
-fused conv5x5+PixelShuffle kernel (ops/kernels/). As in the JAX package, the
-kernels need folded BN (asking for them with `fold_bn=False` raises), and
-they turn `fold_tail` off.
+block through the fused MBConv kernel and every 5x5 shuffle layer (the
+S4's) through the fused conv5x5+PixelShuffle kernel (ops/kernels/). As in
+the JAX package, the kernels need folded BN (asking for them with
+`fold_bn=False` raises), and the tail kernel turns `fold_tail` off.
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ import torch
 from ..ops.activations import apply_act
 from ..ops.conv import conv2d, depthwise_conv2d
 from ..ops.kernels import fused_mbconv_infer, fused_shuffle_tail
+from ..ops.kernels.shuffle_tail import KS as SHUFFLE_TAIL_KS
 from ..ops.norm import batch_norm
-from ..ops.pixelshuffle import pixel_shuffle
-from .arch import SearchSpace, SubnetConfig
+from ..ops.pixelshuffle import pixel_shuffle, pixel_unshuffle
+from .arch import SearchSpace, SubnetConfig, check_n_trunks
+from .layers import shuffle_slot
 
 
 def _slice_bn(bn, n=None):
@@ -115,15 +118,30 @@ def _kernel_mbconv_args(bp):
 
 
 class StaticSubnet:
-    """A concrete (non-elastic) SR net sliced out of an OFAMobileNetS4."""
+    """A concrete (non-elastic) SR net sliced out of an OFAMobileNetS4, or
+    out of an OFAMobileNetX4: its decoder (`mode="sr"`, on the decoder
+    trunk) or its encoder and decoder (`mode="autoencoder"`, on an HR
+    input).
+
+    `fold_tail` (with folded BN) runs the output conv before the last
+    pixel shuffle, and in autoencoder mode each unshuffle conv after its
+    unshuffle, as convs with folded weights at the lower resolution (exact,
+    see `_fold_conv_through_shuffle`). On an S4 net the shuffle-tail kernel
+    consumes that tail, so the kernels turn the fold off (the JAX package's
+    rule). The tail kernel is 5x5 only, in both packages, and the X4's
+    shuffle convs are 3x3: they run conv2d + pixel_shuffle, so on an X4 net
+    `fold_tail` depends on `fold_bn` and `pixel_d` alone, and the kernels
+    reach its MBConv blocks only."""
 
     def __init__(self, net, cfg: SubnetConfig, *, fold_bn: bool = True,
                  mode: str = "sr", use_kernels: Optional[bool] = None,
                  fold_tail: bool = True):
-        if mode != "sr":
-            raise NotImplementedError(
-                "mode=%r (the X4 autoencoder) is not ported yet" % mode)
+        if mode not in ("sr", "autoencoder"):
+            raise ValueError("mode must be 'sr' or 'autoencoder', got %r" % (mode,))
+        if mode == "autoencoder" and net.n_trunks != 2:
+            raise ValueError("mode='autoencoder' needs an OFAMobileNetX4 (an encoder)")
         sp = self.space = net.space
+        check_n_trunks(sp, cfg, net.n_trunks)
         self.cfg = cfg
         self.pixel_d = cfg.pixel_d
         self.fold_bn = fold_bn
@@ -131,42 +149,41 @@ class StaticSubnet:
         self.eps = net.dec_first_conv_block.bn.eps
         self.device = net.device
         # the kernels take folded BN (the JAX package's `use_pallas and
-        # fold_bn`), and consume the tail the fold would rewrite
+        # fold_bn`)
         if use_kernels is None:
             use_kernels = self.device.type == "cuda" and fold_bn
         elif use_kernels and not fold_bn:
             raise ValueError("use_kernels=True needs fold_bn=True: the fused "
                              "kernels take BN-folded weights")
         self.use_kernels = use_kernels
+        self.tail_kernel = use_kernels and net.CONV_KS == SHUFFLE_TAIL_KS
         self.fold_tail = (fold_tail and fold_bn and self.pixel_d >= 1
-                          and not self.use_kernels)
+                          and not self.tail_kernel)
 
         fb = dict(fold_bn=fold_bn, eps=self.eps)
         m = {}
         with torch.no_grad():
+            if mode == "autoencoder":
+                m["enc_unshuffle"] = [_channels_last(_materialize_conv_layer(layer, **fb))
+                                      for layer in net.unshuffle_blocks[:self.pixel_d]]
+                m["enc_stages"] = self._trunk(net.enc_blocks, 0, fb)
+                m["enc_final"] = [_channels_last(_materialize_conv_layer(layer, **fb))
+                                  for layer in net.enc_final_conv_blocks]
+                if self.fold_tail:
+                    # unshuffle(conv(x, w)) == conv(unshuffle(x), W'): the
+                    # decoder fold on z = unshuffle(x), unshuffled on both
+                    # sides
+                    m["enc_unshuffle_folded"] = [
+                        _channels_last(dict(zip(("w", "b"), _fold_conv_through_shuffle(
+                            lp["w"], lp["b"])))) for lp in m["enc_unshuffle"]]
             m["dec_first"] = _materialize_conv_layer(net.dec_first_conv_block, **fb)
-            stages = []
-            for stage in range(sp.n_stages):
-                blocks = []
-                for i in range(cfg.d[stage]):
-                    bi = stage * sp.max_depth + i
-                    bp = _materialize_mbconv(
-                        net.blocks[bi].mobile_inverted_conv, sp, cfg.ks[bi],
-                        cfg.e[bi], **fb)
-                    if self.use_kernels:
-                        bp = {"ks": bp["ks"], "mid": bp["mid"],
-                              "kernel": _kernel_mbconv_args(bp)}
-                    else:
-                        bp.update({k: _channels_last(bp[k]) for k in ("ib", "dw", "pl")})
-                    blocks.append(bp)
-                stages.append(blocks)
-            m["dec_stages"] = stages
+            m["dec_stages"] = self._trunk(net.dec_blocks, net.n_trunks - 1, fb)
             m["dec_final"] = [_channels_last(_materialize_conv_layer(layer, **fb))
                               for layer in net.dec_final_conv_blocks]
             shuffle = []
             for layer in net.shuffle_blocks[:self.pixel_d]:
                 lp = _materialize_conv_layer(layer, **fb)
-                if self.use_kernels:
+                if self.tail_kernel:
                     # the tail kernel's HWIO (5,5,C,4C) operand
                     lp = {"w_hwio": lp["w"].permute(2, 3, 1, 0).contiguous(),
                           "b": lp["b"].contiguous()}
@@ -178,11 +195,32 @@ class StaticSubnet:
                 _materialize_conv_layer(net.dec_final_output_conv_block, **fb))
             if self.fold_tail:
                 # the output conv runs before the last pixel_shuffle as a
-                # 3x3 256->12 conv at LR: exact, see _fold_conv_through_shuffle
+                # conv with 4x the channels at LR: exact, see
+                # _fold_conv_through_shuffle
                 wf, bf = _fold_conv_through_shuffle(m["dec_out"]["w"],
                                                     m["dec_out"]["b"])
                 m["dec_out_folded"] = _channels_last({"w": wf, "b": bf})
         self.params = m
+
+    def _trunk(self, blocks, trunk, fb):
+        """Trunk `trunk`'s active MBConv blocks by stage, sliced (and, with
+        the kernels, as the MBConv kernel's operands)."""
+        sp, cfg = self.space, self.cfg
+        base_b, base_s = trunk * sp.blocks_per_trunk, trunk * sp.n_stages
+        stages = []
+        for stage in range(sp.n_stages):
+            active = []
+            for i in range(cfg.d[base_s + stage]):
+                bi = stage * sp.max_depth + i
+                bp = _materialize_mbconv(blocks[bi].mobile_inverted_conv, sp,
+                                         cfg.ks[base_b + bi], cfg.e[base_b + bi], **fb)
+                if self.use_kernels:
+                    bp = {"ks": bp["ks"], "mid": bp["mid"], "kernel": _kernel_mbconv_args(bp)}
+                else:
+                    bp.update({k: _channels_last(bp[k]) for k in ("ib", "dw", "pl")})
+                active.append(bp)
+            stages.append(active)
+        return stages
 
     # -- forward ---------------------------------------------------------------
 
@@ -195,9 +233,8 @@ class StaticSubnet:
                            eps=self.eps)
         return apply_act(y, act)
 
-    def _conv_layer(self, lp, x, *, shuffle=False):
-        y = self._post(lp, conv2d(x, lp["w"]))
-        return pixel_shuffle(y, 2) if shuffle else y
+    def _conv_layer(self, lp, x, *, shuffle=None):
+        return shuffle_slot(self._post(lp, conv2d(x, lp["w"])), shuffle)
 
     def _mbconv(self, bp, x):
         """One MBConv block with its identity shortcut."""
@@ -208,12 +245,34 @@ class StaticSubnet:
         y = self._post(bp["pl"], conv2d(y, bp["pl"]["w"]))
         return y + x
 
+    def _encode(self, x):
+        m = self.params
+        for ei, lp in enumerate(m["enc_unshuffle"]):
+            if self.fold_tail:
+                fold = m["enc_unshuffle_folded"][ei]
+                x = conv2d(pixel_unshuffle(x, 2), fold["w"]) + fold["b"]
+            else:
+                x = self._conv_layer(lp, x, shuffle="unshuffle")
+        skip = x
+        for stage in m["enc_stages"]:
+            for bp in stage:
+                x = self._mbconv(bp, x)
+        for i, lp in enumerate(m["enc_final"]):
+            x = self._conv_layer(lp, x)
+            if i == 0:
+                x = x + skip
+        return x
+
     def __call__(self, x, row_valid=None):
-        """x: the LR frame(s), NHWC float32 on the subnet's device."""
+        """x: the LR frame(s) (`mode="sr"`) or the HR frame(s)
+        (`mode="autoencoder"`), NHWC float32 on the subnet's device."""
         if row_valid is not None:
             raise NotImplementedError(
-                "row_valid (spatial-parallel inference) is not ported yet")
+                "row_valid (spatial-parallel inference) is not ported yet: ROADMAP queue 1 "
+                "item 10")
         m = self.params
+        if self.mode == "autoencoder":
+            x = self._encode(x)
         x = self._conv_layer(m["dec_first"], x)
         skip = x
         for stage in m["dec_stages"]:
@@ -230,10 +289,10 @@ class StaticSubnet:
                 x = self._conv_layer(lp, x)
                 fold = m["dec_out_folded"]
                 return pixel_shuffle(conv2d(x, fold["w"]) + fold["b"], 2)
-            if self.use_kernels:
+            if self.tail_kernel:
                 x = fused_shuffle_tail(x, lp["w_hwio"], lp["b"])
             else:
-                x = self._conv_layer(lp, x, shuffle=True)
+                x = self._conv_layer(lp, x, shuffle="shuffle")
         return self._conv_layer(m["dec_out"], x)
 
 

@@ -27,13 +27,14 @@ from torch import nn
 
 from ..ops.elastic import spatial_valid_mask
 from ..utils.device import resolve_device
-from .arch import SearchSpace, SubnetConfig
+from .arch import SearchSpace, SubnetConfig, check_n_trunks
 from .layers import ConvLayer, DynamicMBConvLayer, MobileInvertedResidualBlock
 
 
 class OFAMobileNetS4(nn.Module):
     CONV_KS = 5
     IN_CH = 3
+    n_trunks = 1
 
     def __init__(self, space: Optional[SearchSpace] = None, *, device="cuda",
                  generator: Optional[torch.Generator] = None, icnr: bool = False):
@@ -68,13 +69,19 @@ class OFAMobileNetS4(nn.Module):
         return self.dec_first_conv_block.conv.weight.device
 
     @property
+    def dec_blocks(self):
+        return list(self.blocks)[:self.n_mb]
+
+    @property
     def shuffle_blocks(self):
         return list(self.blocks)[self.n_mb:]
 
-    def forward(self, x, cfg: SubnetConfig, pixel_d: int, *,
+    def forward(self, x, cfg: SubnetConfig, pixel_d: int, *, mode: str = "sr",
                 bn_training: Optional[bool] = None, use_kernels: Optional[bool] = None,
                 compute_dtype: Optional[torch.dtype] = None, valid_hw=None):
-        """Forward of subnet `cfg` on NHWC `x`; 2^pixel_d upscale.
+        """Forward of subnet `cfg` on NHWC `x`; 2^pixel_d upscale. `mode`
+        is "sr", the only one of this decoder-only net (the X4 net's
+        interface).
 
         BN runs in train mode (batch moments, running statistics updated in
         place) when `bn_training`, which defaults to `self.training`;
@@ -94,42 +101,73 @@ class OFAMobileNetS4(nn.Module):
         region equals the unpadded frame's output. Eval-mode BN only (batch
         moments would include the pad): raises under train-mode BN.
         """
-        if bn_training is None:
-            bn_training = self.training
-        if use_kernels is None:
-            use_kernels = self.device.type == "cuda"
-        kw = dict(bn_training=bn_training, use_kernels=use_kernels, compute_dtype=compute_dtype)
-        sp = self.space
-        if compute_dtype is not None:
-            x = x.to(compute_dtype)
-        smask = None
-        if valid_hw is not None:
-            if bn_training:
-                raise ValueError("bucketed eval (valid_hw) is eval-mode only: train-mode BN "
-                                 "moments would include the pad")
-            smask = spatial_valid_mask(valid_hw[0], valid_hw[1], x.shape[1], x.shape[2],
-                                       x.dtype, x.device)
+        if mode != "sr":
+            raise ValueError("OFAMobileNetS4 has the decoder only: mode=%r needs an "
+                             "OFAMobileNetX4" % (mode,))
+        x, kw = forward_args(self, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw)
+        return sr_decode(self, x, cfg, pixel_d, trunk=0, valid_hw=valid_hw, **kw)
 
-        def masked(t):
-            return t if smask is None else t * smask
 
-        x = masked(self.dec_first_conv_block(x, **kw))
-        skip = x
-        for stage in range(sp.n_stages):
-            for i in range(cfg.d[stage]):
-                bi = stage * sp.max_depth + i
-                x = self.blocks[bi](x, cfg.ks[bi], sp.mid_channels(cfg.e[bi]),
-                                    spatial_mask=smask, **kw)
-        x = masked(x)  # the point-linear BN bias leaked into the pad
-        for i, layer in enumerate(self.dec_final_conv_blocks):
-            x = masked(layer(x, **kw))
-            if i == 0:
-                x = x + skip
-        for i, layer in enumerate(self.shuffle_blocks[:pixel_d]):
-            x = layer(x, shuffle=True, **kw)
-            if smask is not None:  # resolution doubled: the mask at the new shape
-                f = 2 ** (i + 1)
-                smask = spatial_valid_mask(valid_hw[0] * f, valid_hw[1] * f, x.shape[1],
-                                           x.shape[2], x.dtype, x.device)
-                x = x * smask
-        return masked(self.dec_final_output_conv_block(x, **kw))
+def forward_args(net, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw):
+    """A supernet forward's checks and defaults: `cfg` sampled for the net's
+    trunk count; train-mode BN by default on a training net; the kernels by
+    default on a CUDA net; x cast to `compute_dtype`; no `valid_hw` under
+    train-mode BN. Returns (x, the layers' keyword arguments)."""
+    check_n_trunks(net.space, cfg, net.n_trunks)
+    if bn_training is None:
+        bn_training = net.training
+    if use_kernels is None:
+        use_kernels = net.device.type == "cuda"
+    if valid_hw is not None and bn_training:
+        raise ValueError("bucketed eval (valid_hw) is eval-mode only: train-mode BN "
+                         "moments would include the pad")
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    return x, dict(bn_training=bn_training, use_kernels=use_kernels, compute_dtype=compute_dtype)
+
+
+def run_trunk(blocks, x, cfg, space, trunk, *, spatial_mask=None, **kw):
+    """The elastic stages of trunk `trunk` (its MBConv `blocks`): the first
+    `d` blocks of each stage run, with ks and e read from the trunk's slice
+    of `cfg` (block entries from trunk * blocks_per_trunk, depths from
+    trunk * n_stages, as the JAX package's `_trunk`)."""
+    base_b, base_s = trunk * space.blocks_per_trunk, trunk * space.n_stages
+    for stage in range(space.n_stages):
+        for i in range(cfg.d[base_s + stage]):
+            bi = stage * space.max_depth + i
+            x = blocks[bi](x, cfg.ks[base_b + bi], space.mid_channels(cfg.e[base_b + bi]),
+                           spatial_mask=spatial_mask, **kw)
+    return x
+
+
+def sr_decode(net, x, cfg, pixel_d, *, trunk, valid_hw=None, **kw):
+    """The SR decoder of `net` (an S4 net, or an X4 net's decoder, whose
+    modules have the same names) on `x` prepared by `forward_args`: first
+    conv, the trunk `trunk`, the two final convs with the long skip, the
+    first `pixel_d` shuffle blocks and the output conv. `valid_hw`: the
+    real frame's (h, w) in `x`, the pad re-zeroed before every spatial
+    conv."""
+    smask = None
+    if valid_hw is not None:
+        smask = spatial_valid_mask(valid_hw[0], valid_hw[1], x.shape[1], x.shape[2],
+                                   x.dtype, x.device)
+
+    def masked(t):
+        return t if smask is None else t * smask
+
+    x = masked(net.dec_first_conv_block(x, **kw))
+    skip = x
+    x = run_trunk(net.dec_blocks, x, cfg, net.space, trunk, spatial_mask=smask, **kw)
+    x = masked(x)  # the point-linear BN bias leaked into the pad
+    for i, layer in enumerate(net.dec_final_conv_blocks):
+        x = masked(layer(x, **kw))
+        if i == 0:
+            x = x + skip
+    for i, layer in enumerate(net.shuffle_blocks[:pixel_d]):
+        x = layer(x, shuffle="shuffle", **kw)
+        if smask is not None:  # resolution doubled: the mask at the new shape
+            f = 2 ** (i + 1)
+            smask = spatial_valid_mask(valid_hw[0] * f, valid_hw[1] * f, x.shape[1],
+                                       x.shape[2], x.dtype, x.device)
+            x = x * smask
+    return masked(net.dec_final_output_conv_block(x, **kw))

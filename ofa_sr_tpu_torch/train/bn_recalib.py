@@ -14,7 +14,8 @@ sentinel, so after it a touched statistic holds exactly that batch's moment
 and an untouched one the sentinel; the weighted sums then keep the original
 wherever the sentinel survived. The reference calibrates on the HR image
 ("image") even for SR nets; pass `input_key` "x2" / "x4" for the input
-resolution.
+resolution. `mode` is the net's forward's ("autoencoder": an X4 net's
+encoder and decoder).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from torch import nn
 _SENTINEL = 1e30
 
 
-def bn_recalibrate(net, cfg, pixel_d, batches, *, input_key="image", use_kernels=None):
+def bn_recalibrate(net, cfg, pixel_d, batches, *, input_key="image", use_kernels=None,
+                   mode="sr"):
     """Recalibrate `net`'s running statistics in place for subnet `cfg` at
     `pixel_d` over `batches` (dicts of numpy arrays or tensors)."""
     bns = [m for m in net.modules() if isinstance(m, nn.BatchNorm2d)]
@@ -40,7 +42,7 @@ def bn_recalibrate(net, cfg, pixel_d, batches, *, input_key="image", use_kernels
                 for m in bns:
                     m.running_mean.fill_(_SENTINEL)
                     m.running_var.fill_(_SENTINEL)
-                net(x, cfg, pixel_d, bn_training=True, use_kernels=use_kernels)
+                net(x, cfg, pixel_d, bn_training=True, use_kernels=use_kernels, mode=mode)
                 w = x.shape[0]
                 st = [t * w for m in bns for t in (m.running_mean, m.running_var)]
                 total = st if total is None else [a + b for a, b in zip(total, st)]

@@ -10,10 +10,10 @@ reference `.pth.tar` or a raw state_dict: the port's state_dict has the
 reference layout.
 
 The bridge (counterpart of the torch-interop half, whose `import_torch_s4`
-reads the port's `state_dict()` unchanged) goes the other direction: the
-JAX package's `(params, state)` for OFAMobileNetS4, as numpy arrays (or
-anything `np.asarray` takes), become a state_dict that
-`OFAMobileNetS4.load_state_dict` accepts. Conv kernels HWIO -> OIHW;
+and `import_torch_x4` read the port's `state_dict()` unchanged) goes the
+other direction: the JAX package's `(params, state)` for OFAMobileNetS4 or
+OFAMobileNetX4, as numpy arrays (or anything `np.asarray` takes), become a
+state_dict that the port's net's `load_state_dict` accepts. Conv kernels HWIO -> OIHW;
 depthwise [k,k,1,C] -> [C,1,k,k]; BN scale/bias/mean/var ->
 weight/bias/running_mean/running_var.
 """
@@ -155,4 +155,25 @@ def s4_state_dict_from_jax(params, state):
     _put_conv_layer(sd, "dec_final_output_conv_block",
                     params["dec_final_output_conv_block"],
                     state["dec_final_output_conv_block"])
+    return sd
+
+
+def x4_state_dict_from_jax(params, state):
+    """JAX OFAMobileNetX4 (params, state) -> the port's state_dict, in the
+    reference layout `import_torch_x4` reads: `blocks` = [unshuffle convs,
+    encoder MBConv blocks, decoder MBConv blocks, shuffle convs]."""
+    sd = {}
+    layout = [(params[k], state[k], put) for k, put in (
+        ("enc_unshuffle_blocks", _put_conv_layer), ("enc_blocks", _put_mbconv),
+        ("dec_blocks", _put_mbconv), ("shuffle_blocks", _put_conv_layer))]
+    bi = 0
+    for ps, ss, put in layout:
+        for p, s in zip(ps, ss):
+            put(sd, "blocks.%d" % bi, p, s)
+            bi += 1
+    for key in ("enc_final_conv_blocks", "dec_final_conv_blocks"):
+        for i, (p, s) in enumerate(zip(params[key], state[key])):
+            _put_conv_layer(sd, "%s.%d" % (key, i), p, s)
+    for key in ("dec_first_conv_block", "dec_final_output_conv_block"):
+        _put_conv_layer(sd, key, params[key], state[key])
     return sd

@@ -1,6 +1,6 @@
 """Run management: the run config and the SR training / validation
-orchestrator (counterpart of ofa_sr_tpu/train/run_manager.py, S4 in
-`mode="sr"`).
+orchestrator (counterpart of ofa_sr_tpu/train/run_manager.py): an S4 net,
+or an X4 net in `mode="sr"` (its decoder) or `mode="autoencoder"`.
 
 `SRRunManager` owns one run of a supernet: it samples subnets on the host
 under the reference seed contract, feeds the provider's numpy batches to
@@ -14,8 +14,11 @@ a step adds no host-device synchronisation.
 
 Left out of the JAX package's RunConfig: the XLA-only execution levers
 (`steps_per_dispatch`, `remat`, `ks_switch`, `dw_switch`, `dw_align`,
-`s2d`; ROADMAP queue 1 item 14). A mesh waits for item 10 and
-`mode="autoencoder"` for item 9; both raise.
+`s2d`; ROADMAP queue 1 item 14). A mesh waits for item 10 and raises.
+
+One difference from the JAX package: `reset_running_statistics` of an
+autoencoder run recalibrates in autoencoder mode, as `validate` does; the
+JAX package's runs the X4 net's decoder alone there, on the HR frame.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..models.arch import (
     SubnetConfig,
     max_subnet,
     reference_quirk_arch_s4,
+    reference_quirk_arch_x4,
     sample_subnet,
     subnet_seed,
     uniform_subnet,
@@ -90,7 +94,7 @@ class RunConfig:
     bn_momentum: float = 0.1
     bn_eps: float = 1e-5
 
-    mode: str = "sr"                      # 'sr' ('autoencoder': queue 1 item 9)
+    mode: str = "sr"                      # 'sr' | 'autoencoder'
     bn_frozen: bool = False               # SR oracle 'BN always eval'
     bn_recalib_before_eval: bool = False  # OFA-canonical eval does recalib
     image_size: int = 96
@@ -120,11 +124,18 @@ def _compute_dtype_of(run_config):
     raise ValueError("unknown compute_dtype %r" % run_config.compute_dtype)
 
 
-def _bucket_pad(batch, pixel_d, bucket):
+def _bucket_pad(batch, pixel_d, bucket, mode="sr"):
     """Zero-pad a variable-shape eval batch's LR frame up to the next
     multiple of `bucket` (and its HR frame to match), recording the real LR
-    size as "valid_hw"."""
+    size as "valid_hw"; in autoencoder mode the HR frame alone, with its
+    size."""
     hr = np.asarray(batch["image"])
+    if mode == "autoencoder":
+        h, w = hr.shape[1], hr.shape[2]
+        hp = np.zeros((hr.shape[0], -(-h // bucket) * bucket, -(-w // bucket) * bucket,
+                       hr.shape[3]), hr.dtype)
+        hp[:, :h, :w] = hr
+        return {"image": hp, "valid_hw": np.asarray([h, w], np.int32)}
     key = "x%d" % (2 ** pixel_d)
     x = np.asarray(batch[key])
     h, w = x.shape[1], x.shape[2]
@@ -139,7 +150,7 @@ def _bucket_pad(batch, pixel_d, bucket):
 
 
 class SRRunManager:
-    """Owns one training run of an OFAMobileNetS4 supernet.
+    """Owns one training run of an OFAMobileNetS4 or OFAMobileNetX4 supernet.
 
     `net` carries its weights (seeded at construction, or loaded); `teacher`
     is (teacher net, its SubnetConfig) for KD when kd_ratio > 0."""
@@ -149,9 +160,6 @@ class SRRunManager:
         if mesh is not None:
             raise NotImplementedError("data-parallel runs over a mesh are not ported yet: "
                                       "ROADMAP queue 1 item 10")
-        if run_config.mode != "sr":
-            raise NotImplementedError("mode=%r (the X4 autoencoder) is not ported yet: ROADMAP "
-                                      "queue 1 item 9" % run_config.mode)
         self.path = path
         self.net = net
         self.run_config = run_config
@@ -170,7 +178,8 @@ class SRRunManager:
             net, opt_type=run_config.opt_type, weight_decay=run_config.weight_decay,
             momentum=run_config.momentum, nesterov=run_config.nesterov,
             clip_grad_norm=run_config.clip_grad_norm, bn_frozen=run_config.bn_frozen,
-            use_kernels=use_kernels, compute_dtype=_compute_dtype_of(run_config), **kd)
+            use_kernels=use_kernels, compute_dtype=_compute_dtype_of(run_config),
+            mode=run_config.mode, **kd)
         self._write_net_info()
 
     def _to_device(self, batch):
@@ -258,6 +267,7 @@ class SRRunManager:
         k=0 is the constraints' max corner (no draw); `fixed_cfg` pins
         every one."""
         sp = self.net.space
+        n_trunks = self.net.n_trunks
         cons = constraints or {}
         rc = self.run_config
         sandwich = rc.sandwich_rule and fixed_cfg is None and rc.dynamic_batch_size >= 2
@@ -271,16 +281,18 @@ class SRRunManager:
                     max(cons.get("ks_candidates") or sp.ks_list),
                     max(cons.get("expand_candidates") or sp.expand_list),
                     max(cons.get("depth_candidates") or sp.depth_list),
-                    max(cons.get("pixel_d_candidates") or sp.pixel_d_list))
+                    max(cons.get("pixel_d_candidates") or sp.pixel_d_list), n_trunks=n_trunks)
             else:
-                cfg = sample_subnet(sp, seed=subnet_seed(epoch, n_batch, batch_idx, k), **cons)
+                cfg = sample_subnet(sp, seed=subnet_seed(epoch, n_batch, batch_idx, k),
+                                    n_trunks=n_trunks, **cons)
             cfgs.append(self._quirk_cfg(cfg))
         return cfgs
 
     def _quirk_cfg(self, cfg):
         if cfg is None or not self.run_config.reference_quirks:
             return cfg
-        return reference_quirk_arch_s4(cfg)
+        return (reference_quirk_arch_x4 if self.net.n_trunks == 2
+                else reference_quirk_arch_s4)(cfg)
 
     # -- train / validate -----------------------------------------------------
 
@@ -294,9 +306,9 @@ class SRRunManager:
         sums, n_seen = None, 0
         t0 = time.time()
         for i, batch in enumerate(loader):
-            if i == 0:
+            if i == 0 and rc.mode != "autoencoder":
                 # a paired dataset emits one xN key: sample only the pixel_d
-                # whose input exists
+                # whose input exists (the autoencoder reads the HR frame)
                 avail = [pd for pd in self.net.space.pixel_d_list
                          if "x%d" % (2 ** pd) in batch]
                 if avail and set(avail) != set(self.net.space.pixel_d_list):
@@ -332,20 +344,20 @@ class SRRunManager:
         after it. `frame_log`: a JSONL file receiving {"frame", "loss",
         "psnr"} per batch."""
         rc = self.run_config
-        cfg = cfg or max_subnet(self.net.space)
+        cfg = cfg or max_subnet(self.net.space, self.net.n_trunks)
         loader = loader if loader is not None else self.provider.test
         saved = None
         if rc.bn_recalib_before_eval and recalib_loader is not None:
             saved = {k: v.clone() for k, v in self.net.state_dict().items() if "running" in k}
             bn_recalibrate(self.net, cfg, cfg.pixel_d, recalib_loader,
-                           use_kernels=self.trainer.use_kernels)
+                           use_kernels=self.trainer.use_kernels, mode=rc.mode)
         step = self.trainer.bucketed_eval_step if rc.eval_bucket else self.trainer.eval_step
         losses, psnrs = AverageMeter(), AverageMeter()
         log_f = open(frame_log, "a") if frame_log else None
         try:
             for fi, batch in enumerate(loader):
                 if rc.eval_bucket:
-                    batch = _bucket_pad(batch, cfg.pixel_d, rc.eval_bucket)
+                    batch = _bucket_pad(batch, cfg.pixel_d, rc.eval_bucket, rc.mode)
                 out = step(self._to_device(batch), cfg)
                 n = batch["image"].shape[0]
                 lo, p = float(out["loss"]), float(out["psnr"])
@@ -422,4 +434,5 @@ class SRRunManager:
         """Recalibrate the running statistics for `cfg` over the provider's
         calibration subset."""
         loader = self.provider.build_sub_train_loader(n_images, batch_size)
-        bn_recalibrate(self.net, cfg, cfg.pixel_d, loader, use_kernels=self.trainer.use_kernels)
+        bn_recalibrate(self.net, cfg, cfg.pixel_d, loader, use_kernels=self.trainer.use_kernels,
+                       mode=self.run_config.mode)

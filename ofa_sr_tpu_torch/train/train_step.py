@@ -1,10 +1,12 @@
 """The multi-subnet SR training step (counterpart of
-ofa_sr_tpu/train/train_step.py `SRTrainer`, `mode="sr"`).
+ofa_sr_tpu/train/train_step.py `SRTrainer`).
 
 Per optimizer step, as the reference trainer does:
 - each of the K sampled subnets computes its loss on the LR input its
-  pixel_d selects (`batch["x%d" % 2**pixel_d]`) and calls `backward`, so the
-  gradients accumulate; then one optimizer step;
+  pixel_d selects (`batch["x%d" % 2**pixel_d]`; an X4 net runs its decoder
+  on it), or with `mode="autoencoder"` (an X4 net) on the HR frame
+  `batch["image"]` through the encoder and the decoder, and calls
+  `backward`, so the gradients accumulate; then one optimizer step;
 - the loss is MSE against `batch["image"]`, or with KD against a teacher's
   eval forward `(r * kd + mse) * 2 / (r + 1)`;
 - BN runs in train mode and its running statistics thread through the
@@ -35,19 +37,26 @@ from .optim import build_optimizer
 
 
 class SRTrainer:
-    """Train / eval steps for an OFAMobileNetS4 supernet.
+    """Train / eval steps for an OFAMobileNetS4 or OFAMobileNetX4 supernet.
 
-    teacher: optional (teacher net, its SubnetConfig, its pixel_d) for KD;
-    it runs in eval mode under no_grad. use_kernels (default: on for a CUDA
-    net) takes train-mode BN through the BN-statistics kernels.
-    compute_dtype: None (float32) or the mixed-precision type, torch.bfloat16.
+    mode: "sr" (an LR input; an X4 net runs its decoder alone) or
+    "autoencoder" (an X4 net on the HR frame). teacher: optional (teacher
+    net, its SubnetConfig, its pixel_d) for KD; it runs in eval mode under
+    no_grad. use_kernels (default: on for a CUDA net) takes train-mode BN
+    through the BN-statistics kernels. compute_dtype: None (float32) or the
+    mixed-precision type, torch.bfloat16.
     """
 
     def __init__(self, net, *, opt_type="adam", weight_decay=3e-5, momentum=0.9,
                  nesterov=True, clip_grad_norm=None, kd_ratio=0.0,
                  bn_frozen=False, teacher=None, use_kernels: Optional[bool] = None,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, mode: str = "sr"):
+        if mode not in ("sr", "autoencoder"):
+            raise ValueError("mode must be 'sr' or 'autoencoder', got %r" % (mode,))
+        if mode == "autoencoder" and net.n_trunks != 2:
+            raise ValueError("mode='autoencoder' needs an OFAMobileNetX4 (an encoder)")
         self.net = net
+        self.mode = mode
         self.kd_ratio = kd_ratio
         self.bn_frozen = bn_frozen
         self.clip_grad_norm = clip_grad_norm
@@ -59,10 +68,14 @@ class SRTrainer:
                             else use_kernels)
         self.opt = build_optimizer(net, opt_type, weight_decay, momentum, nesterov)
 
+    def _input(self, batch, pixel_d):
+        return batch["image"] if self.mode == "autoencoder" else batch["x%d" % 2 ** pixel_d]
+
     def _forward(self, batch, cfg, *, bn_training):
         pd = cfg.pixel_d
-        return self.net(batch["x%d" % 2 ** pd], cfg, pd, bn_training=bn_training,
-                        use_kernels=self.use_kernels, compute_dtype=self.compute_dtype)
+        return self.net(self._input(batch, pd), cfg, pd, bn_training=bn_training,
+                        use_kernels=self.use_kernels, compute_dtype=self.compute_dtype,
+                        mode=self.mode)
 
     def _subnet_loss(self, batch, cfg, teacher_out):
         out = self._forward(batch, cfg, bn_training=not self.bn_frozen).float()
@@ -79,6 +92,9 @@ class SRTrainer:
         if not (self.kd_ratio > 0):
             return None
         t_net, t_cfg, t_pd = self.teacher
+        # the teacher runs its default mode on the LR input whatever the
+        # student's mode (an X4 teacher: its decoder alone), as the JAX
+        # package's step calls `teacher_net.apply`
         with torch.no_grad():
             return t_net(batch["x%d" % 2 ** t_pd], t_cfg, t_pd, bn_training=False).float()
 
@@ -116,17 +132,19 @@ class SRTrainer:
     def bucketed_eval_step(self, batch, cfg):
         """Shape-bucketed evaluation (the JAX `make_bucketed_eval_step`): the
         batch holds zero-padded frames and "valid_hw", the (h, w) of the real
-        LR frame; loss and PSNR-Y average over the valid HR region only.
-        Like the JAX step, it runs the float32 weights whatever
-        `compute_dtype` is (that step calls `net.apply` on the master
-        params), so PSNR-Y is formed in float32."""
+        input frame (the LR frame; the HR frame in autoencoder mode, its
+        sides multiples of 2^pixel_d); loss and PSNR-Y average over the
+        valid HR region only. Like the JAX step, it runs the float32 weights
+        whatever `compute_dtype` is (that step calls `net.apply` on the
+        master params), so PSNR-Y is formed in float32."""
         pd = cfg.pixel_d
         vh, vw = (int(v) for v in batch["valid_hw"])
+        scale = 1 if self.mode == "autoencoder" else 2 ** pd
         with torch.no_grad():
-            out = self.net(batch["x%d" % 2 ** pd], cfg, pd, bn_training=False,
-                           use_kernels=self.use_kernels, valid_hw=(vh, vw))
+            out = self.net(self._input(batch, pd), cfg, pd, bn_training=False,
+                           use_kernels=self.use_kernels, valid_hw=(vh, vw), mode=self.mode)
             hr = batch["image"]
-            mask = spatial_valid_mask(vh * 2 ** pd, vw * 2 ** pd, hr.shape[1], hr.shape[2],
+            mask = spatial_valid_mask(vh * scale, vw * scale, hr.shape[1], hr.shape[2],
                                       hr.dtype, hr.device)
             loss = (torch.square(out - hr) * mask).sum() / (mask.sum() * hr.shape[0]
                                                            * hr.shape[-1])

@@ -107,7 +107,7 @@ def test_eval_validate_and_materialize(teacher_run, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [(["--export", "x.bin"], 13), (["--tile", "8"], 10),
                                         (["--tile_mesh"], 10), (["--spatial_mesh"], 10),
-                                        (["--x4_autoencoder"], 9)])
+                                        (["--x4_autoencoder", "--tile", "8"], 10)])
 def test_eval_refuses_unported(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match="item %d" % item):
         _eval(tmp_path, *flags)

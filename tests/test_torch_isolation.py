@@ -24,7 +24,8 @@ def test_importing_the_port_loads_no_jax():
     for m in ("ops.kernels.mbconv", "ops.kernels.bn_stats", "ops.kernels.bn", "ops.norm",
               "data.providers", "data.transforms", "data.datasets",
               "train.run_manager", "train.bn_recalib", "cli.common",
-              "cli.train_teacher_net_sr_simple", "cli.eval_ofa_net_sr"):
+              "cli.train_teacher_net_sr_simple", "cli.eval_ofa_net_sr", "models.ofa_x4",
+              "models.reorganize", "train.shrink", "cli.train_ofa_net_sr_simple"):
         assert "ofa_sr_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

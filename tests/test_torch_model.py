@@ -152,12 +152,17 @@ def test_fold_conv_through_shuffle_matches_jax():
 
 
 def test_unported_modes_raise(nets):
+    """row_valid is not ported (item 10); an S4 net has no encoder for
+    mode="autoencoder" (the X4's, tests/test_torch_x4.py), and an X4-length
+    subnet is refused."""
     _, _, _, tnet = nets
     cfg = uniform_subnet(tnet.space, 5, 4, 2, 1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="OFAMobileNetX4"):
         get_active_subnet(tnet, cfg, mode="autoencoder")
+    with pytest.raises(ValueError, match="n_trunks=1"):
+        get_active_subnet(tnet, uniform_subnet(tnet.space, 5, 4, 2, 1, n_trunks=2))
     sub = get_active_subnet(tnet, cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 10"):
         sub(torch.zeros(1, 4, 4, 3), row_valid=(0, 4))
 
 
