@@ -95,6 +95,37 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    a pixelshuffle_depth stage in sr mode warm-started from it, and the
    evaluator with `--x4_autoencoder --materialize` from that checkpoint
    (16 MBConv launches a frame, PSNR-Y within 1e-3 dB of the plain path).
+8. (run after phase 7, before phase 6's timings and profiles) Large frames
+   and data parallelism: (a) the MBConv kernel with row bounds at (1, 180,
+   320, 64), k 7, e 6, against its plain version for bounds inside, one
+   row, empty and past the frame, (0, H) the unbounded call's bits, ms a
+   launch with and without bounds; (b) the S4's ks7/e6/d2/pixel_d 2 subnet
+   on an LR 270x480 frame and the X4 autoencoder's on a true 1080x1920
+   frame, full width, through the kernels, each row-padded (280 and 1088
+   rows) with row_valid against the unpadded frame (max |diff| at most
+   1e-5 of the frame's max |value|), MBConv and tail launches counted; (c)
+   tiled_sr_infer on both frames with the receptive-field halo, against
+   the full frame at that bound; frame ms full, row-padded, tiled; (d) two
+   ranks (this script again, `--mesh-rank`) sharing the card over gloo
+   (gloo takes CUDA tensors for all_reduce and broadcast, the only
+   collectives the port uses, and NCCL refuses two ranks on one GPU):
+   make_spatial_infer and tiled_sr_infer_mesh on (b)'s frames against
+   (b)'s full and (c)'s tiled frames, then entry.train with the mesh, 4
+   one-subnet steps at the global bs16 96 px (8 rows a rank) in float32 and
+   in bf16, against phase 4's one-process runs (losses rtol 1e-4 / 1e-2),
+   the ranks' parameters equal bit for bit, and each rank's BN wrappers of
+   the mesh route (col_sums2's pass 1, bn_bwd_sums, and the apply entry
+   points bn_forward_from_sums / bn_backward_from_sums) launched
+   3*sum(d) + pixel_d + 4 times a subnet, the fused bn_forward and
+   bn_backward never; MBConv and tail launches held on each rank to one
+   subnet run a slab (spatial) and one a window of its share
+   (tiled_sr_infer_mesh), and in (c) to one a window; (e) one process over
+   NCCL at world 1: the mesh BN route's bits equal to the fused call's (y, mean,
+   var, inv, running statistics; dx, dscale, dbias) at every path BN shape
+   in float32 and bf16, the apply entry points against their plain
+   versions, the all-reduce's ms a BN, and ms a step of the trainer with
+   and without the mesh. The two-rank timings on one card are no measure of
+   multi-GPU speed.
 
 Float32 with TF32 off for cuDNN and matmuls, so the card's numbers compare
 with the CPU's, apart from the bf16 training runs; the shuffle-tail and
@@ -106,6 +137,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -146,11 +178,15 @@ from ofa_sr_tpu_torch.ops.kernels import _build  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.bn import bn_train_fused  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.bn_stats import (  # noqa: E402
     bn_backward,
+    bn_backward_from_sums,
+    bn_backward_from_sums_reference,
     bn_backward_reference,
     bn_bwd_sums,
     bn_bwd_sums_reference,
     bn_forward,
     bn_forward_from_moments,
+    bn_forward_from_sums,
+    bn_forward_from_sums_reference,
     bn_forward_reference,
     bn_moments,
     bn_moments_reference,
@@ -163,8 +199,15 @@ from ofa_sr_tpu_torch.ops.kernels.shuffle_tail import (  # noqa: E402
     shuffle_tail_reference,
 )
 from ofa_sr_tpu_torch.ops.norm import batch_norm_train  # noqa: E402
+from rank_launch import free_port, launch  # noqa: E402
 from ofa_sr_tpu_torch.train import RunConfig, SRRunManager, SRTrainer  # noqa: E402
 from ofa_sr_tpu_torch.train.checkpoint import load_weights_lenient  # noqa: E402
+from ofa_sr_tpu_torch.train.tiled_infer import (  # noqa: E402
+    receptive_field_radius,
+    receptive_field_radius_autoencoder,
+    tiled_sr_infer,
+    tiled_sr_infer_mesh,
+)
 from ofa_sr_tpu_torch.utils.metrics import psnr_y_device  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
@@ -214,7 +257,8 @@ BN_KERNELS = (bn_forward, bn_backward)
 BN_OFF_PATH = (col_sums2, bn_moments)
 # the __global__ functions of csrc/*.cu, as the profiler names them
 PORT_KERNELS = ("col_partials_kernel", "finish_kernel", "bn_dx_kernel", "bn_fwd_finish_kernel",
-                "bn_norm_kernel", "mbconv_kernel", "shuffle_tail_kernel")
+                "bn_norm_kernel", "mbconv_kernel", "shuffle_tail_kernel",
+                "bn_fwd_from_sums_kernel", "bn_bwd_coef_kernel")
 # the kernels of each BN row, as the profiler names them (the mode is the
 # template argument: 1 moments, 2 backward, 3 the forward's moments)
 # the backward row times `bn_backward`: bn_bwd_sums' sums and dx in one call
@@ -1525,6 +1569,466 @@ def x4_phase(dev):
             "wall_s": wall}, profiles
 
 
+# -- phase 8: large frames and data parallelism ------------------------------
+
+ROW_BOUNDS = ((17, 150), (90, 91), (0, 0), (-5, 400))  # the MBConv's, at LR 180 rows
+S4_1080P_LR = (270, 480)                # the S4 at pixel_d 2: 1080x1920 out
+X4_1080P = (1080, 1920)                 # the X4 autoencoder's true 1080p frame
+PAD_TO = {"s4": 280, "x4": 1088}        # rows of the row-padded frames
+TILE = {"s4": 128, "x4": 512}           # tiles: LR pixels (S4), HR pixels (X4)
+# row-padded, tiled and split frames against the full frame, through the
+# kernels: max |diff| <= this times max |full frame| (cuDNN picks its conv
+# algorithms by shape; the MBConv and tail kernels' per-pixel sums do not
+# depend on the frame's size)
+LARGE_FRAME_RTOL = 1e-5
+MESH_STEPS = 4                          # one-subnet steps of the two-rank trainer
+MESH_LOSS_RTOL = {"f32": 1e-4, "bf16": 1e-2}
+MESH_TIMEOUT_S = 420                    # the two ranks' run, bounded
+APPLY_WRAPPERS = (bn_forward_from_sums, bn_backward_from_sums)
+MESH_PATH_WRAPPERS = BN_KERNELS + APPLY_WRAPPERS + (col_sums2, bn_bwd_sums, bn_moments)
+# launched no time under a mesh: the fused calls' pass 1 counts there under
+# col_sums2 and bn_bwd_sums
+OFF_MESH_ROUTE = ("bn_forward", "bn_backward", "bn_moments")
+
+
+def frame_check(name, got, full):
+    """max |got - full| <= LARGE_FRAME_RTOL * max |full|; returns the
+    measured ratio."""
+    err = float((got - full).abs().max())
+    scale = float(full.abs().max())
+    ratio = err / scale
+    ok = bool(torch.isfinite(got).all()) and got.shape == full.shape and \
+        ratio <= LARGE_FRAME_RTOL
+    print("  %-58s max|diff| %.3e = %.2e x max|full| %.3e (bound %.0e)  %s"
+          % (name, err, ratio, scale, LARGE_FRAME_RTOL, "ok" if ok else "FAIL"), flush=True)
+    if not ok:
+        fail("%s differs from the full frame (%.3e of its scale)" % (name, ratio))
+    return ratio
+
+
+def windows(shape, tile, halo):
+    """Windows tiled_sr_infer runs over a frame of `shape` (rows, columns):
+    one a tile, the last of each row and column flush against the edge; a
+    frame smaller than a window runs whole."""
+    if min(shape) < tile + 2 * halo:
+        return 1
+    return int(np.prod([-(-e // tile) for e in shape]))
+
+
+def serving_launches(run):
+    """run() with the MBConv and tail counters read around it: (its result,
+    {"mbconv": launches, "shuffle_tail": launches})."""
+    fused_mbconv_infer.launches = fused_shuffle_tail.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {"mbconv": fused_mbconv_infer.launches,
+                 "shuffle_tail": fused_shuffle_tail.launches}
+
+
+def subnet_run_launches(kind, cfg):
+    """MBConv and tail launches of one run of the subnet: every trunk run
+    (the S4's one, the autoencoder's two); the X4's shuffle convs are 3x3,
+    the tail kernel's 5x5 only."""
+    return {"mbconv": sum(cfg.d), "shuffle_tail": cfg.pixel_d if kind == "s4" else 0}
+
+
+def hold_launches(label, counts, expect):
+    print("  %-58s launches %s (expected %s)  %s"
+          % (label, counts, expect, "ok" if counts == expect else "FAIL"), flush=True)
+    if counts != expect:
+        fail("%s did not go through the kernels as often as expected" % label)
+
+
+def mbconv_row_bounds(g):
+    """(a) The MBConv kernel with row bounds at the serving shape, k 7, e 6,
+    against its plain version; (0, H) gives the unbounded call's bits.
+    Returns the errors and ms a launch with and without bounds."""
+    x, w = mbconv_case(g, (1,) + LR_HW + (64,), SearchSpace().mid_channels(6), 7,
+                       device=DEVICE)
+    errs = {}
+    for b in ROW_BOUNDS:
+        got = launched(fused_mbconv_infer, lambda: fused_mbconv_infer(x, **w, row_valid=b))
+        torch.cuda.synchronize()
+        errs[str(b)] = check_close("mbconv (1, 180, 320, 64) k 7, row_valid %s" % (b,), got,
+                                   mbconv_reference(x, **w, row_valid=b), TOL)
+    whole = launched(fused_mbconv_infer,
+                     lambda: fused_mbconv_infer(x, **w, row_valid=(0, LR_HW[0])))
+    if not torch.equal(whole, fused_mbconv_infer(x, **w)):
+        fail("mbconv with row_valid (0, H) is not the unbounded call's bits")
+    print("  mbconv row_valid (0, 180): the unbounded call's bits  ok", flush=True)
+    ms = {"unbounded": time_ms(lambda: fused_mbconv_infer(x, **w)),
+          "row_valid (17, 150)": time_ms(lambda: fused_mbconv_infer(x, **w,
+                                                                    row_valid=(17, 150)))}
+    print("  mbconv ms a launch: %s" % {k: round(v, 4) for k, v in ms.items()}, flush=True)
+    return {"max_abs_err": errs, "ms": ms}
+
+
+def large_frames(dev):
+    """(b) the S4 sr frame at LR 270x480 and the X4 autoencoder's true
+    1080x1920 frame (ks7/e6/d2/pixel_d 2, full width, the kernels), each
+    row-padded with row_valid against the unpadded frame, launches counted;
+    (c) tiled_sr_infer with the receptive-field halo against the full frame.
+    Returns the numbers, and each case's (subnet, x, full frame, tiled
+    frame) for (d)."""
+    out, frames = {}, {}
+    rng = np.random.RandomState(8)
+    for kind, net, mode, shape in (("s4", build_net(dev), "sr", S4_1080P_LR),
+                                   ("x4", build_x4(dev), "autoencoder", X4_1080P)):
+        space = net.space
+        cfg = uniform_subnet(space, 7, 6, 2, 2, n_trunks=net.n_trunks)
+        sub = get_active_subnet(net, cfg, mode=mode)
+        x = torch.from_numpy(rng.rand(1, *shape, 3).astype(np.float32)).to(dev)
+        xp = torch.zeros(1, PAD_TO[kind], shape[1], 3, device=dev)
+        xp[:, :shape[0]] = x
+        if mode == "autoencoder":
+            halo, scale = receptive_field_radius_autoencoder(cfg, space), 1
+        else:
+            halo, scale = receptive_field_radius(cfg, space), 2 ** cfg.pixel_d
+        with torch.inference_mode():
+            full = sub(x)
+            expect = subnet_run_launches(kind, cfg)
+            padded, counts = serving_launches(lambda: sub(xp, row_valid=(0, shape[0])))
+            hold_launches("%s %s frame row-padded to %d rows" % (kind, mode, PAD_TO[kind]),
+                          counts, expect)
+            rows = shape[0] * scale
+            ratio_pad = frame_check("%s row-padded frame, valid rows vs the full frame" % kind,
+                                    padded[:, :rows], full)
+            tiled, tiled_counts = serving_launches(
+                lambda: tiled_sr_infer(sub, x, tile=TILE[kind], halo=halo, scale=scale))
+            n_win = windows(shape, TILE[kind], halo)
+            hold_launches("%s tiled, %d windows" % (kind, n_win), tiled_counts,
+                          {k: n_win * v for k, v in expect.items()})
+            ratio_tiled = frame_check("%s tiled (tile %d, halo %d) vs the full frame"
+                                      % (kind, TILE[kind], halo), tiled, full)
+            ms = {"full": time_ms(lambda: sub(x), iters=3, warmup=1),
+                  "row_padded": time_ms(lambda: sub(xp, row_valid=(0, shape[0])), iters=3,
+                                        warmup=1),
+                  "tiled": time_ms(lambda: tiled_sr_infer(sub, x, tile=TILE[kind], halo=halo,
+                                                          scale=scale), iters=3, warmup=1)}
+        print("  %s frame ms: %s" % (kind, {k: round(v, 4) for k, v in ms.items()}), flush=True)
+        out[kind] = {"cfg": cfg.describe(), "frame": list(shape), "padded_rows": PAD_TO[kind],
+                     "launches": counts, "halo": halo, "tile": TILE[kind], "windows": n_win,
+                     "tiled_launches": tiled_counts,
+                     "row_padded_over_scale": ratio_pad, "tiled_over_scale": ratio_tiled,
+                     "frame_ms": ms}
+        frames[kind] = (full.cpu(), tiled.cpu())
+        del net, sub, full, padded, tiled
+    return out, frames
+
+
+def mesh_rank_main(d):
+    """(d) one of two ranks sharing the card over gloo (gloo on CUDA takes
+    all_reduce and broadcast, the only collectives the port uses; NCCL
+    refuses two ranks on one GPU): spatial inference and the tiled window
+    batch split over the ranks on (b)'s frames, then SRTrainer with the
+    mesh, 4 one-subnet steps at the global bs16 96 px (8 rows a rank) in
+    float32 and in bf16, BN wrapper launches counted."""
+    from ofa_sr_tpu_torch.parallel import init_distributed, make_mesh, make_spatial_infer
+    dev = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = init_distributed(device=dev, backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    mesh = make_mesh(dev)
+    res = {"rank": rank, "world": world, "backend": torch.distributed.get_backend()}
+    rng = np.random.RandomState(8)
+    for kind, net, mode, shape in (("s4", build_net(dev), "sr", S4_1080P_LR),
+                                   ("x4", build_x4(dev), "autoencoder", X4_1080P)):
+        space = net.space
+        cfg = uniform_subnet(space, 7, 6, 2, 2, n_trunks=net.n_trunks)
+        sub = get_active_subnet(net, cfg, mode=mode)
+        x = torch.from_numpy(rng.rand(1, *shape, 3).astype(np.float32)).to(dev)
+        if mode == "autoencoder":
+            halo, scale, align = receptive_field_radius_autoencoder(cfg, space), 1, 4
+        else:
+            halo, scale, align = receptive_field_radius(cfg, space), 2 ** cfg.pixel_d, 1
+        one = subnet_run_launches(kind, cfg)
+        # the window batch in chunks of one window a rank, the last padded
+        calls = -(-windows(shape, TILE[kind], halo) // world)
+        with torch.inference_mode():
+            spatial, counts = serving_launches(
+                lambda: make_spatial_infer(sub, mesh, halo=halo, scale=scale, align=align)(x))
+            tiled, tiled_counts = serving_launches(
+                lambda: tiled_sr_infer_mesh(sub, x, tile=TILE[kind], halo=halo, scale=scale,
+                                            mesh=mesh))
+            res[kind + " launches"] = {
+                "spatial": counts, "spatial_expected": one, "tiled_mesh": tiled_counts,
+                "tiled_mesh_expected": {k: calls * v for k, v in one.items()}}
+            t0 = time.perf_counter()
+            make_spatial_infer(sub, mesh, halo=halo, scale=scale, align=align)(x)
+            torch.cuda.synchronize()
+            res[kind + " spatial frame ms"] = (time.perf_counter() - t0) * 1e3
+        if rank == 0:
+            torch.save({"spatial": spatial.cpu(), "tiled": tiled.cpu()},
+                       os.path.join(d, "frames_%s.pt" % kind))
+        del net, sub, spatial, tiled
+    space = SearchSpace()
+    for label, dtype in (("f32", None), ("bf16", BF16)):
+        for k in MESH_PATH_WRAPPERS:
+            k.launches = k.launches_bf16 = 0
+        net = train_net(dev)
+        metrics = train(MESH_STEPS, device=dev, net=net, batch_size=BS, hr_size=HR,
+                        compute_dtype=dtype, mesh=mesh)
+        torch.cuda.synchronize()
+        flat = torch.cat([p.detach().reshape(-1) for p in net.parameters()]).cpu()
+        res[label] = {"losses": [m["loss"] for m in metrics],
+                      "psnrs": [m["psnr"] for m in metrics],
+                      "params_sha256": hashlib.sha256(flat.numpy().tobytes()).hexdigest(),
+                      "launches": {k.__name__: k.launches for k in MESH_PATH_WRAPPERS},
+                      "launches_bf16": {k.__name__: k.launches_bf16
+                                        for k in MESH_PATH_WRAPPERS},
+                      "expected": bn_launches_expected(
+                          [c for i in range(MESH_STEPS) for c in step_subnets(space, i, 1)])}
+    with open(os.path.join(d, "rank_%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def two_ranks(frames, runs_f32, runs_bf16):
+    """(d) from the parent: the two ranks' run, then their results against
+    (b)'s full frames, (c)'s tiled frames and phase 4's one-process runs
+    (the first MESH_STEPS steps of the same seed, subnets and batch)."""
+    with tempfile.TemporaryDirectory(prefix="ofa_sr_mesh_") as d:
+        t0 = time.perf_counter()
+        try:
+            outputs = launch([sys.executable, os.path.abspath(__file__), "--mesh-rank", d], 2,
+                             timeout=MESH_TIMEOUT_S + 60, cwd=os.path.dirname(
+                                 os.path.abspath(__file__)))
+        except RuntimeError as e:
+            fail("the two-rank run failed: %s" % str(e)[-4000:])
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(d, "rank_%d.json" % r)) as f:
+                ranks.append(json.load(f))
+        out = {"wall_s": wall, "backend": ranks[0]["backend"],
+               "note": "two processes sharing one card over gloo: no measure of multi-GPU "
+                       "speed"}
+        for kind in ("s4", "x4"):
+            got = torch.load(os.path.join(d, "frames_%s.pt" % kind))
+            full, tiled = frames[kind]
+            out[kind] = {
+                "spatial_over_scale": frame_check("%s spatial over 2 ranks vs the full frame"
+                                                  % kind, got["spatial"], full),
+                "tiled_mesh_vs_tiled_over_scale": frame_check(
+                    "%s tiled over 2 ranks vs tiled in one process" % kind, got["tiled"], tiled),
+                "launches_per_rank": [r[kind + " launches"] for r in ranks],
+                "spatial_frame_ms_per_rank": [r[kind + " spatial frame ms"] for r in ranks]}
+            for r in ranks:
+                n = r[kind + " launches"]
+                for route in ("spatial", "tiled_mesh"):
+                    hold_launches("rank %d %s %s" % (r["rank"], kind, route), n[route],
+                                  n[route + "_expected"])
+    for label, one in (("f32", runs_f32), ("bf16", runs_bf16)):
+        a, b = ranks[0][label], ranks[1][label]
+        bf16 = label == "bf16"
+        if a["params_sha256"] != b["params_sha256"] or a["losses"] != b["losses"]:
+            fail("%s: the two ranks' parameters or losses differ" % label)
+        ref = [m["loss"] for m in one["1 subnet"]["metrics"][:MESH_STEPS]]
+        check_close("%s: %d steps over 2 ranks x bs8 vs one process at bs16, losses"
+                    % (label, MESH_STEPS), torch.tensor(a["losses"]), torch.tensor(ref),
+                    dict(rtol=MESH_LOSS_RTOL[label], atol=0))
+        for r in ranks:
+            counts = r[label]["launches_bf16" if bf16 else "launches"]
+            others = r[label]["launches" if bf16 else "launches_bf16"]
+            want = {k: 0 if k in OFF_MESH_ROUTE else r[label]["expected"] for k in counts}
+            print("  rank %d %s: BN wrapper launches %s (expected %s)"
+                  % (r["rank"], label, counts, want), flush=True)
+            if counts != want or (bf16 and counts != others) or (
+                    not bf16 and any(others.values())):
+                fail("rank %d's %s mesh training did not launch each BN wrapper of the mesh "
+                     "route once per train-mode BN and the fused ones never"
+                     % (r["rank"], label))
+        out[label] = {"losses": a["losses"], "one_process_losses": ref,
+                      "params_equal_across_ranks": True,
+                      "launches_per_rank": [r[label]["launches"] for r in ranks],
+                      "launches_bf16_per_rank": [r[label]["launches_bf16"] for r in ranks],
+                      "expected": a["expected"]}
+    print("  two ranks took %.1f s" % out["wall_s"], flush=True)
+    return out
+
+
+def nccl_world_one(g, dev):
+    """(e) one process, NCCL, world 1: the mesh BN route gives the fused
+    call's bits at the path's BN shapes, in float32 and bf16; the apply
+    entry points against their plain versions (errors, ms); the
+    all-reduce's ms a BN; ms a step of the trainer with and without the
+    mesh."""
+    from ofa_sr_tpu_torch.parallel import all_reduce_sum, init_distributed, make_mesh
+    init_distributed("127.0.0.1:%d" % free_port(), 1, 0, device=dev, timeout_s=300)
+    mesh = make_mesh(dev)
+    group = mesh.group
+    out = {"backend": torch.distributed.get_backend(), "errs": {}}
+    kw = dict(momentum=0.1, eps=BN_EPS, update_var="unbiased")
+    for dtype in (torch.float32, BF16):
+        key = "_bf16" if dtype is BF16 else ""
+        for shp in path_bn_shapes():
+            c = shp[-1]
+            x = (1.5 * randn(g, *shp) + 0.3).to(dtype).contiguous()
+            dy = randn(g, *shp).to(dtype)
+            scale, bias = (0.5 + torch.rand(c, generator=g)).to(dev), randn(g, c, scale=0.2)
+            stats = [t.clone() for t in (randn(g, c, scale=0.2),
+                                         (0.5 + torch.rand(c, generator=g)).to(dev)) * 2]
+            fused = bn_forward(x, scale, bias, stats[0], stats[1], **kw)
+            meshed = bn_forward(x, scale, bias, stats[2], stats[3], group=group, **kw)
+            bwd = bn_backward(dy, x, scale, fused[1], fused[3])
+            bwd_mesh = bn_backward(dy, x, scale, fused[1], fused[3], group=group)
+            torch.cuda.synchronize()
+            pairs = list(zip(("y", "mean", "var", "inv"), fused, meshed)) + [
+                ("running_mean", stats[0], stats[2]), ("running_var", stats[1], stats[3])] + \
+                list(zip(("dx", "dscale", "dbias"), bwd, bwd_mesh))
+            bad = [n for n, a, b in pairs if not torch.equal(a, b)]
+            if bad:
+                fail("the mesh BN route at world 1 is not the fused call's bits at %s %s: %s"
+                     % (shp, dtype, bad))
+            # the apply entry points against their plain versions
+            sums = torch.cat([x.float().reshape(-1, c).sum(0),
+                              (x.float().reshape(-1, c) ** 2).sum(0)])
+            n = x.numel() // c
+            got = launched(bn_forward_from_sums, lambda: bn_forward_from_sums(
+                x, sums, scale, bias, None, None, n_total=n, **kw), bf16=dtype is BF16)
+            ref = bn_forward_from_sums_reference(x, sums, scale, bias, None, None, n_total=n,
+                                                 **kw)
+            e_f = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+            bsums = torch.cat([dy.float().reshape(-1, c).sum(0),
+                               (dy.float() * ((x.float() - fused[1]) * fused[3]))
+                               .reshape(-1, c).sum(0)])
+            got_b = launched(bn_backward_from_sums, lambda: bn_backward_from_sums(
+                dy, x, bsums, scale, fused[1], fused[3], n_total=n), bf16=dtype is BF16)
+            ref_b = bn_backward_from_sums_reference(dy, x, bsums, scale, fused[1], fused[3],
+                                                    n_total=n)
+            tol = BF16_DX_TOL if dtype is BF16 else TOL
+            check_close("bn_forward_from_sums%s %s y" % (key, shp), got[0].float(),
+                        ref[0].float(), tol)
+            check_close("bn_backward_from_sums%s %s dx" % (key, shp), got_b.float(),
+                        ref_b.float(), tol)
+            out["errs"]["bn_forward_from_sums" + key] = max(
+                out["errs"].get("bn_forward_from_sums" + key, 0.0), e_f)
+            out["errs"]["bn_backward_from_sums" + key] = max(
+                out["errs"].get("bn_backward_from_sums" + key, 0.0),
+                float((got_b.float() - ref_b.float()).abs().max()))
+        print("  NCCL world 1, %s: the mesh BN route gave the fused call's bits at %d shapes"
+              % (dtype, len(path_bn_shapes())), flush=True)
+    ar = {}
+    for c in sorted({s[-1] for s in path_bn_shapes()}):
+        buf = torch.zeros(2 * c, device=dev)
+        ar[c] = time_ms(lambda: all_reduce_sum(buf, group))
+    out["all_reduce_ms_by_C"] = ar
+    space = SearchSpace()
+    per_step = {}
+    for i in range(TRAIN_STEPS):
+        for shp in bn_train_shapes(space, step_subnets(space, i, 1)[0], BS, HR):
+            per_step[shp[-1]] = per_step.get(shp[-1], 0) + 1.0 / TRAIN_STEPS
+    out["all_reduce_ms_per_bn"] = sum(ar[c] * k for c, k in per_step.items()) / sum(
+        per_step.values())
+    out["bn_per_step"] = sum(per_step.values())
+    print("  NCCL world 1: all_reduce of a BN's (2, C) totals %.4f ms (mean over a step's "
+          "BNs), two a BN" % out["all_reduce_ms_per_bn"], flush=True)
+    # ms a step of the trainer with and without the mesh (alternating)
+    batch = synthetic_batch(BS, HR, dev)
+    cfgs = [step_subnets(space, i, 1) for i in range(TRAIN_STEPS)]
+    trainers = {}
+    for label, m in (("no mesh", None), ("mesh", mesh)):
+        net = train_net(dev)
+        trainers[label] = SRTrainer(net, opt_type="adam", weight_decay=3e-5, mesh=m)
+        trainers[label].train_step(batch, cfgs[0], 1e-4)  # warm-up
+    step_ms = {k: [] for k in trainers}
+    for label in ("no mesh", "mesh", "mesh", "no mesh"):
+        tr = trainers[label]
+        step_ms[label].append(timed_steps(
+            lambda: [tr.train_step(batch, c, 1e-4) for c in cfgs], TRAIN_STEPS)[0])
+    out["step_ms"] = {k: float(np.mean(v)) for k, v in step_ms.items()}
+    out["step_ms_rounds"] = step_ms
+    print("  entry.train's step with and without the mesh (NCCL world 1), ms: %s"
+          % {k: round(v, 4) for k, v in out["step_ms"].items()}, flush=True)
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def apply_kernel_numbers(g, launches, errs, dtype=torch.float32):
+    """The two apply entry points' rows: time a one-subnet step of their
+    launches at the path's shapes (phase 4's subnets), against their plain
+    versions and their bounds (bytes: the fused forward's and backward's, x
+    read and y written; dy and x read and dx written). The backward's
+    library call is SyncBatchNorm's apply step,
+    torch.batch_norm_backward_elemt, on the channels-last NCHW views from
+    the same totals (its sum_dy_xmu is the kernel's sum dy*xhat over inv),
+    held against the kernel's dx first; no single PyTorch call computes the
+    forward's finish, running statistics and normalize together
+    (batch_norm_gather_stats_with_counts and batch_norm_elemt are two), so
+    its library_ms is null."""
+    bf16 = dtype is BF16
+    key = "_bf16" if bf16 else ""
+    space = SearchSpace()
+    per_step = {}
+    for i in range(TRAIN_STEPS):
+        for shp in bn_train_shapes(space, step_subnets(space, i, 1)[0], BS, HR):
+            per_step[shp] = per_step.get(shp, 0) + 1.0 / TRAIN_STEPS
+    fwd, bwd = [], []
+    kw = dict(momentum=0.1, eps=BN_EPS, update_var="unbiased")
+    for shp in sorted(per_step):
+        n, c = int(np.prod(shp[:3])), shp[3]
+        k = per_step[shp]
+        x = (1.5 * randn(g, *shp) + 0.3).to(dtype).contiguous()
+        dy = randn(g, *shp).to(dtype)
+        scale, bias = (0.5 + torch.rand(c, generator=g)).to(DEVICE), randn(g, c, scale=0.2)
+        rm, rv = randn(g, c, scale=0.2), (0.5 + torch.rand(c, generator=g)).to(DEVICE)
+        sums = torch.cat([x.float().reshape(n, c).sum(0), (x.float().reshape(n, c) ** 2).sum(0)])
+        mean = sums[:c] / n
+        inv = torch.rsqrt(sums[c:] / n - mean * mean + BN_EPS)
+        bsums = randn(g, 2 * c)
+        # SyncBatchNorm's dx from the all-reduced sums and the global count
+        nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+        count = torch.tensor([n], dtype=torch.int32, device=DEVICE)
+        sum_dy_xmu = bsums[c:] / inv
+        library = lambda: torch.batch_norm_backward_elemt(  # noqa: E731
+            nchw(dy), nchw(x), mean, inv, scale, bsums[:c], sum_dy_xmu, count)
+        check_close("torch.batch_norm_backward_elemt %s %s vs bn_backward_from_sums dx"
+                    % (list(shp), key), nchw(bn_backward_from_sums(
+                        dy, x, bsums, scale, mean, inv, n_total=n)).float(),
+                    library().float(), BF16_DX_TOL if bf16 else TOL)
+        fwd.append(measure_shape(
+            lambda: bn_forward_from_sums(x, sums, scale, bias, rm, rv, n_total=n, **kw),
+            lambda: bn_forward_from_sums_reference(x, sums, scale, bias, rm, rv, n_total=n,
+                                                   **kw),
+            flops=4 * n * c, nbytes_=2 * nbytes(x) + 9 * c * 4, launches=k, unit="step",
+            shape=list(shp)))
+        bwd.append(measure_shape(
+            lambda: bn_backward_from_sums(dy, x, bsums, scale, mean, inv, n_total=n),
+            lambda: bn_backward_from_sums_reference(dy, x, bsums, scale, mean, inv, n_total=n),
+            flops=7 * n * c, nbytes_=3 * nbytes(dy) + 5 * c * 4, launches=k, unit="step",
+            library=library, shape=list(shp)))
+    info = dict(unit="step", dtype=str(dtype).replace("torch.", ""))
+    src = "ofa_sr_tpu_torch/csrc/bn_stats.cu"
+    return [kernel_row("bn_forward_from_sums" + (" (bf16)" if bf16 else ""), src,
+                       "ofa_sr_tpu/ops/pallas/bn_stats.py:94",
+                       launches["bn_forward_from_sums" + key],
+                       errs["bn_forward_from_sums" + key], fwd,
+                       wrapper="bn_forward_from_sums (under a mesh)",
+                       replaces_also="the XLA normalize after the Pallas moments "
+                       "(ofa_sr_tpu/ops/pallas/bn.py:47-51) and the EMA "
+                       "(ofa_sr_tpu/ops/norm.py:86-90), from the all-reduced totals", **info),
+            kernel_row("bn_backward_from_sums" + (" (bf16)" if bf16 else ""), src,
+                       "ofa_sr_tpu/ops/pallas/bn_stats.py:196",
+                       launches["bn_backward_from_sums" + key],
+                       errs["bn_backward_from_sums" + key], bwd,
+                       wrapper="bn_backward_from_sums (under a mesh)",
+                       library_note="torch.batch_norm_backward_elemt (SyncBatchNorm's apply)",
+                       replaces_also="the dx XLA fuses after the Pallas bn_bwd_sums "
+                       "(ofa_sr_tpu/ops/pallas/bn.py:59-73), from the all-reduced totals",
+                       **info)]
+
+
+def phase8(g, dev, runs_f32, runs_bf16):
+    t0 = time.perf_counter()
+    out = {"mbconv_row_bounds": mbconv_row_bounds(g)}
+    out["frames"], frames = large_frames(dev)
+    out["two_ranks"] = two_ranks(frames, runs_f32, runs_bf16)
+    out["nccl_world_1"] = nccl_world_one(g, dev)
+    out["wall_s"] = time.perf_counter() - t0
+    print("  phase 8 took %.1f s" % out["wall_s"], flush=True)
+    return out
+
+
 # -- phase 6: per-kernel numbers at the path's shapes ------------------------
 
 def steady_ms(fn, repeats=3):
@@ -1800,6 +2304,10 @@ def main():
     print("phase 7: the X4 supernet: serving, training and the shrinking CLI", flush=True)
     x4, x4_profiles = x4_phase(dev)
 
+    print("phase 8: large frames (row bounds, row-padded, tiled, spatial) and data "
+          "parallelism (two ranks on the card over gloo; NCCL at world 1)", flush=True)
+    p8 = phase8(g, dev, train_runs, train_runs_bf16)
+
     print("phase 6: per-kernel numbers", flush=True)
     bn_rows = bn_kernel_numbers(g, path_counts, errs)
     bn_rows_bf16 = bn_kernel_numbers(g, path_counts, errs, BF16)
@@ -1835,6 +2343,28 @@ def main():
               "library %s" % (r["name"], r["launches"], r["launches_cli"], r["ms"], r["per"],
                               r["plain_ms"], r["bound_ms"], r["bound_by"], r["library_ms"]),
               flush=True)
+    # phase 8's counted runs: the MBConv's row-padded 1080p frames, and the
+    # apply entry points' rows from rank 0 of the two-rank training (each
+    # rank launches as many)
+    rows[0]["launches_phase8"] = {k: v["launches"]["mbconv"] for k, v in p8["frames"].items()}
+    rows[0]["ms_row_bounds"] = p8["mbconv_row_bounds"]["ms"]
+    rows[0]["max_abs_err_row_bounds"] = p8["mbconv_row_bounds"]["max_abs_err"]
+    rows[1]["launches_phase8"] = {k: v["launches"]["shuffle_tail"]
+                                  for k, v in p8["frames"].items()}
+    mesh_runs = p8["two_ranks"]
+    apply_launches = {}
+    for name in ("bn_forward_from_sums", "bn_backward_from_sums"):
+        apply_launches[name] = mesh_runs["f32"]["launches_per_rank"][0][name]
+        apply_launches[name + "_bf16"] = mesh_runs["bf16"]["launches_bf16_per_rank"][0][name]
+    apply_rows = [r for dtype in (torch.float32, BF16)
+                  for r in apply_kernel_numbers(g, apply_launches, p8["nccl_world_1"]["errs"],
+                                                dtype)]
+    for r in apply_rows:
+        r["all_reduce_ms_per_bn_nccl_world_1"] = p8["nccl_world_1"]["all_reduce_ms_per_bn"]
+        print("  %-20s %d launches (rank 0 of 2)  %.4f ms/step  plain %.4f  bound %.4f (%s)"
+              % (r["name"], r["launches"], r["ms"], r["plain_ms"], r["bound_ms"],
+                 r["bound_by"]), flush=True)
+    rows += apply_rows
     # last: a torch.profiler session leaves the launch path slower for the
     # rest of the process, so every timing above comes first, and the steps
     # are timed once more after the profiles to show by how much
@@ -1860,7 +2390,7 @@ def main():
     print(json.dumps({"kernels": rows, "frame_ms": frame_ms, "frame_profile": profiles,
                       "entry_ms": entry_ms, "train_runs": train_runs,
                       "train_runs_bf16": train_runs_bf16, "step_ms": step_ms,
-                      "step_profile": train_profiles, "cli": cli, "x4": x4,
+                      "step_profile": train_profiles, "cli": cli, "x4": x4, "phase8": p8,
                       "build_s": build_s,
                       "mbconv_smem_bytes": mb_smem, "gpu": smi_line}))
     print(smi_line)
@@ -1870,4 +2400,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank_main(sys.argv[2])  # one of phase 8's two ranks
+    else:
+        main()

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..data import SyntheticSRProvider
+from ..parallel.mesh import init_distributed, make_mesh
 
 
 def add_common_args(parser: argparse.ArgumentParser, *, path, n_epochs,
@@ -65,6 +66,14 @@ def set_seeds(seed: int):
     """The reference preamble: Python's and numpy's global RNGs."""
     random.seed(seed)
     np.random.seed(seed)
+
+
+def init_mesh(args):
+    """The run's mesh: the processes torchrun started (`init_distributed`
+    reads its environment; each takes the device of its LOCAL_RANK on
+    `--device cuda`), or this process alone, a world of one."""
+    init_distributed(device=args.device)
+    return make_mesh(args.device)
 
 
 def make_net(net_cls, space, args):

@@ -87,6 +87,15 @@
 // columns one after another, its 108 registers a thread halved pass 1's
 // blocks an SM, and the narrow tiles cut bf16 rows into 128-byte pieces,
 // while a finish launch costs 2-3 us.
+// Under a mesh (data parallelism, the batch's rows split over ranks) the
+// BN statistics are the global batch's, as the JAX package's are under a
+// sharded jit: each direction runs in two calls with an all-reduce of the
+// (2, C) float32 totals between them, made by the caller: pass 1 and its
+// column sums (`ofa_col_sums2_*` mode 3 for the forward, mode 2 for the
+// backward), then `ofa_bn_forward_from_sums_*` (the finish on the totals
+// and the global row count, then the normalize) or
+// `ofa_bn_backward_from_sums_*` (the dx coefficients, then dx). The totals
+// are summed in the fused call's order, so at one rank they are its bits.
 // The scratch `partial` (2*C*G floats), `out` (2*C), `coef` (3*C) and
 // `stats` (4*C) are allocated by the caller.
 
@@ -499,8 +508,38 @@ cudaError_t launch_norm(const T* x, const float* stats, const float* bias,
   return cudaGetLastError();
 }
 
+// dx at the widest column group dy, x and dx allow
+template <typename T>
+cudaError_t launch_dx_widest(const T* dy, const T* x, const float* mean,
+                             const float* inv, const float* coef, T* dx, int N,
+                             int C, cudaStream_t s) {
+  constexpr int wide = 16 / sizeof(T);
+  const int v = vec_width<T>(C, dy, x, dx);
+  if (v == wide) return launch_dx<T, wide>(dy, x, mean, inv, coef, dx, N, C, s);
+  if constexpr (sizeof(T) == 2) {
+    if (v == 2) return launch_dx<T, 2>(dy, x, mean, inv, coef, dx, N, C, s);
+  }
+  return launch_dx<T, 1>(dy, x, mean, inv, coef, dx, N, C, s);
+}
+
+// y at the widest column group x and y allow
+template <typename T>
+cudaError_t launch_norm_widest(const T* x, const float* stats,
+                               const float* bias, T* y, int N, int C,
+                               cudaStream_t s) {
+  constexpr int wide = 16 / sizeof(T);
+  const int v = vec_width<T>(C, x, y);
+  if (v == wide) return launch_norm<T, wide>(x, stats, bias, y, N, C, s);
+  if constexpr (sizeof(T) == 2) {
+    if (v == 2) return launch_norm<T, 2>(x, stats, bias, y, N, C, s);
+  }
+  return launch_norm<T, 1>(x, stats, bias, y, N, C, s);
+}
+
 // mode 0: col_sums2(a, b); 1: the moments (mean, biased var) of a's
-// columns, reading a once (b unused); 2: bn_bwd_sums(dy=a, x=b, mean, inv).
+// columns, reading a once (b unused); 2: bn_bwd_sums(dy=a, x=b, mean, inv);
+// 3: (sum a, sum a*a) reading a once, the forward's pass 1 and its sums in
+// bn_fwd_finish_kernel's order (the forward's totals under a mesh).
 template <typename T>
 int col_sums2(const T* a, const T* b, const float* mean, const float* inv,
               float* partial, float* out, int N, int C, int G, int mode,
@@ -517,6 +556,9 @@ int col_sums2(const T* a, const T* b, const float* mean, const float* inv,
     case BWD:
       if (mean == nullptr || inv == nullptr) return (int)cudaErrorInvalidValue;
       return (int)launch<BWD, T>(a, b, mean, inv, nullptr, partial, out,
+                                 nullptr, N, C, G, s);
+    case FWD:
+      return (int)launch<FWD, T>(a, a, mean, inv, nullptr, partial, out,
                                  nullptr, N, C, G, s);
     default:
       return (int)cudaErrorInvalidValue;
@@ -535,13 +577,7 @@ int bn_backward(const T* dy, const T* x, const float* scale,
   cudaError_t e = launch<BWD, T>(dy, x, mean, inv, scale, partial, out, coef,
                                  N, C, G, s);
   if (e != cudaSuccess) return (int)e;
-  constexpr int wide = 16 / sizeof(T);
-  const int v = vec_width<T>(C, dy, x, dx);
-  if (v == wide) return (int)launch_dx<T, wide>(dy, x, mean, inv, coef, dx, N, C, s);
-  if constexpr (sizeof(T) == 2) {
-    if (v == 2) return (int)launch_dx<T, 2>(dy, x, mean, inv, coef, dx, N, C, s);
-  }
-  return (int)launch_dx<T, 1>(dy, x, mean, inv, coef, dx, N, C, s);
+  return (int)launch_dx_widest<T>(dy, x, mean, inv, coef, dx, N, C, s);
 }
 
 // the train-mode BN forward: the moments' pass 1, the finish with the
@@ -564,13 +600,76 @@ int bn_forward(const T* x, const float* scale, const float* bias, float* rm,
       (float)((double)N / (double)(N > 1 ? N - 1 : 1)), (float)eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  constexpr int wide = 16 / sizeof(T);
-  const int vy = vec_width<T>(C, x, y);
-  if (vy == wide) return (int)launch_norm<T, wide>(x, stats, bias, y, N, C, s);
-  if constexpr (sizeof(T) == 2) {
-    if (vy == 2) return (int)launch_norm<T, 2>(x, stats, bias, y, N, C, s);
-  }
-  return (int)launch_norm<T, 1>(x, stats, bias, y, N, C, s);
+  return (int)launch_norm_widest<T>(x, stats, bias, y, N, C, s);
+}
+
+// Under a mesh the moments' and the backward's sums are taken over every
+// rank's rows: pass 1 and the sums of its partials run per rank (mode 3,
+// mode 2 of col_sums2), the caller all-reduces the (2, C) totals, and the
+// apply part below starts from them and the global row count Ng, while the
+// normalize or dx pass runs over this rank's n rows. Its per-column
+// arithmetic is bn_fwd_finish_kernel's and finish_kernel<BWD>'s, on the
+// same sums, so at one rank the two calls give the fused call's bits.
+
+// the forward's finish from the totals: one thread a column
+__global__ void __launch_bounds__(THREADS)
+bn_fwd_from_sums_kernel(const float* __restrict__ sums,
+                        const float* __restrict__ scale, float* __restrict__ rm,
+                        float* __restrict__ rv, float* __restrict__ stats, int Ng,
+                        int C, float one_minus_m, float m, int unbiased,
+                        float unbias, float eps) {
+  const int c = blockIdx.x * THREADS + threadIdx.x;
+  if (c >= C) return;
+  bn_fwd_finalize(c, sums[c], sums[C + c], Ng, C, scale[c], rm, rv,
+                  rm != nullptr ? rm[c] : 0.f, rv != nullptr ? rv[c] : 0.f,
+                  stats, one_minus_m, m, unbiased, unbias, eps);
+}
+
+// the backward's dx coefficients from the totals, as finish_kernel<BWD>
+// writes them: one thread a column
+__global__ void __launch_bounds__(THREADS)
+bn_bwd_coef_kernel(const float* __restrict__ sums, const float* __restrict__ scale,
+                   const float* __restrict__ inv, float* __restrict__ coef, int Ng,
+                   int C) {
+  const int c = blockIdx.x * THREADS + threadIdx.x;
+  if (c >= C) return;
+  const float n = (float)Ng;
+  coef[c] = inv[c] * scale[c];
+  coef[C + c] = sums[c] / n;
+  coef[2 * C + c] = sums[C + c] / n;
+}
+
+template <typename T>
+int bn_forward_from_sums(const T* x, const float* sums, const float* scale,
+                         const float* bias, float* rm, float* rv, float* stats,
+                         T* y, int n, int C, int Ng, double momentum,
+                         double eps, int unbiased, void* stream) {
+  if (n <= 0 || C <= 0 || Ng < n || !x || !sums || !scale || !bias ||
+      !stats || !y || (rm == nullptr) != (rv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  bn_fwd_from_sums_kernel<<<(C + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      sums, scale, rm, rv, stats, Ng, C, (float)(1.0 - momentum), (float)momentum,
+      unbiased, (float)((double)Ng / (double)(Ng > 1 ? Ng - 1 : 1)), (float)eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_norm_widest<T>(x, stats, bias, y, n, C, s);
+}
+
+template <typename T>
+int bn_backward_from_sums(const T* dy, const T* x, const float* sums,
+                          const float* scale, const float* mean,
+                          const float* inv, float* coef, T* dx, int n, int C,
+                          int Ng, void* stream) {
+  if (n <= 0 || C <= 0 || Ng < n || !dy || !x || !sums || !scale || !mean ||
+      !inv || !coef || !dx)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  bn_bwd_coef_kernel<<<(C + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      sums, scale, inv, coef, Ng, C);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_dx_widest<T>(dy, x, mean, inv, coef, dx, n, C, s);
 }
 
 }  // namespace
@@ -643,6 +742,54 @@ extern "C" int ofa_bn_forward_bf16(const __nv_bfloat16* x, const float* scale,
   return bn_forward<__nv_bfloat16>(x, scale, bias, running_mean, running_var,
                                    stats, partial, y, N, C, G, momentum, eps,
                                    unbiased, stream);
+}
+
+// The apply part of the forward under a mesh: from sums = [sum x | sum x*x]
+// (2*C floats) over all Ng rows of every rank, stats (as ofa_bn_forward_*)
+// and the running statistics' update (the unbiased factor Ng/(Ng-1)), then
+// y over this rank's n rows of x.
+extern "C" int ofa_bn_forward_from_sums_f32(const float* x, const float* sums,
+                                            const float* scale, const float* bias,
+                                            float* running_mean, float* running_var,
+                                            float* stats, float* y, int n, int C,
+                                            int Ng, double momentum, double eps,
+                                            int unbiased, void* stream) {
+  return bn_forward_from_sums<float>(x, sums, scale, bias, running_mean,
+                                     running_var, stats, y, n, C, Ng, momentum,
+                                     eps, unbiased, stream);
+}
+
+extern "C" int ofa_bn_forward_from_sums_bf16(const __nv_bfloat16* x, const float* sums,
+                                             const float* scale, const float* bias,
+                                             float* running_mean, float* running_var,
+                                             float* stats, __nv_bfloat16* y, int n,
+                                             int C, int Ng, double momentum,
+                                             double eps, int unbiased, void* stream) {
+  return bn_forward_from_sums<__nv_bfloat16>(x, sums, scale, bias, running_mean,
+                                             running_var, stats, y, n, C, Ng,
+                                             momentum, eps, unbiased, stream);
+}
+
+// The apply part of the backward under a mesh: from sums = [sum dy | sum
+// dy*xhat] over all Ng rows, the dx coefficients into coef (3*C floats),
+// then dx over this rank's n rows.
+extern "C" int ofa_bn_backward_from_sums_f32(const float* dy, const float* x,
+                                             const float* sums, const float* scale,
+                                             const float* mean, const float* inv,
+                                             float* coef, float* dx, int n, int C,
+                                             int Ng, void* stream) {
+  return bn_backward_from_sums<float>(dy, x, sums, scale, mean, inv, coef, dx,
+                                      n, C, Ng, stream);
+}
+
+extern "C" int ofa_bn_backward_from_sums_bf16(const __nv_bfloat16* dy,
+                                              const __nv_bfloat16* x,
+                                              const float* sums, const float* scale,
+                                              const float* mean, const float* inv,
+                                              float* coef, __nv_bfloat16* dx, int n,
+                                              int C, int Ng, void* stream) {
+  return bn_backward_from_sums<__nv_bfloat16>(dy, x, sums, scale, mean, inv,
+                                              coef, dx, n, C, Ng, stream);
 }
 
 extern "C" const char* ofa_cuda_error_string(int e) {

@@ -66,6 +66,13 @@
 //   makes their mid and depthwise values exactly 0). Weights are copied 16
 //   bytes at a time when M % 4 == 0 and the pointers are 16-byte aligned,
 //   else 4 bytes at a time.
+// - Row bounds: for a frame padded with rows, or a slab of one with its
+//   halos (spatial inference), the mid activation is zeroed outside the
+//   valid rows [row_lo, row_hi) as well as outside the image, where the
+//   expand stores it (JAX re-zeroes those rows between the expand and the
+//   depthwise: ofa_sr_tpu/models/materialize.py `_mbconv`). x, the project
+//   and the residual are not masked, as there. The bounds cost one compare
+//   a stored value; (0, H) is the unbounded kernel.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -224,11 +231,13 @@ __device__ __forceinline__ void mma3(float (&acc)[NM][NN][4], const uint32_t (&a
 }
 
 // the expand of NM halo m16 tiles (mt0, mt0 + NWARPS, ...) by the chunk's
-// 16 mid channels, then + bias, relu6, zero outside the image, into mids
+// 16 mid channels, then + bias, relu6, zero outside the image and outside
+// the valid rows [row_lo, row_hi) (within [0, H)), into mids
 template <int KS, int NM>
 __device__ __forceinline__ void expand(const float* xs, int XS, int nk8, const float* ibw_b,
                                        const float* ibw_s, const float* ibb, float* mids,
-                                       int mt0, int h0, int w0, int H, int W, int g, int t) {
+                                       int mt0, int h0, int w0, int row_lo, int row_hi, int W,
+                                       int g, int t) {
   using G = Geo<KS>;
   float e[NM][2][4];
 #pragma unroll
@@ -256,7 +265,7 @@ __device__ __forceinline__ void expand(const float* xs, int XS, int nk8, const f
       const int hp = (mt0 + i * NWARPS) * 16 + g + 8 * half;
       if (hp >= G::HP) continue;
       const int gh = h0 - G::P + hp / G::HWD, gw = w0 - G::P + hp % G::HWD;
-      const bool inside = gh >= 0 && gh < H && gw >= 0 && gw < W;
+      const bool inside = gh >= row_lo && gh < row_hi && gw >= 0 && gw < W;
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         const int col = n * 8 + 2 * t;
@@ -276,7 +285,8 @@ mbconv_kernel(const float* __restrict__ x, const float* __restrict__ ib_w,
               const float* __restrict__ ib_b, const float* __restrict__ dw_w,
               const float* __restrict__ dw_b, const float* __restrict__ pl_w,
               const float* __restrict__ pl_b, float* __restrict__ out, int H, int W,
-              int C, int M, int residual, int tiles_w, int vec_x, int vec_w) {
+              int C, int M, int residual, int row_lo, int row_hi, int tiles_w, int vec_x,
+              int vec_w) {
   using G = Geo<KS>;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -417,11 +427,11 @@ mbconv_kernel(const float* __restrict__ x, const float* __restrict__ ib_w,
       const float* ibb = sm + L.rib_b + (j & 1) * MC;
       for (int mt = warp; mt < G::HMT; mt += 2 * NWARPS) {
         if (mt + NWARPS < G::HMT)
-          expand<KS, 2>(xs, XS, nk8, sm + L.ibw_b, sm + L.ibw_s, ibb, mids, mt, h0, w0, H,
-                        W, g, t);
+          expand<KS, 2>(xs, XS, nk8, sm + L.ibw_b, sm + L.ibw_s, ibb, mids, mt, h0, w0,
+                        row_lo, row_hi, W, g, t);
         else
-          expand<KS, 1>(xs, XS, nk8, sm + L.ibw_b, sm + L.ibw_s, ibb, mids, mt, h0, w0, H,
-                        W, g, t);
+          expand<KS, 1>(xs, XS, nk8, sm + L.ibw_b, sm + L.ibw_s, ibb, mids, mt, h0, w0,
+                        row_lo, row_hi, W, g, t);
       }
       split_plw();
     }
@@ -521,7 +531,8 @@ size_t smem_bytes(int C) {
 template <int KS>
 int launch(const float* x, const float* ib_w, const float* ib_b, const float* dw_w,
            const float* dw_b, const float* pl_w, const float* pl_b, float* out, int B,
-           int H, int W, int C, int M, int residual, cudaStream_t stream) {
+           int H, int W, int C, int M, int residual, int row_lo, int row_hi,
+           cudaStream_t stream) {
   const size_t bytes = smem_bytes<KS>(C);
   if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
@@ -534,27 +545,34 @@ int launch(const float* x, const float* ib_w, const float* ib_b, const float* dw
   const int vec_w = M % 4 == 0 && aligned16(ib_w) && aligned16(ib_b) && aligned16(dw_w) &&
                     aligned16(dw_b) && aligned16(pl_w);
   mbconv_kernel<KS><<<dim3((unsigned)tiles, B), THREADS, bytes, stream>>>(
-      x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, out, H, W, C, M, residual, (int)tiles_w,
-      vec_x, vec_w);
+      x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, out, H, W, C, M, residual, row_lo, row_hi,
+      (int)tiles_w, vec_x, vec_w);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// row_lo, row_hi: the valid rows [row_lo, row_hi) of x (0 <= row_lo,
+// row_hi <= H; (0, H) is the whole image): the mid activation is zeroed
+// outside them, as the depthwise's zero padding is outside the image
 extern "C" int ofa_mbconv_f32(const float* x, const float* ib_w,
                               const float* ib_b, const float* dw_w,
                               const float* dw_b, const float* pl_w,
                               const float* pl_b, float* out, int B, int H,
                               int W, int C, int M, int ks, int residual,
-                              void* stream) {
+                              int row_lo, int row_hi, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || M <= 0 || C <= 0 ||
-      C > CMAX || C % 4 != 0 || ((uintptr_t)out & 7))
+      C > CMAX || C % 4 != 0 || ((uintptr_t)out & 7) || row_lo < 0 ||
+      row_hi > H)
     return (int)cudaErrorInvalidValue;  // B is grid.y; out is stored as float2
   cudaStream_t s = (cudaStream_t)stream;
   switch (ks) {
-    case 3: return launch<3>(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, out, B, H, W, C, M, residual, s);
-    case 5: return launch<5>(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, out, B, H, W, C, M, residual, s);
-    case 7: return launch<7>(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, out, B, H, W, C, M, residual, s);
+    case 3: return launch<3>(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, out, B, H, W, C, M, residual,
+                             row_lo, row_hi, s);
+    case 5: return launch<5>(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, out, B, H, W, C, M, residual,
+                             row_lo, row_hi, s);
+    case 7: return launch<7>(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, out, B, H, W, C, M, residual,
+                             row_lo, row_hi, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -42,6 +42,7 @@ from .models.arch import (
 from .models.materialize import get_active_subnet
 from .models.ofa_s4 import OFAMobileNetS4
 from .models.ofa_x4 import OFAMobileNetX4
+from .parallel.mesh import shard_batch, shard_params
 from .train.train_step import SRTrainer
 from .utils.device import resolve_device
 
@@ -131,21 +132,27 @@ def kd_teacher(space: SearchSpace, device):
 def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda",
           net=None, batch_size: int = 16, hr_size: int = 96,
           lr: float = 1e-4, use_kernels: Optional[bool] = None,
-          compute_dtype: Optional[torch.dtype] = None, mode: str = "sr") -> List[dict]:
+          compute_dtype: Optional[torch.dtype] = None, mode: str = "sr",
+          mesh=None) -> List[dict]:
     """Train `net` (default: a seed-0 full-width OFAMobileNetS4, or
     OFAMobileNetX4 for the autoencoder, on `device`) for `steps` optimizer
     steps of `n_subnets` subnets each, on one synthetic batch, in `mode`.
     On a CUDA net train-mode BN runs the BN-statistics kernels unless
     `use_kernels=False`. `compute_dtype` (None: float32; torch.bfloat16:
-    mixed precision, float32 masters) as `SRTrainer`'s.
-    Returns each step's {"loss", "psnr"} as floats."""
+    mixed precision, float32 masters) as `SRTrainer`'s. `mesh` (a
+    `parallel.Mesh`): data-parallel training, `batch_size` the global batch
+    of which each rank trains its rows, from rank 0's weights.
+    Returns each step's {"loss", "psnr"} (the global batch's) as floats."""
     dev = resolve_device(device)
     net = _default_net(net, mode, dev, "train")
     teacher = kd_teacher(net.space, dev) if kd_ratio > 0 else None
     trainer = SRTrainer(net, opt_type="adam", weight_decay=3e-5, kd_ratio=kd_ratio,
                         teacher=teacher, use_kernels=use_kernels, compute_dtype=compute_dtype,
-                        mode=mode)
+                        mode=mode, mesh=mesh)
     batch = synthetic_batch(batch_size, hr_size, dev)
+    if mesh is not None:
+        shard_params(net, mesh)
+        batch = shard_batch(batch, mesh)
     metrics = [trainer.train_step(batch, step_subnets(net.space, i, n_subnets, net.n_trunks), lr)
                for i in range(steps)]
     return [{k: float(v) for k, v in m.items()} for m in metrics]

@@ -18,7 +18,9 @@ mode through the BN-statistics kernels, `ops/kernels/bn.py`) and
 bf16, that the conv banks are cast to at use, as the JAX package's
 `cast_params_for_compute` casts them: the BN parameters and the
 kernel-transform matrices stay float32, and the gradients reach the float32
-masters through the casts).
+masters through the casts) and `bn_group` (None, or under data parallelism
+the mesh's process group: train-mode BN then takes the moments of every
+rank's rows, the JAX package's BN over a sharded batch).
 """
 
 from __future__ import annotations
@@ -53,17 +55,19 @@ def cast(w, compute_dtype):
     return w if compute_dtype is None else w.to(compute_dtype)
 
 
-def bn_apply(y, bn: nn.BatchNorm2d, n=None, *, bn_training=False, use_kernels=False):
+def bn_apply(y, bn: nn.BatchNorm2d, n=None, *, bn_training=False, use_kernels=False,
+             bn_group=None):
     """BN with the first `n` channels of `bn` (all if None): train mode
     (updating that prefix of the running statistics) when `bn_training`,
-    else normalized with the running statistics. A module's `update_var`
-    attribute, where set ("biased" during BN recalibration), picks the
-    variance the running statistics take."""
+    with the moments of every rank's rows given `bn_group`, else normalized
+    with the running statistics. A module's `update_var` attribute, where
+    set ("biased" during BN recalibration), picks the variance the running
+    statistics take."""
     if bn_training:
         return batch_norm_train(y, bn.weight[:n], bn.bias[:n], bn.running_mean[:n],
                                 bn.running_var[:n], momentum=bn.momentum, eps=bn.eps,
                                 update_var=getattr(bn, "update_var", "unbiased"),
-                                use_kernels=use_kernels)
+                                use_kernels=use_kernels, group=bn_group)
     return batch_norm(y, bn.weight[:n], bn.bias[:n], bn.running_mean[:n],
                       bn.running_var[:n], eps=bn.eps)
 
@@ -88,11 +92,11 @@ class ConvLayer(ConvBN):
         super().__init__(init(kernel_size, in_ch, out_ch, generator=generator))
 
     def forward(self, x, *, shuffle=None, bn_training=False, use_kernels=False,
-                compute_dtype=None):
+                compute_dtype=None, bn_group=None):
         """`shuffle`: None, "shuffle" or "unshuffle" (the JAX package's
         `conv_layer_apply` slot)."""
         y = bn_apply(conv2d(x, cast(self.conv.weight, compute_dtype)), self.bn,
-                     bn_training=bn_training, use_kernels=use_kernels)
+                     bn_training=bn_training, use_kernels=use_kernels, bn_group=bn_group)
         return shuffle_slot(y, shuffle)
 
 
@@ -137,11 +141,11 @@ class DynamicMBConvLayer(nn.Module):
                                       use_transform=bool(mats)).to(w.dtype)
 
     def forward(self, x, ks, mid, *, bn_training=False, use_kernels=False,
-                compute_dtype=None, spatial_mask=None):
+                compute_dtype=None, spatial_mask=None, bn_group=None):
         """`spatial_mask`: bucketed eval's (1, H, W, 1) mask, re-zeroing the
         pad before the depthwise conv (the BN bias made it nonzero)."""
         ib, dw, pl = self.inverted_bottleneck, self.depth_conv, self.point_linear
-        bn = dict(bn_training=bn_training, use_kernels=use_kernels)
+        bn = dict(bn_training=bn_training, use_kernels=use_kernels, bn_group=bn_group)
         y = relu6(bn_apply(conv2d(x, cast(ib.conv.weight[:mid], compute_dtype)), ib.bn, mid,
                            **bn))
         if spatial_mask is not None:

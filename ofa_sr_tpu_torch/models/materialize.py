@@ -13,6 +13,14 @@ block through the fused MBConv kernel and every 5x5 shuffle layer (the
 S4's) through the fused conv5x5+PixelShuffle kernel (ops/kernels/). As in
 the JAX package, the kernels need folded BN (asking for them with
 `fold_bn=False` raises), and the tail kernel turns `fold_tail` off.
+
+`subnet(x, row_valid=(lo, hi))` runs a frame whose rows outside [lo, hi)
+are not the frame's (row padding, or a slab's halos past the frame edge in
+spatial inference, parallel/spatial.py): those rows are re-zeroed before
+every spatial conv, so the valid rows come out as the unpadded frame's.
+The MBConv kernel takes the bounds itself (its mid activation never leaves
+the chip), and the shuffle-tail kernel's input is masked before its
+launch, as the JAX package masks the Pallas tail's.
 """
 
 from __future__ import annotations
@@ -106,6 +114,17 @@ def _channels_last(lp):
     the same memory format is not converted by PyTorch on every call."""
     return {k: (v.contiguous(memory_format=torch.channels_last)
                 if k == "w" else v) for k, v in lp.items()}
+
+
+def _row_mask(x, row_valid, f=1):
+    """x with the rows outside [lo*f, hi*f) zeroed (x itself for None):
+    `row_valid` is (lo, hi) at the input's resolution (LR rows in the
+    decoder and the encoder's trunk), `f` the current upscale factor."""
+    if row_valid is None:
+        return x
+    lo, hi = row_valid
+    rows = torch.arange(x.shape[1], device=x.device)
+    return x * ((rows >= lo * f) & (rows < hi * f)).to(x.dtype)[None, :, None, None]
 
 
 def _kernel_mbconv_args(bp):
@@ -233,67 +252,96 @@ class StaticSubnet:
                            eps=self.eps)
         return apply_act(y, act)
 
-    def _conv_layer(self, lp, x, *, shuffle=None):
+    def _conv_layer(self, lp, x, *, shuffle=None, row_valid=None, f=1):
+        x = _row_mask(x, row_valid, f)
         return shuffle_slot(self._post(lp, conv2d(x, lp["w"])), shuffle)
 
-    def _mbconv(self, bp, x):
-        """One MBConv block with its identity shortcut."""
+    def _mbconv(self, bp, x, row_valid=None):
+        """One MBConv block with its identity shortcut; the rows outside
+        `row_valid` are zeroed in its mid activation, before the depthwise
+        (the only spatial conv of the block)."""
         if "kernel" in bp:
-            return fused_mbconv_infer(x, *bp["kernel"], residual=True)
+            return fused_mbconv_infer(x, *bp["kernel"], residual=True, row_valid=row_valid)
         y = self._post(bp["ib"], conv2d(x, bp["ib"]["w"]), act="relu6")
+        y = _row_mask(y, row_valid)
         y = self._post(bp["dw"], depthwise_conv2d(y, bp["dw"]["w"]), act="relu6")
         y = self._post(bp["pl"], conv2d(y, bp["pl"]["w"]))
         return y + x
 
-    def _encode(self, x):
+    def _encode(self, x, rv):
+        """The encoder on the HR frame; `rv` the valid rows in LR
+        (bottleneck) units, so that at the HR input the factor is
+        2**pixel_d, halved by each unshuffle."""
         m = self.params
+        f = 2 ** self.pixel_d
         for ei, lp in enumerate(m["enc_unshuffle"]):
             if self.fold_tail:
                 fold = m["enc_unshuffle_folded"][ei]
-                x = conv2d(pixel_unshuffle(x, 2), fold["w"]) + fold["b"]
+                x = conv2d(pixel_unshuffle(_row_mask(x, rv, f), 2), fold["w"]) + fold["b"]
             else:
-                x = self._conv_layer(lp, x, shuffle="unshuffle")
+                x = self._conv_layer(lp, x, shuffle="unshuffle", row_valid=rv, f=f)
+            f //= 2
         skip = x
         for stage in m["enc_stages"]:
             for bp in stage:
-                x = self._mbconv(bp, x)
+                x = self._mbconv(bp, x, rv)
         for i, lp in enumerate(m["enc_final"]):
-            x = self._conv_layer(lp, x)
+            x = self._conv_layer(lp, x, row_valid=rv)
             if i == 0:
                 x = x + skip
         return x
 
+    def _lr_rows(self, row_valid):
+        """`row_valid` as (lo, hi) ints at the decoder's LR input: as given
+        in sr mode; in autoencoder mode the HR rows divided by 2**pixel_d,
+        which must divide them (the ModCrop contract: the valid region's
+        pixel-unshuffle grid is then the unpadded frame's)."""
+        if row_valid is None:
+            return None
+        lo, hi = (int(v) for v in row_valid)
+        if self.mode != "autoencoder":
+            return lo, hi
+        sc = 2 ** self.pixel_d
+        if lo % sc or hi % sc:
+            raise ValueError("autoencoder row_valid must be multiples of 2**pixel_d = %d "
+                             "(the pixel-unshuffle grid); got (%d, %d)" % (sc, lo, hi))
+        return lo // sc, hi // sc
+
     def __call__(self, x, row_valid=None):
         """x: the LR frame(s) (`mode="sr"`) or the HR frame(s)
-        (`mode="autoencoder"`), NHWC float32 on the subnet's device."""
-        if row_valid is not None:
-            raise NotImplementedError(
-                "row_valid (spatial-parallel inference) is not ported yet: ROADMAP queue 1 "
-                "item 10")
+        (`mode="autoencoder"`), NHWC float32 on the subnet's device.
+
+        `row_valid`: (lo, hi), the input rows that are the frame's; the
+        others are re-zeroed before every spatial conv, so the valid rows of
+        the output equal the unpadded frame's. In autoencoder mode lo and
+        hi are HR rows and multiples of 2**pixel_d."""
         m = self.params
+        rv = self._lr_rows(row_valid)
         if self.mode == "autoencoder":
-            x = self._encode(x)
-        x = self._conv_layer(m["dec_first"], x)
+            x = self._encode(x, rv)
+        x = self._conv_layer(m["dec_first"], x, row_valid=rv)
         skip = x
         for stage in m["dec_stages"]:
             for bp in stage:
-                x = self._mbconv(bp, x)
+                x = self._mbconv(bp, x, rv)
         for i, lp in enumerate(m["dec_final"]):
-            x = self._conv_layer(lp, x)
+            x = self._conv_layer(lp, x, row_valid=rv)
             if i == 0:
                 x = x + skip
+        f = 1
         for li, lp in enumerate(m["shuffle"]):
             if self.fold_tail and li == len(m["shuffle"]) - 1:
                 # keep the last shuffle conv's output at LR (256 ch): the
                 # folded output conv consumes the pre-shuffle layout
-                x = self._conv_layer(lp, x)
+                x = self._conv_layer(lp, x, row_valid=rv, f=f)
                 fold = m["dec_out_folded"]
-                return pixel_shuffle(conv2d(x, fold["w"]) + fold["b"], 2)
+                return pixel_shuffle(conv2d(_row_mask(x, rv, f), fold["w"]) + fold["b"], 2)
             if self.tail_kernel:
-                x = fused_shuffle_tail(x, lp["w_hwio"], lp["b"])
+                x = fused_shuffle_tail(_row_mask(x, rv, f), lp["w_hwio"], lp["b"])
             else:
-                x = self._conv_layer(lp, x, shuffle="shuffle")
-        return self._conv_layer(m["dec_out"], x)
+                x = self._conv_layer(lp, x, shuffle="shuffle", row_valid=rv, f=f)
+            f *= 2
+        return self._conv_layer(m["dec_out"], x, row_valid=rv, f=f)
 
 
 def get_active_subnet(net, cfg: SubnetConfig, *, fold_bn: bool = True,

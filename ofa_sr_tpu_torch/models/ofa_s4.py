@@ -78,7 +78,7 @@ class OFAMobileNetS4(nn.Module):
 
     def forward(self, x, cfg: SubnetConfig, pixel_d: int, *, mode: str = "sr",
                 bn_training: Optional[bool] = None, use_kernels: Optional[bool] = None,
-                compute_dtype: Optional[torch.dtype] = None, valid_hw=None):
+                compute_dtype: Optional[torch.dtype] = None, valid_hw=None, bn_group=None):
         """Forward of subnet `cfg` on NHWC `x`; 2^pixel_d upscale. `mode`
         is "sr", the only one of this decoder-only net (the X4 net's
         interface).
@@ -100,15 +100,21 @@ class OFAMobileNetS4(nn.Module):
         input; the pad is re-zeroed before every spatial conv, so the valid
         region equals the unpadded frame's output. Eval-mode BN only (batch
         moments would include the pad): raises under train-mode BN.
+
+        `bn_group` (data parallelism: the mesh's process group, x this
+        rank's rows of the global batch): every train-mode BN takes the
+        moments of all the ranks' rows (an all-reduce each way a BN).
         """
         if mode != "sr":
             raise ValueError("OFAMobileNetS4 has the decoder only: mode=%r needs an "
                              "OFAMobileNetX4" % (mode,))
-        x, kw = forward_args(self, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw)
+        x, kw = forward_args(self, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw,
+                             bn_group)
         return sr_decode(self, x, cfg, pixel_d, trunk=0, valid_hw=valid_hw, **kw)
 
 
-def forward_args(net, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw):
+def forward_args(net, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw,
+                 bn_group=None):
     """A supernet forward's checks and defaults: `cfg` sampled for the net's
     trunk count; train-mode BN by default on a training net; the kernels by
     default on a CUDA net; x cast to `compute_dtype`; no `valid_hw` under
@@ -123,7 +129,8 @@ def forward_args(net, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw)
                          "moments would include the pad")
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    return x, dict(bn_training=bn_training, use_kernels=use_kernels, compute_dtype=compute_dtype)
+    return x, dict(bn_training=bn_training, use_kernels=use_kernels, compute_dtype=compute_dtype,
+                   bn_group=bn_group)
 
 
 def run_trunk(blocks, x, cfg, space, trunk, *, spatial_mask=None, **kw):

@@ -123,23 +123,25 @@ class OFAMobileNetX4(nn.Module):
 
     def encode(self, x, cfg: SubnetConfig, pixel_d: int, *, bn_training: Optional[bool] = None,
                use_kernels: Optional[bool] = None, compute_dtype: Optional[torch.dtype] = None,
-               valid_hw=None):
+               valid_hw=None, bn_group=None):
         """HR image -> the 3-channel learned downscaled image, 2^pixel_d
         smaller. `valid_hw`: the real frame's (h, w) at the HR input; each
         unshuffle halves it."""
-        x, kw = forward_args(self, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw)
+        x, kw = forward_args(self, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw,
+                             bn_group)
         return self._encode(x, cfg, pixel_d, valid_hw, kw)
 
     def decode(self, x, cfg: SubnetConfig, pixel_d: int, *, bn_training: Optional[bool] = None,
                use_kernels: Optional[bool] = None, compute_dtype: Optional[torch.dtype] = None,
-               valid_hw=None):
+               valid_hw=None, bn_group=None):
         """3-channel LR image -> the HR reconstruction, 2^pixel_d larger."""
-        x, kw = forward_args(self, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw)
+        x, kw = forward_args(self, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw,
+                             bn_group)
         return sr_decode(self, x, cfg, pixel_d, trunk=1, valid_hw=valid_hw, **kw)
 
     def forward(self, x, cfg: SubnetConfig, pixel_d: int, *, mode: str = "sr",
                 bn_training: Optional[bool] = None, use_kernels: Optional[bool] = None,
-                compute_dtype: Optional[torch.dtype] = None, valid_hw=None):
+                compute_dtype: Optional[torch.dtype] = None, valid_hw=None, bn_group=None):
         """`mode="sr"`: the decoder on an LR input; `mode="autoencoder"`: the
         encoder, then the decoder, on an HR input. The other arguments are
         OFAMobileNetS4.forward's; in autoencoder mode `valid_hw` is at the
@@ -147,7 +149,8 @@ class OFAMobileNetX4(nn.Module):
         divided by 2^pixel_d."""
         if mode not in ("sr", "autoencoder"):
             raise ValueError("mode must be 'sr' or 'autoencoder', got %r" % (mode,))
-        x, kw = forward_args(self, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw)
+        x, kw = forward_args(self, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw,
+                             bn_group)
         if mode == "autoencoder":
             x = self._encode(x, cfg, pixel_d, valid_hw, kw)
             if valid_hw is not None:

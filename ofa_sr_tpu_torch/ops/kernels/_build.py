@@ -80,7 +80,7 @@ _VP, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # pointers (tensors), ints (shapes, flags), doubles (scalars), then the CUDA
 # stream; it returns the cudaError_t of its launches
 _FUNCTIONS = {
-    "ofa_mbconv_f32": ("mbconv", [_VP] * 8 + [_INT] * 7 + [_VP]),
+    "ofa_mbconv_f32": ("mbconv", [_VP] * 8 + [_INT] * 9 + [_VP]),
     "ofa_shuffle_tail_f32": ("shuffle_tail", [_VP] * 4 + [_INT] * 5 + [_VP]),
     "ofa_col_sums2_f32": ("bn_stats", [_VP] * 6 + [_INT] * 4 + [_VP]),
     "ofa_bn_backward_f32": ("bn_stats", [_VP] * 9 + [_INT] * 3 + [_VP]),
@@ -88,6 +88,12 @@ _FUNCTIONS = {
     "ofa_bn_backward_bf16": ("bn_stats", [_VP] * 9 + [_INT] * 3 + [_VP]),
     "ofa_bn_forward_f32": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP]),
     "ofa_bn_forward_bf16": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP]),
+    "ofa_bn_forward_from_sums_f32": ("bn_stats",
+                                     [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP]),
+    "ofa_bn_forward_from_sums_bf16": ("bn_stats",
+                                      [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP]),
+    "ofa_bn_backward_from_sums_f32": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_VP]),
+    "ofa_bn_backward_from_sums_bf16": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_VP]),
 }
 SOURCES = tuple(sorted({src for src, _ in _FUNCTIONS.values()}))
 _fns = {}   # C name -> the bound ctypes function

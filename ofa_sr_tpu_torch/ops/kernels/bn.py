@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from ...parallel.mesh import all_reduce_sum, world_size
 from .bn_stats import bn_backward, bn_forward
 
 
@@ -45,40 +46,49 @@ def _row_contiguous(t):
 
 class _BNTrainFused(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, running_mean, running_var, momentum, update_var):
+    def forward(ctx, x, scale, bias, eps, running_mean, running_var, momentum, update_var,
+                group):
         x = _row_contiguous(x)
         y, mean, var, inv = bn_forward(x, scale, bias, running_mean, running_var,
-                                       momentum=momentum, eps=eps, update_var=update_var)
+                                       momentum=momentum, eps=eps, update_var=update_var,
+                                       group=group)
         ctx.save_for_backward(x, scale, mean, inv)
+        ctx.group = group
         ctx.set_materialize_grads(False)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, dmean, dvar):
         x, scale, mean, inv = ctx.saved_tensors
+        group = ctx.group
         if dy is not None:
-            dx, dscale, dbias = bn_backward(_row_contiguous(dy), x, scale, mean, inv)
+            dx, dscale, dbias = bn_backward(_row_contiguous(dy), x, scale, mean, inv,
+                                            group=group)
             dscale, dbias = dscale.to(scale.dtype), dbias.to(scale.dtype)
         else:
             dx = torch.zeros_like(x, dtype=torch.float32)
             dscale = dbias = None
-        n = x.numel() // x.shape[-1]
+        # under a mesh the moments are every rank's, so each rank's rows
+        # take the cotangents of all the ranks' uses of them
+        n = x.numel() // x.shape[-1] * world_size(group)
         if dmean is not None:
-            dx = dx + dmean / n
+            dx = dx + all_reduce_sum(dmean.clone(), group) / n
         if dvar is not None:
-            dx = dx + dvar * 2.0 * (x.float() - mean) / n
-        return dx.to(x.dtype), dscale, dbias, None, None, None, None, None
+            dx = dx + all_reduce_sum(dvar.clone(), group) * 2.0 * (x.float() - mean) / n
+        return dx.to(x.dtype), dscale, dbias, None, None, None, None, None, None
 
 
 def bn_train_fused(x, scale, bias, eps=1e-5, running_mean=None, running_var=None, *,
-                   momentum=0.1, update_var="unbiased"):
+                   momentum=0.1, update_var="unbiased", group=None):
     """Train-mode BN over NHWC `x` with the statistics kernels; returns
     (y, mean, var): y in x.dtype, the batch moments (biased var) in float32.
     Differentiable in x, scale and bias. Given `running_mean` and
     `running_var`, the same call updates them in place with the momentum
-    EMA, from the unbiased or (`update_var="biased"`) the biased var."""
+    EMA, from the unbiased or (`update_var="biased"`) the biased var.
+    `group`: the moments are over every rank's rows, forward and backward
+    (`bn_forward`, `bn_backward`)."""
     return _BNTrainFused.apply(x, scale, bias, eps, running_mean, running_var, momentum,
-                               update_var)
+                               update_var, group)
 
 
 bn_train_fused.layout_copies = 0

@@ -8,6 +8,9 @@ ofa_sr_tpu/ops/pallas/bn_stats.py.
     bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps,
                update_var)     -> (y, mean, var, inv)
     bn_backward(dy, x, scale, m, inv) -> (dx, dscale, dbias)
+    bn_forward_from_sums(x, sums, scale, bias, running stats, *, n_total, ...)
+                               -> (y, mean, var, inv)
+    bn_backward_from_sums(dy, x, sums, scale, m, inv, *, n_total) -> dx
 
 all accumulated in float32, from float32 or bfloat16 activations (a, b,
 dy, x of one type; the vectors mean, inv, scale, bias and the running
@@ -40,8 +43,22 @@ with a float32 x. `col_sums2.launches` counts the launches of the col_sums2
 kernel (from `col_sums2` or `bn_moments`), `bn_moments.launches` those made
 by `bn_moments`, `bn_bwd_sums.launches` those of the sums-only backward
 kernel, `bn_forward.launches` those of the fused forward and
-`bn_backward.launches` those of the fused backward, of both forms; each
-wrapper's `launches_bf16` counts its bf16 launches alone.
+`bn_backward.launches` those of the fused backward,
+`bn_forward_from_sums.launches` and `bn_backward_from_sums.launches` those
+of the two apply entry points; each wrapper's `launches_bf16` counts its
+bf16 launches alone. A call under a mesh launches no fused kernel: it
+counts under `col_sums2` or `bn_bwd_sums` (pass 1) and the apply entry
+point.
+
+Under a mesh (`group`, data parallelism) `bn_forward` and `bn_backward`
+take the statistics of every rank's rows, as the JAX package's BN does over
+a batch sharded under jit: this rank's column totals (pass 1 and its sums,
+`col_sums2` mode 3 or `bn_bwd_sums`), an all-reduce of them across the
+ranks (torch.distributed, outside any kernel), then the apply part from
+the totals and the global row count (`bn_forward_from_sums`,
+`bn_backward_from_sums`), whose arithmetic is the fused call's: at one rank
+the same bits. The plain versions take the same group and all-reduce the
+same totals.
 
 A wrapper call is host work the training step waits on (~90 calls a step):
 the pass-1 grid is cached per (N, C, device), and each call allocates one
@@ -60,12 +77,15 @@ import functools
 
 import torch
 
+from ...parallel.mesh import all_reduce_sum, world_size
 from . import _build
 
 COL_TILE = 256        # threads of a pass-1 block = widest column tile
 BLOCKS_PER_SM = 4     # pass-1 blocks aimed at per SM
 MIN_ROW_STEPS = 8     # rows a pass-1 thread sums at least
-MODE_SUMS2, MODE_MOMENTS, MODE_BWD = 0, 1, 2  # csrc/bn_stats.cu
+# csrc/bn_stats.cu's pass-1 modes; MODE_FWD_SUMS is (sum x, sum x*x) read
+# once, the forward's totals under a mesh
+MODE_SUMS2, MODE_MOMENTS, MODE_BWD, MODE_FWD_SUMS = 0, 1, 2, 3
 UPDATE_VARS = ("unbiased", "biased")
 # the activation types the kernels take: the suffix of their C entry points,
 # and the column groups a pass-1 thread reads, widest first (16 bytes, then
@@ -92,31 +112,42 @@ def bn_bwd_sums_reference(dy, x, mean, inv):
     return dy.sum(0), (dy * xhat).sum(0)
 
 
-def bn_backward_reference(dy, x, scale, mean, inv):
+def bn_backward_reference(dy, x, scale, mean, inv, *, group=None):
     """(dx, dscale, dbias) of train-mode BN, written as the JAX package's VJP
     (ofa_sr_tpu/ops/pallas/bn.py `_bwd`, zero moment cotangents); dy, x with
     channels last, dx in x's shape and dy's type (one rounding from float32,
-    as the JAX VJP's `dx.astype(x.dtype)`), dscale and dbias float32."""
+    as the JAX VJP's `dx.astype(x.dtype)`), dscale and dbias float32.
+    `group`: the sums of dx's coefficients are taken over the ranks' rows
+    (`bn_backward`'s contract)."""
     c = x.shape[-1]
     n = x.numel() // c
-    dyf = dy.float()
+    s1, s2 = bn_bwd_sums_reference(dy.reshape(n, c), x.reshape(n, c), mean, inv)
+    dx = bn_backward_from_sums_reference(dy, x, all_reduce_sum(torch.cat([s1, s2]), group),
+                                         scale, mean, inv, n_total=n * world_size(group))
+    return dx, s2, s1
+
+
+def bn_backward_from_sums_reference(dy, x, sums, scale, mean, inv, *, n_total):
+    """dx of train-mode BN from the totals sums = [sum dy | sum dy*xhat]
+    over `n_total` rows (every rank's), for this rank's dy and x."""
+    c = x.shape[-1]
     xhat = (x.float() - mean) * inv
-    s1, s2 = bn_bwd_sums_reference(dyf.reshape(n, c), x.reshape(n, c), mean, inv)
-    dx = (inv * scale.float()) * (dyf - s1 / n - xhat * s2 / n)
-    return dx.to(dy.dtype), s2, s1
+    dx = (inv * scale.float()) * (dy.float() - sums[:c] / n_total - xhat * sums[c:] / n_total)
+    return dx.to(dy.dtype)
 
 
 def bn_forward_from_moments(x, scale, bias, running_mean, running_var, mean, var, *,
-                            momentum, eps, update_var):
+                            momentum, eps, update_var, n_total=None):
     """The forward's arithmetic after the moments, as PyTorch ops in the
     kernel's association: inv, y (x's type) and the running statistics'
-    update in place (skipped where they are None). Returns (y, mean, var,
-    inv)."""
+    update in place (skipped where they are None), whose unbiased var
+    takes the moments' row count `n_total` (by default x's rows). Returns
+    (y, mean, var, inv)."""
     inv = torch.rsqrt(var + eps)
     y = ((x.float() - mean) * (inv * scale.float()) + bias.float()).to(x.dtype)
     if running_mean is not None:
         with torch.no_grad():
-            n = x.numel() // x.shape[-1]
+            n = x.numel() // x.shape[-1] if n_total is None else n_total
             var_for_update = var * (n / max(n - 1, 1)) if update_var == "unbiased" else var
             running_mean.copy_((1 - momentum) * running_mean + momentum * mean)
             running_var.copy_((1 - momentum) * running_var + momentum * var_for_update)
@@ -124,13 +155,31 @@ def bn_forward_from_moments(x, scale, bias, running_mean, running_var, mean, var
 
 
 def bn_forward_reference(x, scale, bias, running_mean, running_var, *, momentum, eps,
-                         update_var):
+                         update_var, group=None):
     """(y, mean, var, inv) of train-mode BN over NHWC x (channels last),
     updating the running statistics in place: the moments' plain version,
-    then `bn_forward_from_moments`."""
-    mean, var = bn_moments_reference(x)
+    then `bn_forward_from_moments`. `group`: the moments of every rank's
+    rows (`bn_forward`'s contract)."""
+    flat = x.reshape(-1, x.shape[-1])
+    sums = all_reduce_sum(torch.cat(col_sums2_reference(flat, flat)), group)
+    return bn_forward_from_sums_reference(
+        x, sums, scale, bias, running_mean, running_var,
+        n_total=flat.shape[0] * world_size(group), momentum=momentum, eps=eps,
+        update_var=update_var)
+
+
+def bn_forward_from_sums_reference(x, sums, scale, bias, running_mean, running_var, *,
+                                   n_total, momentum, eps, update_var):
+    """(y, mean, var, inv) of train-mode BN from the totals sums = [sum x |
+    sum x*x] over `n_total` rows (every rank's), for this rank's x: mean =
+    s1/N, var = s2/N - mean^2, as `bn_moments_reference`; the running
+    statistics take N."""
+    c = x.shape[-1]
+    mean = sums[:c] / n_total
+    var = sums[c:] / n_total - torch.square(mean)
     return bn_forward_from_moments(x, scale, bias, running_mean, running_var, mean, var,
-                                   momentum=momentum, eps=eps, update_var=update_var)
+                                   momentum=momentum, eps=eps, update_var=update_var,
+                                   n_total=n_total)
 
 
 @functools.lru_cache(maxsize=None)
@@ -189,10 +238,11 @@ def _count(wrapper, suffix):
 
 
 def _launch(mode, a, b, mean=None, inv=None):
-    """Both passes of csrc/bn_stats.cu; returns the two (C,) float32 results
-    and the entry point's suffix. A call allocates one buffer, [out (2C) |
-    partials (2CG)], and passes pointers into it: tensor views would cost
-    more host time than the small launches take on the device."""
+    """Both passes of csrc/bn_stats.cu; returns the (2C,) float32 results,
+    [first | second], and the entry point's suffix. A call allocates one
+    buffer, [out (2C) | partials (2CG)], and passes pointers into it: tensor
+    views would cost more host time than the small launches take on the
+    device."""
     n, c, suffix = _check(a, b, mean=mean, inv=inv)
     device = a.device
     g = _grid(n, c, suffix, device)
@@ -200,8 +250,12 @@ def _launch(mode, a, b, mean=None, inv=None):
     _build.launch("ofa_col_sums2_" + suffix, device, a, b, mean, inv, buf.data_ptr() + 8 * c,
                   buf, n, c, g, mode)
     _count(bn_bwd_sums if mode == MODE_BWD else col_sums2, suffix)
-    first, second, _ = buf.split((c, c, 2 * c * g))
-    return first, second, suffix
+    return buf[:2 * c], suffix
+
+
+def _pair(out):
+    c = out.shape[0] // 2
+    return out[:c], out[c:]
 
 
 def col_sums2(a, b):
@@ -210,7 +264,7 @@ def col_sums2(a, b):
         return col_sums2_reference(a, b)
     if a.ndim != 2:
         raise ValueError("col_sums2 takes (N, C) arrays; got %s" % (tuple(a.shape),))
-    return _launch(MODE_SUMS2, a, b)[:2]
+    return _pair(_launch(MODE_SUMS2, a, b)[0])
 
 
 def bn_moments(x):
@@ -220,9 +274,9 @@ def bn_moments(x):
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError("bn_moments takes a contiguous NHWC tensor; got shape %s "
                          "contiguous=%s" % (tuple(x.shape), x.is_contiguous()))
-    mean, var, suffix = _launch(MODE_MOMENTS, x, x)
+    out, suffix = _launch(MODE_MOMENTS, x, x)
     _count(bn_moments, suffix)
-    return mean, var
+    return _pair(out)
 
 
 def bn_bwd_sums(dy, x, mean, inv):
@@ -232,11 +286,11 @@ def bn_bwd_sums(dy, x, mean, inv):
         return bn_bwd_sums_reference(dy, x, mean, inv)
     if dy.ndim != 2:
         raise ValueError("bn_bwd_sums takes (N, C) arrays; got %s" % (tuple(dy.shape),))
-    return _launch(MODE_BWD, dy, x, mean, inv)[:2]
+    return _pair(_launch(MODE_BWD, dy, x, mean, inv)[0])
 
 
 def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
-               update_var="unbiased"):
+               update_var="unbiased", group=None):
     """Train-mode BN of row-contiguous, channels-last x (an NHWC tensor or
     its (N, C) view) in one kernel call: (y, mean, var, inv), y in x's
     type and shape, the batch moments (biased var) and inv = rsqrt(var +
@@ -244,7 +298,14 @@ def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
     (prefix views of a wider BN's buffers too) or both None, take
     r = (1 - momentum)*r + momentum*stat in place, from the unbiased var
     (torch train mode) or the biased one (`update_var="biased"`, BN
-    recalibration)."""
+    recalibration).
+
+    `group` (a torch.distributed process group; every rank holding as many
+    rows): the moments are those of every rank's rows, and the unbiased
+    var takes their count. On the card that is two calls with an
+    all-reduce of the (2, C) totals between them: pass 1 and its sums
+    (`col_sums2`'s mode 3), then `bn_forward_from_sums`; at one rank the
+    bits of the call without a group."""
     if momentum is None:
         raise ValueError("bn_forward takes a float momentum (the EMA), not None")
     if update_var not in UPDATE_VARS:
@@ -254,7 +315,8 @@ def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
     device = x.device
     if device.type == "cpu":
         return bn_forward_reference(x, scale, bias, running_mean, running_var,
-                                    momentum=momentum, eps=eps, update_var=update_var)
+                                    momentum=momentum, eps=eps, update_var=update_var,
+                                    group=group)
     suffix = kernel_suffix(x)
     c = x.shape[-1] if x.ndim else 0
     for name, r in (("running_mean", running_mean), ("running_var", running_var)):
@@ -265,6 +327,10 @@ def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
         raise ValueError("bn_forward takes a row-contiguous x; got strides %s" % (x.stride(),))
     n, c, suffix = _check(x, x, scale=scale, bias=bias, running_mean=running_mean,
                           running_var=running_var)
+    if group is not None:
+        sums = all_reduce_sum(_launch(MODE_FWD_SUMS, x, x)[0], group)
+        return _forward_from_sums(x, sums, scale, bias, running_mean, running_var, n, c,
+                                  n * world_size(group), suffix, momentum, eps, update_var)
     g = _grid(n, c, suffix, device)
     y = torch.empty_like(x)
     # [mean | var | inv | inv*scale (4C) | partials (2CG)]
@@ -278,16 +344,27 @@ def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
     return y, mean, var, inv
 
 
-def bn_backward(dy, x, scale, mean, inv):
+def bn_backward(dy, x, scale, mean, inv, *, group=None):
     """(dx, dscale, dbias) of train-mode BN from the saved (x, scale, mean,
     inv) and the output's cotangent dy, in one kernel call: the two column
     sums, then dx with xhat formed in the kernel. dy and x are row-contiguous
     with channels last (an NHWC tensor or its (N, C) view), of one type; dx
-    has dy's shape and type. scale, mean, inv: (C,) float32."""
+    has dy's shape and type. scale, mean, inv: (C,) float32.
+
+    `group` (the forward's): dx takes the sums over every rank's rows (an
+    all-reduce of the (2, C) totals between this rank's sums, `bn_bwd_sums`,
+    and `bn_backward_from_sums`); dscale and dbias stay this rank's sums,
+    its share of the parameters' gradient, which the trainer's gradient
+    all-reduce adds up with every other parameter's."""
     device = dy.device
     if device.type == "cpu":
-        return bn_backward_reference(dy, x, scale, mean, inv)
+        return bn_backward_reference(dy, x, scale, mean, inv, group=group)
     n, c, suffix = _check(dy, x, mean=mean, inv=inv, scale=scale)
+    if group is not None:
+        local = _launch(MODE_BWD, dy, x, mean, inv)[0]
+        dx = _backward_from_sums(dy, x, all_reduce_sum(local.clone(), group), scale, mean, inv,
+                                 n, c, n * world_size(group), suffix)
+        return dx, local[c:], local[:c]
     g = _grid(n, c, suffix, device)
     dx = torch.empty_like(dy)
     # [dbias (C) | dscale (C) | coef (3C) | partials (2CG)]: the coefficients
@@ -301,5 +378,81 @@ def bn_backward(dy, x, scale, mean, inv):
     return dx, dscale, dbias
 
 
-for _wrapper in (col_sums2, bn_moments, bn_bwd_sums, bn_forward, bn_backward):
+def _check_total(n, n_total):
+    if not n <= n_total < 2 ** 31:
+        raise ValueError("n_total (every rank's rows) must be at least this rank's %d and "
+                         "below 2**31; got %r" % (n, n_total))
+
+
+def bn_forward_from_sums(x, sums, scale, bias, running_mean, running_var, *, n_total,
+                         momentum, eps=1e-5, update_var="unbiased"):
+    """The apply part of `bn_forward` under a mesh: (y, mean, var, inv) for
+    this rank's x from `sums` = [sum x | sum x*x] (2C float32) over
+    `n_total` rows of every rank, the running statistics updated in place
+    (the unbiased var from n_total). One call of two launches on the card
+    (csrc/bn_stats.cu `ofa_bn_forward_from_sums_*`: the finish of the fused
+    forward on the totals, then its normalize)."""
+    if update_var not in UPDATE_VARS:
+        raise ValueError("update_var must be 'unbiased' or 'biased', got %r" % (update_var,))
+    if (running_mean is None) != (running_var is None):
+        raise ValueError("bn_forward_from_sums takes both running statistics or neither")
+    if x.device.type == "cpu":
+        return bn_forward_from_sums_reference(
+            x, sums, scale, bias, running_mean, running_var, n_total=n_total,
+            momentum=momentum, eps=eps, update_var=update_var)
+    if not x.is_contiguous():
+        raise ValueError("bn_forward_from_sums takes a row-contiguous x; got strides %s"
+                         % (x.stride(),))
+    n, c, suffix = _check(x, x, scale=scale, bias=bias, running_mean=running_mean,
+                          running_var=running_var)
+    _check_total(n, n_total)
+    _build.require_cuda(x.device, torch.float32, sums=sums)
+    if sums.shape != (2 * c,):
+        raise ValueError("sums must be (2C,) = (%d,); got %s" % (2 * c, tuple(sums.shape)))
+    return _forward_from_sums(x, sums, scale, bias, running_mean, running_var, n, c, n_total,
+                              suffix, momentum, eps, update_var)
+
+
+def _forward_from_sums(x, sums, scale, bias, running_mean, running_var, n, c, n_total, suffix,
+                       momentum, eps, update_var):
+    """`bn_forward_from_sums`'s launch on checked operands (`bn_forward`
+    under a mesh calls it after its own checks)."""
+    y = torch.empty_like(x)
+    stats = torch.empty(4 * c, device=x.device, dtype=torch.float32)
+    _build.launch("ofa_bn_forward_from_sums_" + suffix, x.device, x, sums, scale, bias,
+                  running_mean, running_var, stats, y, n, c, n_total, momentum, eps,
+                  update_var == "unbiased")
+    _count(bn_forward_from_sums, suffix)
+    mean, var, inv, _ = stats.split(c)
+    return y, mean, var, inv
+
+
+def bn_backward_from_sums(dy, x, sums, scale, mean, inv, *, n_total):
+    """The apply part of `bn_backward` under a mesh: dx for this rank's dy
+    and x from `sums` = [sum dy | sum dy*xhat] (2C float32) over `n_total`
+    rows of every rank. One call of two launches on the card
+    (csrc/bn_stats.cu `ofa_bn_backward_from_sums_*`: the dx coefficients,
+    then the fused backward's dx pass)."""
+    if dy.device.type == "cpu":
+        return bn_backward_from_sums_reference(dy, x, sums, scale, mean, inv, n_total=n_total)
+    n, c, suffix = _check(dy, x, mean=mean, inv=inv, scale=scale)
+    _check_total(n, n_total)
+    _build.require_cuda(dy.device, torch.float32, sums=sums)
+    if sums.shape != (2 * c,):
+        raise ValueError("sums must be (2C,) = (%d,); got %s" % (2 * c, tuple(sums.shape)))
+    return _backward_from_sums(dy, x, sums, scale, mean, inv, n, c, n_total, suffix)
+
+
+def _backward_from_sums(dy, x, sums, scale, mean, inv, n, c, n_total, suffix):
+    """`bn_backward_from_sums`'s launch on checked operands."""
+    dx = torch.empty_like(dy)
+    coef = torch.empty(3 * c, device=dy.device, dtype=torch.float32)
+    _build.launch("ofa_bn_backward_from_sums_" + suffix, dy.device, dy, x, sums, scale, mean,
+                  inv, coef, dx, n, c, n_total)
+    _count(bn_backward_from_sums, suffix)
+    return dx
+
+
+for _wrapper in (col_sums2, bn_moments, bn_bwd_sums, bn_forward, bn_backward,
+                 bn_forward_from_sums, bn_backward_from_sums):
     _wrapper.launches = _wrapper.launches_bf16 = 0

@@ -8,6 +8,13 @@ ofa_sr_tpu/ops/pallas/mbconv.py.
 x: [B,H,W,C] float32; ib_w [C,M]; ib_b [M]; dw_w [k,k,M]; dw_b [M];
 pl_w [M,C]; pl_b [C] (the Pallas kernel's layouts).
 
+`row_valid=(lo, hi)`: the mid activation (after the expand's relu6) is
+zeroed outside rows [lo, hi), as the JAX static subnet's `_row_mask` zeroes
+it for a row-padded frame or a slab with halos
+(ofa_sr_tpu/models/materialize.py `_mbconv`); x, the project and the
+residual are not masked. The bounds are clipped to [0, H]; None is (0, H),
+the unbounded block.
+
 `fused_mbconv_infer` launches the hand-written kernel in csrc/mbconv.cu for
 a CUDA tensor and takes the plain version, `mbconv_reference`, only for a CPU
 tensor. The kernel takes any H, W and M, k in {3, 5, 7}, and C a
@@ -39,15 +46,33 @@ def _conv1x1(x, w):
     return conv2d(x, w.t()[:, :, None, None])
 
 
-def mbconv_reference(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=True):
+def row_bounds(row_valid, h):
+    """(lo, hi) of `row_valid` clipped to [0, h]; (0, h) for None."""
+    if row_valid is None:
+        return 0, h
+    lo, hi = (min(max(int(v), 0), h) for v in row_valid)
+    return lo, hi
+
+
+def _mask_rows(t, row_valid):
+    """t with the rows outside row_valid zeroed (t itself for None)."""
+    if row_valid is None:
+        return t
+    lo, hi = row_bounds(row_valid, t.shape[1])
+    rows = torch.arange(t.shape[1], device=t.device)
+    return t * ((rows >= lo) & (rows < hi)).to(t.dtype)[None, :, None, None]
+
+
+def mbconv_reference(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=True, row_valid=None):
     """The plain composition with the same semantics."""
-    h = relu6(_conv1x1(x, ib_w) + ib_b)
+    h = _mask_rows(relu6(_conv1x1(x, ib_w) + ib_b), row_valid)
     h = relu6(depthwise_conv2d(h, dw_w.permute(2, 0, 1)[:, None]) + dw_b)
     y = _conv1x1(h, pl_w) + pl_b
     return y + x if residual else y
 
 
-def mbconv_3xtf32_emulated(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=True):
+def mbconv_3xtf32_emulated(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=True,
+                           row_valid=None):
     """The kernel's arithmetic: the plain composition with each 1x1 conv done
     as three float32 convolutions of the split operands (small*big +
     big*small + big*big), summed."""
@@ -56,20 +81,22 @@ def mbconv_3xtf32_emulated(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=Tr
         us, ws = tf32_round(u - ub), tf32_round(w - wb)
         return _conv1x1(us, wb) + _conv1x1(ub, ws) + _conv1x1(ub, wb)
 
-    h = relu6(conv3(x, ib_w) + ib_b)
+    h = _mask_rows(relu6(conv3(x, ib_w) + ib_b), row_valid)
     h = relu6(depthwise_conv2d(h, dw_w.permute(2, 0, 1)[:, None]) + dw_b)
     y = conv3(h, pl_w) + pl_b
     return y + x if residual else y
 
 
-def fused_mbconv_infer(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=True):
+def fused_mbconv_infer(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=True,
+                       row_valid=None):
     """Fused MBConv on NHWC `x`; returns a new [B,H,W,C] float32 tensor.
-    x is float32; the weights float32 or bf16 (taken as float32, exact)."""
+    x is float32; the weights float32 or bf16 (taken as float32, exact).
+    `row_valid`: (lo, hi), the rows the mid activation keeps."""
     ib_w, ib_b, dw_w, dw_b, pl_w, pl_b = _build.serving_operands(
         "fused_mbconv_infer", x, (ib_w, ib_b, dw_w, dw_b, pl_w, pl_b))
     if x.device.type == "cpu":
         return mbconv_reference(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b,
-                                residual=residual)
+                                residual=residual, row_valid=row_valid)
     b, h, w, c = x.shape
     m, ks = ib_w.shape[1], dw_w.shape[0]
     _build.require_cuda_f32(x.device, x=x, ib_w=ib_w, ib_b=ib_b, dw_w=dw_w,
@@ -83,9 +110,10 @@ def fused_mbconv_infer(x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, *, residual=True):
             "matching weights; got x %s ib_w %s dw_w %s pl_w %s" % (
                 KERNEL_SIZES, MAX_CHANNELS, tuple(x.shape), tuple(ib_w.shape),
                 tuple(dw_w.shape), tuple(pl_w.shape)))
+    lo, hi = row_bounds(row_valid, h)
     out = torch.empty_like(x)
     _build.launch("ofa_mbconv_f32", x.device, x, ib_w, ib_b, dw_w, dw_b, pl_w, pl_b, out,
-                  b, h, w, c, m, ks, int(residual))
+                  b, h, w, c, m, ks, int(residual), lo, hi)
     fused_mbconv_infer.launches += 1
     return out
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import all_reduce_sum_autograd, world_size
 from .kernels.bn import bn_train_fused
 
 
@@ -38,7 +39,7 @@ def batch_moments(x):
 
 
 def batch_norm_train(x, scale, bias, running_mean, running_var, *, momentum=0.1,
-                     eps=1e-5, update_var="unbiased", use_kernels=False):
+                     eps=1e-5, update_var="unbiased", use_kernels=False, group=None):
     """Train-mode BN of NHWC `x`; updates `running_mean` / `running_var` in
     place and returns y.
 
@@ -46,18 +47,31 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *, momentum=0.1,
     statistics' update, one call) and the backward through the
     BN-statistics kernels (`bn_train_fused`, for every channel count);
     otherwise the plain autograd branch runs.
+
+    `group` (a torch.distributed process group, data parallelism): the
+    moments are those of every rank's rows, as the JAX package's are over
+    a batch sharded under jit; the plain branch forms them from the
+    all-reduced (sum x, sum x^2) as E[x^2] - mean^2, the JAX formula, and
+    the all-reduce carries their gradient back to every rank.
     """
     if update_var not in ("unbiased", "biased"):
         raise ValueError("update_var must be 'unbiased' or 'biased', got %r" % update_var)
     if use_kernels:
         return bn_train_fused(x, scale, bias, eps, running_mean, running_var,
-                              momentum=momentum, update_var=update_var)[0]
+                              momentum=momentum, update_var=update_var, group=group)[0]
     xf = x.float()
-    mean, var = batch_moments(xf)
+    n = x.numel() // x.shape[-1]
+    if group is None:
+        mean, var = batch_moments(xf)
+    else:
+        n *= world_size(group)
+        sums = all_reduce_sum_autograd(
+            torch.stack([xf.sum(dim=(0, 1, 2)), torch.square(xf).sum(dim=(0, 1, 2))]), group)
+        mean = sums[0] / n
+        var = sums[1] / n - torch.square(mean)
     inv = torch.reciprocal(torch.sqrt(var + eps))
     y = ((xf - mean) * inv * scale.float() + bias.float()).to(x.dtype)
     with torch.no_grad():
-        n = x.numel() // x.shape[-1]
         var_for_update = var * (n / max(n - 1, 1)) if update_var == "unbiased" else var
         running_mean.copy_((1 - momentum) * running_mean + momentum * mean)
         running_var.copy_((1 - momentum) * running_var + momentum * var_for_update)

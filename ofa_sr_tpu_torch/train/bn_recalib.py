@@ -16,6 +16,13 @@ wherever the sentinel survived. The reference calibrates on the HR image
 ("image") even for SR nets; pass `input_key` "x2" / "x4" for the input
 resolution. `mode` is the net's forward's ("autoencoder": an X4 net's
 encoder and decoder).
+
+Under a mesh each rank passes the same global batches and runs its rows of
+each (`parallel.shard_batch`) with the moments taken over every rank's rows,
+so the statistics are the global batch's, as the JAX package's are under a
+sharded jit, and the same on every rank; a batch whose rows do not split
+over the ranks runs whole on every rank, without a collective (as JAX runs
+an unsharded batch).
 """
 
 from __future__ import annotations
@@ -23,13 +30,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.mesh import shard_batch
+
 _SENTINEL = 1e30
 
 
 def bn_recalibrate(net, cfg, pixel_d, batches, *, input_key="image", use_kernels=None,
-                   mode="sr"):
+                   mode="sr", mesh=None):
     """Recalibrate `net`'s running statistics in place for subnet `cfg` at
-    `pixel_d` over `batches` (dicts of numpy arrays or tensors)."""
+    `pixel_d` over `batches` (dicts of numpy arrays or tensors), with the
+    global batches' moments under `mesh`."""
     bns = [m for m in net.modules() if isinstance(m, nn.BatchNorm2d)]
     saved = [(m.momentum, m.running_mean.clone(), m.running_var.clone()) for m in bns]
     total, n = None, 0
@@ -38,12 +48,16 @@ def bn_recalibrate(net, cfg, pixel_d, batches, *, input_key="image", use_kernels
             m.momentum, m.update_var = 1.0, "biased"
         with torch.no_grad():
             for batch in batches:
-                x = torch.as_tensor(batch[input_key]).to(net.device)
+                x = torch.as_tensor(batch[input_key])
+                w, group = x.shape[0], None
+                if mesh is not None and mesh.group is not None and w % mesh.world == 0:
+                    x, group = shard_batch(x, mesh), mesh.group
+                x = x.to(net.device)
                 for m in bns:
                     m.running_mean.fill_(_SENTINEL)
                     m.running_var.fill_(_SENTINEL)
-                net(x, cfg, pixel_d, bn_training=True, use_kernels=use_kernels, mode=mode)
-                w = x.shape[0]
+                net(x, cfg, pixel_d, bn_training=True, use_kernels=use_kernels, mode=mode,
+                    bn_group=group)
                 st = [t * w for m in bns for t in (m.running_mean, m.running_var)]
                 total = st if total is None else [a + b for a, b in zip(total, st)]
                 n += w

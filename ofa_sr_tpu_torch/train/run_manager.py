@@ -14,7 +14,16 @@ a step adds no host-device synchronisation.
 
 Left out of the JAX package's RunConfig: the XLA-only execution levers
 (`steps_per_dispatch`, `remat`, `ks_switch`, `dw_switch`, `dw_align`,
-`s2d`; ROADMAP queue 1 item 14). A mesh waits for item 10 and raises.
+`s2d`; ROADMAP queue 1 item 14).
+
+With a `mesh` (data parallelism, one process a device, every rank running
+the same run over the same provider): the parameters are broadcast from
+rank 0 at the start, each training batch is split over the ranks
+(`parallel.shard_batch`) and the trainer takes the global batch's BN
+moments, gradient and metrics; validation runs whole on every rank, as the
+JAX package runs it replicated; checkpoints, `latest.txt`, the logs and the
+run's info files are written by rank 0 alone, the process-per-device form
+of JAX's single writer.
 
 One difference from the JAX package: `reset_running_statistics` of an
 autoencoder run recalibrates in autoencoder mode, as `validate` does; the
@@ -41,6 +50,7 @@ from ..models.arch import (
     subnet_seed,
     uniform_subnet,
 )
+from ..parallel.mesh import shard_batch, shard_params
 from ..utils.common import AverageMeter
 from .bn_recalib import bn_recalibrate
 from .checkpoint import (
@@ -153,19 +163,21 @@ class SRRunManager:
     """Owns one training run of an OFAMobileNetS4 or OFAMobileNetX4 supernet.
 
     `net` carries its weights (seeded at construction, or loaded); `teacher`
-    is (teacher net, its SubnetConfig) for KD when kd_ratio > 0."""
+    is (teacher net, its SubnetConfig) for KD when kd_ratio > 0; `mesh` a
+    `parallel.Mesh` for a data-parallel run."""
 
     def __init__(self, path, net, run_config: RunConfig, provider, *,
                  teacher=None, mesh=None, use_kernels: Optional[bool] = None):
-        if mesh is not None:
-            raise NotImplementedError("data-parallel runs over a mesh are not ported yet: "
-                                      "ROADMAP queue 1 item 10")
         self.path = path
         self.net = net
         self.run_config = run_config
         self.provider = provider
-        os.makedirs(self.logs_path, exist_ok=True)
-        os.makedirs(self.save_path, exist_ok=True)
+        self.mesh = mesh
+        # the one process that writes files
+        self.writer = mesh is None or mesh.rank == 0
+        if self.writer:
+            os.makedirs(self.logs_path, exist_ok=True)
+            os.makedirs(self.save_path, exist_ok=True)
 
         self.start_epoch = 0
         self.best_acc = -1e9  # best mean PSNR ("best_acc" naming kept)
@@ -179,12 +191,17 @@ class SRRunManager:
             momentum=run_config.momentum, nesterov=run_config.nesterov,
             clip_grad_norm=run_config.clip_grad_norm, bn_frozen=run_config.bn_frozen,
             use_kernels=use_kernels, compute_dtype=_compute_dtype_of(run_config),
-            mode=run_config.mode, **kd)
+            mode=run_config.mode, mesh=mesh, **kd)
+        if mesh is not None:
+            shard_params(net, mesh)
         self._write_net_info()
 
-    def _to_device(self, batch):
+    def _to_device(self, batch, shard=False):
         """Tensors on the net's device, copied without blocking the host
-        from pinned memory on a GPU; "valid_hw" stays host ints."""
+        from pinned memory on a GPU; "valid_hw" stays host ints. `shard`:
+        this rank's rows of the batch under a mesh."""
+        if shard and self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
         dev = self.net.device
         out = {}
         for k, v in batch.items():
@@ -208,7 +225,10 @@ class SRRunManager:
 
     def write_log(self, log_str, prefix="valid", should_print=True):
         """Append to logs/valid_console.txt ("valid", "test") or
-        logs/train_console.txt (anything else)."""
+        logs/train_console.txt (anything else); rank 0's alone under a
+        mesh."""
+        if not self.writer:
+            return
         fname = {"valid": "valid_console.txt", "test": "valid_console.txt"}.get(
             prefix, "train_console.txt")
         with open(os.path.join(self.logs_path, fname), "a") as f:
@@ -219,6 +239,8 @@ class SRRunManager:
             print(log_str)
 
     def _write_net_info(self):
+        if not self.writer:
+            return
         n_params = sum(p.numel() for p in self.net.parameters())
         info = {"name": type(self.net).__name__, "param_count": n_params,
                 "space": dataclasses.asdict(self.net.space)}
@@ -230,6 +252,10 @@ class SRRunManager:
     # -- checkpointing --------------------------------------------------------
 
     def save_model(self, *, epoch, is_best=False, name=CHECKPOINT_NAME):
+        """Write the checkpoint (rank 0 alone under a mesh; the others
+        return None)."""
+        if not self.writer:
+            return None
         return save_checkpoint(
             self.save_path,
             {"epoch": epoch, "best_acc": self.best_acc, "model": self.net.state_dict(),
@@ -320,7 +346,7 @@ class SRRunManager:
                             warmup_epochs=rc.warmup_epochs, warmup_lr=rc.warmup_lr,
                             lr_schedule_type=rc.lr_schedule_type)
             cfgs = self.sample_archs(epoch, n_batch, i, constraints, fixed_cfg)
-            m = self.trainer.train_step(self._to_device(batch), cfgs, lr)
+            m = self.trainer.train_step(self._to_device(batch, shard=True), cfgs, lr)
             n = batch["image"].shape[0]
             step = torch.stack([m["loss"], m["psnr"]]) * n
             sums = step if sums is None else sums + step
@@ -350,7 +376,7 @@ class SRRunManager:
         if rc.bn_recalib_before_eval and recalib_loader is not None:
             saved = {k: v.clone() for k, v in self.net.state_dict().items() if "running" in k}
             bn_recalibrate(self.net, cfg, cfg.pixel_d, recalib_loader,
-                           use_kernels=self.trainer.use_kernels, mode=rc.mode)
+                           use_kernels=self.trainer.use_kernels, mode=rc.mode, mesh=self.mesh)
         step = self.trainer.bucketed_eval_step if rc.eval_bucket else self.trainer.eval_step
         losses, psnrs = AverageMeter(), AverageMeter()
         log_f = open(frame_log, "a") if frame_log else None
@@ -377,8 +403,8 @@ class SRRunManager:
         (corner_name, psnr) that beats the corner's recorded best, save the
         weights as best_<corner>.pth.tar and record the PSNR and `where` in
         corner_best.json. Never touches the rolling checkpoint, latest.txt
-        or best_acc."""
-        if not self.run_config.corner_gate:
+        or best_acc. Rank 0 alone under a mesh."""
+        if not self.run_config.corner_gate or not self.writer:
             return
         sidecar = os.path.join(self.save_path, "corner_best.json")
         book = {}
@@ -435,4 +461,4 @@ class SRRunManager:
         calibration subset."""
         loader = self.provider.build_sub_train_loader(n_images, batch_size)
         bn_recalibrate(self.net, cfg, cfg.pixel_d, loader, use_kernels=self.trainer.use_kernels,
-                       mode=self.run_config.mode)
+                       mode=self.run_config.mode, mesh=self.mesh)

@@ -21,6 +21,26 @@ Per optimizer step, as the reference trainer does:
   frame; the KD teacher's forward stays float32). The casts are explicit,
   not `torch.autocast`, whose per-op rules would round elsewhere.
 
+Under a mesh (`mesh`, data parallelism: each rank passes its rows of the
+global batch, `parallel.shard_batch`) the step has the JAX package's
+global-batch semantics, where XLA inserts the collectives under a sharded
+jit:
+- every train-mode BN takes the moments of all the ranks' rows (the BN
+  wrappers' `group`: an all-reduce of the column totals each way);
+- the K subnets' gradients accumulate locally, then one all-reduce of all
+  present gradients, flattened into one buffer and divided by the world
+  size, before the one optimizer step (the JAX package's note:
+  backward_passes_per_step -> the all-reduce fires once a step). The net
+  is not wrapped in DistributedDataParallel: every step slices other
+  subnets, and blocks past a stage's depth keep a None gradient; every rank
+  samples the same subnets, so the None pattern is the same on every rank;
+- the metrics are the global batch's: the losses averaged over the ranks,
+  and PSNR-Y formed from the all-reduced sums of squared Y errors (not from
+  the ranks' PSNRs);
+- the KD teacher's eval forward and the eval steps take no collective.
+Every rank then holds the same gradients, so the same update keeps the
+parameters identical bit for bit.
+
 PyTorch runs eagerly, so the JAX step's jit, donation and `lax.switch` over
 pixel_d have no counterpart; a step is plain Python over the subnets.
 """
@@ -32,7 +52,8 @@ from typing import Optional, Sequence
 import torch
 
 from ..ops.elastic import spatial_valid_mask
-from ..utils.metrics import psnr_y_device
+from ..parallel.mesh import all_reduce_sum
+from ..utils.metrics import psnr_from_mse, psnr_y_device, y_squared_error_sum
 from .optim import build_optimizer
 
 
@@ -44,13 +65,15 @@ class SRTrainer:
     net, its SubnetConfig, its pixel_d) for KD; it runs in eval mode under
     no_grad. use_kernels (default: on for a CUDA net) takes train-mode BN
     through the BN-statistics kernels. compute_dtype: None (float32) or the
-    mixed-precision type, torch.bfloat16.
+    mixed-precision type, torch.bfloat16. mesh: a `parallel.Mesh` for
+    data-parallel training (the batches `train_step` takes are then this
+    rank's rows), or None.
     """
 
     def __init__(self, net, *, opt_type="adam", weight_decay=3e-5, momentum=0.9,
                  nesterov=True, clip_grad_norm=None, kd_ratio=0.0,
                  bn_frozen=False, teacher=None, use_kernels: Optional[bool] = None,
-                 compute_dtype: Optional[torch.dtype] = None, mode: str = "sr"):
+                 compute_dtype: Optional[torch.dtype] = None, mode: str = "sr", mesh=None):
         if mode not in ("sr", "autoencoder"):
             raise ValueError("mode must be 'sr' or 'autoencoder', got %r" % (mode,))
         if mode == "autoencoder" and net.n_trunks != 2:
@@ -67,6 +90,8 @@ class SRTrainer:
         self.use_kernels = (net.device.type == "cuda" if use_kernels is None
                             else use_kernels)
         self.opt = build_optimizer(net, opt_type, weight_decay, momentum, nesterov)
+        self.mesh = mesh
+        self._group = None if mesh is None else mesh.group
 
     def _input(self, batch, pixel_d):
         return batch["image"] if self.mode == "autoencoder" else batch["x%d" % 2 ** pixel_d]
@@ -75,9 +100,12 @@ class SRTrainer:
         pd = cfg.pixel_d
         return self.net(self._input(batch, pd), cfg, pd, bn_training=bn_training,
                         use_kernels=self.use_kernels, compute_dtype=self.compute_dtype,
-                        mode=self.mode)
+                        mode=self.mode, bn_group=self._group if bn_training else None)
 
     def _subnet_loss(self, batch, cfg, teacher_out):
+        """(loss, PSNR-Y) of one subnet on the batch; under a mesh the
+        second is (sum of squared Y errors, their count), which add over the
+        ranks."""
         out = self._forward(batch, cfg, bn_training=not self.bn_frozen).float()
         hr = batch["image"].float()
         mse = torch.mean(torch.square(out - hr))
@@ -86,6 +114,8 @@ class SRTrainer:
             loss = (self.kd_ratio * kd + mse) * (2.0 / (self.kd_ratio + 1.0))
         else:
             loss = mse
+        if self._group is not None:
+            return loss, y_squared_error_sum(out.detach(), hr)
         return loss, psnr_y_device(out.detach(), hr)
 
     def _teacher_out(self, batch):
@@ -109,6 +139,8 @@ class SRTrainer:
             loss.backward()
             losses.append(loss.detach())
             psnrs.append(psnr)
+        if self._group is not None:
+            self._average_gradients()
         if self.clip_grad_norm:
             torch.nn.utils.clip_grad_norm_(
                 [p for g in self.opt.param_groups for p in g["params"]],
@@ -116,7 +148,31 @@ class SRTrainer:
         for group in self.opt.param_groups:
             group["lr"] = lr
         self.opt.step()
+        if self._group is not None:
+            return self._global_metrics(losses, psnrs)
         return {"loss": torch.stack(losses).mean(), "psnr": torch.stack(psnrs).mean()}
+
+    def _average_gradients(self):
+        """Every present gradient, flattened into one buffer, summed over the
+        ranks and divided by the world size: the global batch's mean
+        gradient, the same bits on every rank."""
+        params = [p for g in self.opt.param_groups for p in g["params"] if p.grad is not None]
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        all_reduce_sum(flat, self._group).div_(self.mesh.world)
+        # each gradient becomes its view of the reduced buffer (zero_grad
+        # drops them before the next step)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
+
+    def _global_metrics(self, losses, sq_errors):
+        """The global batch's mean loss and PSNR-Y over the subnets, from
+        each rank's losses (means over equal shares of the batch) and sums
+        of squared Y errors, in one all-reduce."""
+        k, world = len(losses), self.mesh.world
+        totals = all_reduce_sum(torch.stack(losses + [s.float() for s, _ in sq_errors]),
+                                self._group)
+        mses = torch.stack([totals[k + i] / (n * world) for i, (_, n) in enumerate(sq_errors)])
+        return {"loss": (totals[:k] / world).mean(), "psnr": psnr_from_mse(mses).mean()}
 
     def eval_step(self, batch, cfg):
         """MSE and PSNR-Y of subnet `cfg` with BN in eval mode; "output" in

@@ -37,16 +37,35 @@ def rgb2y_device(img255, channel_axis=-1):
     return torch.round(y / 255.0 + 16.0)
 
 
+def _y_squared_errors(pred, target, channel_axis):
+    y1 = rgb2y_device(quantize_img(pred), channel_axis)
+    y2 = rgb2y_device(quantize_img(target), channel_axis)
+    return torch.square(y1 - y2)
+
+
+def psnr_from_mse(mse):
+    """20*log10(255/sqrt(mse)) of a Y-channel MSE (0..255 units); inf
+    where it is 0."""
+    psnr = 20.0 * torch.log10(255.0 / torch.sqrt(torch.clamp(mse, min=1e-12)))
+    return torch.where(mse == 0, torch.full_like(psnr, math.inf), psnr)
+
+
 def psnr_y_device(pred, target, channel_axis=-1, valid_mask=None):
     """PSNR-Y of [0,1] images, one scalar tensor. `valid_mask`: optional
     (1, H, W, 1) 0/1 mask; the MSE then averages over valid pixels only."""
-    y1 = rgb2y_device(quantize_img(pred), channel_axis)
-    y2 = rgb2y_device(quantize_img(target), channel_axis)
-    sq = torch.square(y1 - y2)
+    sq = _y_squared_errors(pred, target, channel_axis)
     if valid_mask is not None:
         m = valid_mask[..., 0]
-        mse = (sq * m).sum() / (m.sum() * y1.shape[0])
+        mse = (sq * m).sum() / (m.sum() * sq.shape[0])
     else:
         mse = sq.mean()
-    psnr = 20.0 * torch.log10(255.0 / torch.sqrt(torch.clamp(mse, min=1e-12)))
-    return torch.where(mse == 0, torch.full_like(psnr, math.inf), psnr)
+    return psnr_from_mse(mse)
+
+
+def y_squared_error_sum(pred, target, channel_axis=-1):
+    """(sum of the squared Y errors, their count) of [0,1] images: the
+    parts of PSNR-Y's MSE that add over the ranks of a mesh, where each
+    holds some of a batch's images (`psnr_from_mse(sum / count)` of the
+    totals is the whole batch's PSNR-Y)."""
+    sq = _y_squared_errors(pred, target, channel_axis)
+    return sq.sum(), sq.numel()

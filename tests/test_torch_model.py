@@ -152,9 +152,10 @@ def test_fold_conv_through_shuffle_matches_jax():
 
 
 def test_unported_modes_raise(nets):
-    """row_valid is not ported (item 10); an S4 net has no encoder for
-    mode="autoencoder" (the X4's, tests/test_torch_x4.py), and an X4-length
-    subnet is refused."""
+    """An S4 net has no encoder for mode="autoencoder" (the X4's,
+    tests/test_torch_x4.py), and an X4-length subnet is refused. row_valid
+    is ported (item 10; tests/test_torch_tiled.py holds it to JAX): the
+    valid rows of a row-padded frame are the unpadded frame's."""
     _, _, _, tnet = nets
     cfg = uniform_subnet(tnet.space, 5, 4, 2, 1)
     with pytest.raises(ValueError, match="OFAMobileNetX4"):
@@ -162,8 +163,10 @@ def test_unported_modes_raise(nets):
     with pytest.raises(ValueError, match="n_trunks=1"):
         get_active_subnet(tnet, uniform_subnet(tnet.space, 5, 4, 2, 1, n_trunks=2))
     sub = get_active_subnet(tnet, cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sub(torch.zeros(1, 4, 4, 3), row_valid=(0, 4))
+    x = torch.from_numpy(_x((1, 4, 5, 3), 0))
+    with torch.no_grad():
+        y = sub(torch.cat([x, torch.ones(1, 3, 5, 3)], 1), row_valid=(0, 4))
+        torch.testing.assert_close(y[:, :8], sub(x), rtol=1e-5, atol=1e-5)
 
 
 def test_entry_and_serve_on_cpu():

@@ -371,10 +371,17 @@ def test_gate_corners_writes_files(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """A mesh is ported (item 10; two ranks in tests/test_torch_parallel.py):
+    a world of one trains the epoch of a run without one. An S4 net has no
+    encoder, and an unknown compute type is refused."""
+    from ofa_sr_tpu_torch.parallel import make_mesh
     _, p, s = _jax_net()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SRRunManager(str(tmp_path), _port_net(p, s), RunConfig(),
-                     SyntheticSRProvider(**PROVIDER_KW), mesh=object())
+    kw = dict(n_epochs=1, base_lr=1e-3, train_batch_size=4)
+    runs = [SRRunManager(str(tmp_path / name), _port_net(p, s), RunConfig(**kw),
+                         SyntheticSRProvider(**PROVIDER_KW), mesh=mesh)
+            for name, mesh in (("plain", None), ("mesh", make_mesh("cpu")))]
+    epochs = [rm.train_one_epoch(0) for rm in runs]
+    assert epochs[0] == epochs[1]
     # the autoencoder is ported for the X4 net (tests/test_torch_shrink.py);
     # an S4 net has no encoder
     with pytest.raises(ValueError, match="OFAMobileNetX4"):
