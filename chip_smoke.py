@@ -126,6 +126,32 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    versions, the all-reduce's ms a BN, and ms a step of the trainer with
    and without the mesh. The two-rank timings on one card are no measure of
    multi-GPU speed.
+9. (run after phase 8, before phase 6's timings and profiles) Subnet
+   search: (c) `entry.search` on the full-width S4 (seeded weights, random
+   BN statistics as in phase 3) at 720 px HR with a synthetic provider
+   (96 px, 2 recalibration batches of 16): its block table (a) is
+   `build_block_latency_table` at LR 360 and 180, 2 x 9 MBConv entries and
+   2 head/tail entries, each positive, every timed call of a block one
+   MBConv launch and of the minimal subnet sum(d) MBConv and pixel_d tail
+   launches (counted where the calls are captured into CUDA graphs; the
+   replays re-run those launches without the wrappers), each block entry
+   beside its eager time and the plain path's graph time; the finder's
+   winner within the constraint; the deployments (smallest and largest
+   uniform subnets, the winner) measured and scored after BN
+   recalibration, which launches `bn_forward` 3*sum(d)+pixel_d+4 times a
+   batch and no other BN kernel; the winner serves 8 LR 180x320 frames
+   through `entry.serve` (sum(d) MBConv and pixel_d tail launches a frame)
+   against the plain path at 1e-3. (b) The table's sum against the
+   measured subnet for `sample_subnet` seeds 0-7, reported. (d) The
+   accuracy predictor's fit on the card against the same fit on the CPU
+   (predictions rtol 1e-3) and `build_latency_table` over the 16 corners
+   of ks 3/7, e 3/6, d 2/4, pixel_d 1/2. (e) `resize_bicubic` of a bs16
+   720x720 batch to 360 against the CPU (atol 1e-5), ms a batch; the
+   oracle-video CLIs (teacher validate-only and `--finetune`, the X4
+   per-video overfit; BN frozen: no kernel launched) and `eval_ofa_net_sr
+   --dataset oracle_video --materialize` (8 MBConv and 2 tail launches a
+   frame). Whole subnets are timed with windows of 4 and 12 calls
+   (WHOLE_WINDOWS), blocks with measure_latency_device's defaults.
 
 Float32 with TF32 off for cuDNN and matmuls, so the card's numbers compare
 with the CPU's, apart from the bf16 training runs; the shuffle-tail and
@@ -159,13 +185,18 @@ from ofa_sr_tpu_torch.entry import (  # noqa: E402
     synthetic_batch,
     train,
 )
+from ofa_sr_tpu_torch import entry as entry_mod  # noqa: E402
+from ofa_sr_tpu_torch import search  # noqa: E402
 from ofa_sr_tpu_torch.cli import (  # noqa: E402
     eval_ofa_net_sr,
+    train_ofa_net_sr_oracle_video,
     train_ofa_net_sr_simple,
+    train_teacher_net_sr_oracle_video,
     train_teacher_net_sr_simple,
 )
 from ofa_sr_tpu_torch.cli.common import make_net, make_sr_provider  # noqa: E402
 from ofa_sr_tpu_torch.data import SyntheticSRProvider  # noqa: E402
+from ofa_sr_tpu_torch.data.bicubic import resize_bicubic  # noqa: E402
 from ofa_sr_tpu_torch.models import (  # noqa: E402
     OFAMobileNetS4,
     OFAMobileNetX4,
@@ -199,6 +230,7 @@ from ofa_sr_tpu_torch.ops.kernels.shuffle_tail import (  # noqa: E402
     shuffle_tail_reference,
 )
 from ofa_sr_tpu_torch.ops.norm import batch_norm_train  # noqa: E402
+from ofa_sr_tpu_torch.search import latency as search_latency  # noqa: E402
 from rank_launch import free_port, launch  # noqa: E402
 from ofa_sr_tpu_torch.train import RunConfig, SRRunManager, SRTrainer  # noqa: E402
 from ofa_sr_tpu_torch.train.checkpoint import load_weights_lenient  # noqa: E402
@@ -2029,6 +2061,324 @@ def phase8(g, dev, runs_f32, runs_bf16):
     return out
 
 
+# -- phase 9: subnet search -------------------------------------------------
+
+SEARCH_HR = 720                         # HR size of the latency tables (LR 360 and 180)
+ADDITIVITY_SEEDS = range(8)             # sample_subnet seeds held against the table's sum
+SEARCH_PROVIDER = dict(n_train=32, n_valid=2, hr_size=96, train_batch_size=16)
+SEARCH_FRAMES = 8                       # the winner's LR 180x320 frames through entry.serve
+# whole subnets take 5 ms or more a call at SEARCH_HR: windows of 4 and 12
+# calls give a slope signal of 40 ms or more, twice measure_latency_device's
+# min_signal_s, at a quarter of the default windows' work
+WHOLE_WINDOWS = dict(n_small=4, n_big=12)
+# the predictor: the CPU test's fit (tests/test_torch_search.py), on 256
+# sampled subnets; card and CPU from the same start within PRED_RTOL (40
+# Adam steps: the CPU test holds the same fit to the JAX package at 1e-3)
+PRED_SUBNETS, PRED_FIT = 256, dict(epochs=10, lr=3e-3, batch_size=64, seed=2)
+PRED_RTOL = 1e-3
+CORNERS = dict(ks_list=[3, 7], expand_list=[3, 6], depth_list=[2, 4], pixel_d_list=[1, 2])
+RESIZE = (16, 720, 360)                 # resize_bicubic: batch, in and out side
+RESIZE_TOL = dict(rtol=0, atol=1e-5)    # card vs CPU: float32 matmuls, other sum order
+# the oracle CLIs at their defaults, synthetic data (64 images at batch 4)
+ORACLE_ARGS = {"teacher": [], "ofa": []}
+ORACLE_EVAL_HR = 720
+
+
+def kernel_counts():
+    """Every kernel wrapper's launches (the BN ones by type), the mesh
+    route's too."""
+    counts = bn_counts()
+    for k in APPLY_WRAPPERS + (bn_bwd_sums,):
+        counts[k.__name__], counts[k.__name__ + "_bf16"] = k.launches, k.launches_bf16
+    counts.update(mbconv=fused_mbconv_infer.launches, shuffle_tail=fused_shuffle_tail.launches)
+    return counts
+
+
+def zero_kernel_counts():
+    zero_bn_counts()
+    for k in APPLY_WRAPPERS + (bn_bwd_sums,):
+        k.launches = k.launches_bf16 = 0
+    fused_mbconv_infer.launches = fused_shuffle_tail.launches = 0
+
+
+class TimedCalls:
+    """While active, every measure_latency_device call of the search path
+    (build_*_latency_table's and entry.search's) is recorded: its input shape,
+    its ms, how many times it called the timed function (the warm-ups and
+    the calls captured into the CUDA graphs: the wrappers count launches
+    there; the graphs' replays re-run those launches without them) and the
+    MBConv and tail launches counted meanwhile. Whole subnets (3-channel
+    inputs) get WHOLE_WINDOWS."""
+
+    def __init__(self):
+        self.records = []
+
+    def __enter__(self):
+        self.real = real = search_latency.measure_latency_device
+
+        def timed(fn, x, **kw):
+            n = [0]
+
+            def counted(t):
+                n[0] += 1
+                return fn(t)
+
+            before = fused_mbconv_infer.launches, fused_shuffle_tail.launches
+            if x.shape[-1] == 3:
+                kw = dict(WHOLE_WINDOWS, **kw)
+            ms = real(counted, x, **kw)
+            self.records.append({"shape": list(x.shape), "ms": ms, "calls": n[0],
+                                 "mbconv": fused_mbconv_infer.launches - before[0],
+                                 "shuffle_tail": fused_shuffle_tail.launches - before[1]})
+            return ms
+
+        search_latency.measure_latency_device = entry_mod.measure_latency_device = timed
+        return self
+
+    def __exit__(self, *exc):
+        search_latency.measure_latency_device = entry_mod.measure_latency_device = self.real
+
+
+def hold_timed_launches(label, rec, per_call):
+    """Each timed call of `rec` launched `per_call` of each serving kernel."""
+    expect = {k: v * rec["calls"] for k, v in per_call.items()}
+    got = {k: rec[k] for k in expect}
+    if got != expect:
+        fail("%s: %d timed calls launched %s, expected %s" % (label, rec["calls"], got, expect))
+
+
+def block_entries(net, table, records):
+    """(a) The block table's entries: each positive, each block call one
+    MBConv launch and no tail launch, each head/tail entry's minimal subnet
+    sum(d) MBConv and pixel_d tail launches a call; beside each block entry
+    its eager time (measure_latency) and the plain path's CUDA-graph time."""
+    space, w = net.space, net.space.width
+    if len(table.table) != 2 * 9 + 2 or not all(v > 0 for v in table.table.values()):
+        fail("the block table has %d entries, not all positive: %s"
+             % (len(table.table), table.table))
+    rng = np.random.RandomState(1)
+    rows, blocks = [], iter([r for r in records if r["shape"][-1] == w])
+    wholes = iter([r for r in records if r["shape"][-1] == 3])
+    for pd in space.pixel_d_list:
+        lr = SEARCH_HR // 2 ** pd
+        xb = torch.from_numpy(rng.rand(1, lr, lr, w).astype(np.float32)).to(DEVICE)
+        for k in space.ks_list:
+            for e in space.expand_list:
+                rec = next(blocks)
+                hold_timed_launches("block entry k%d e%s at %d" % (k, e, lr), rec,
+                                    {"mbconv": 1, "shuffle_tail": 0})
+                cfg = uniform_subnet(space, k, e, max(space.depth_list), pd)
+                sub_k = get_active_subnet(net, cfg)
+                sub_p = get_active_subnet(net, cfg, use_kernels=False)
+                bk, bp = sub_k.params["dec_stages"][0][0], sub_p.params["dec_stages"][0][0]
+                row = {"lr": lr, "ks": k, "e": e, "graph_ms": rec["ms"],
+                       "eager_ms": search_latency.measure_latency(
+                           lambda t: sub_k._mbconv(bk, t), xb),
+                       "plain_graph_ms": search_latency.measure_latency_device(
+                           lambda t: sub_p._mbconv(bp, t), xb),
+                       "timed_calls": rec["calls"], "mbconv_launches": rec["mbconv"]}
+                print("  block k%d e%s LR %d: kernel %.4f ms (CUDA graph), %.4f eager; plain "
+                      "%.4f (CUDA graph); %d calls, %d MBConv launches counted"
+                      % (k, e, lr, row["graph_ms"], row["eager_ms"], row["plain_graph_ms"],
+                         rec["calls"], rec["mbconv"]), flush=True)
+                rows.append(row)
+        rec = next(wholes)
+        k0, e0, d0 = min(space.ks_list), min(space.expand_list), min(space.depth_list)
+        cfg = uniform_subnet(space, k0, e0, d0, pd)
+        hold_timed_launches("head/tail entry at pixel_d %d" % pd, rec,
+                            {"mbconv": sum(cfg.d), "shuffle_tail": pd})
+        ht = table.query("sr_head_tail", [lr, lr, 3], [SEARCH_HR, SEARCH_HR, 3], pixel_d=pd)
+        rows.append({"lr": lr, "head_tail_ms": ht, "whole_min_subnet_ms": rec["ms"],
+                     "timed_calls": rec["calls"], "mbconv_launches": rec["mbconv"],
+                     "tail_launches": rec["shuffle_tail"]})
+        print("  head/tail pixel_d %d: %.4f ms (the minimal subnet %.4f less its blocks); %d "
+              "calls, %d MBConv and %d tail launches counted"
+              % (pd, ht, rec["ms"], rec["calls"], rec["mbconv"], rec["shuffle_tail"]),
+              flush=True)
+    return rows
+
+
+def additivity(net, table, timed):
+    """(b) The table's sum against the measured subnet, for sampled subnets:
+    reported, not bounded (the sum is approximate)."""
+    space = net.space
+    eff = search_latency.lut_efficiency_fn(table, space, hr_size=SEARCH_HR)
+    rng = np.random.RandomState(2)
+    out = []
+    for seed in ADDITIVITY_SEEDS:
+        cfg = sample_subnet(space, seed=seed)
+        lr = SEARCH_HR // 2 ** cfg.pixel_d
+        x = torch.from_numpy(rng.rand(1, lr, lr, 3).astype(np.float32)).to(DEVICE)
+        ms = search_latency.measure_latency_device(get_active_subnet(net, cfg), x)
+        rec = timed.records[-1]
+        hold_timed_launches("subnet seed %d" % seed, rec,
+                            {"mbconv": sum(cfg.d), "shuffle_tail": cfg.pixel_d})
+        pred = eff(cfg)
+        out.append({"seed": seed, "cfg": cfg.describe(), "lut_ms": pred, "measured_ms": ms,
+                    "rel_err": (pred - ms) / ms, "mbconv_launches": rec["mbconv"],
+                    "tail_launches": rec["shuffle_tail"]})
+        print("  seed %d (pixel_d %d, sum(d) %d): table %.4f ms, measured %.4f, rel err %+.4f"
+              % (seed, cfg.pixel_d, sum(cfg.d), pred, ms, (pred - ms) / ms), flush=True)
+    return out
+
+
+def search_and_deploy(net):
+    """(c) entry.search on the full-width S4, the deployments' recalibration
+    counted; then the winner serves SEARCH_FRAMES frames through
+    entry.serve, counted, against the plain path."""
+    provider = SyntheticSRProvider(**SEARCH_PROVIDER)
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    with TimedCalls() as timed:
+        rep = entry_mod.search(net, provider, hr_size=SEARCH_HR, quality="macs", device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    winner, cands = rep["winner"], rep["candidates"]
+    n_batches = len(provider.train)
+    # the deployments: entry.search's smallest and largest uniform subnets
+    # (at the largest pixel_d) and the winner
+    cfgs = [uniform_subnet(net.space, 3, 3, 2, 2), uniform_subnet(net.space, 7, 6, 4, 2), winner]
+    expect = n_batches * bn_launches_expected(cfgs)
+    print("  entry.search: %.1f s; winner %s; table %.4f ms (constraint %.4f), measured %.4f"
+          % (wall, winner.describe(), cands["searched"]["lut_ms"], rep["constraint_ms"],
+             cands["searched"]["true_ms"]), flush=True)
+    for name, c in cands.items():
+        print("    %-12s table %.4f ms, measured %.4f, trunk %.3f GMAC, PSNR-Y %.4f dB after "
+              "recalibration" % (name, c["lut_ms"], c["true_ms"], c["trunk_gmacs"],
+                                 c["psnr_db"]), flush=True)
+    print("  recalibration: BN launches %s (bn_forward expected %d: %d batches x "
+          "3*sum(d)+pixel_d+4 over the 3 subnets)"
+          % ({k: v for k, v in counts.items() if k.startswith(("bn", "col"))}, expect,
+             n_batches), flush=True)
+    if not cands["searched"]["lut_ms"] <= rep["constraint_ms"]:
+        fail("the winner's table time exceeds the constraint")
+    if counts["bn_forward"] != expect or any(
+            v for k, v in counts.items() if k not in ("bn_forward", "mbconv", "shuffle_tail")):
+        fail("the deployments' recalibration did not launch bn_forward once per train-mode BN "
+             "(and nothing else of the BN kernels)")
+    if not all(np.isfinite(c["psnr_db"]) and c["true_ms"] > 0 for c in cands.values()):
+        fail("a deployment has no finite PSNR-Y or no positive time: %s" % cands)
+    rng = np.random.RandomState(3)
+    frames = [rng.rand(1, *LR_HW, 3).astype(np.float32) for _ in range(SEARCH_FRAMES)]
+    out, served = serving_launches(lambda: serve(frames, net=net, cfg=winner, device=net.device))
+    hold_launches("the winner, %d frames through entry.serve" % SEARCH_FRAMES, served,
+                  {"mbconv": sum(winner.d) * SEARCH_FRAMES,
+                   "shuffle_tail": winner.pixel_d * SEARCH_FRAMES})
+    sub_p = get_active_subnet(net, winner, use_kernels=False, fold_tail=False)
+    with torch.inference_mode():
+        for i in (0, SEARCH_FRAMES - 1):
+            check_close("winner frame %d: kernels vs plain path" % i, out[i],
+                        sub_p(torch.from_numpy(frames[i]).to(net.device)), FRAME_TOL)
+    return {"wall_s": wall, "winner": winner.describe(), "constraint_ms": rep["constraint_ms"],
+            "candidates": cands, "history": rep["history"], "lut": rep["lut"],
+            "launches": counts, "bn_forward_expected": expect, "recalib_batches": n_batches,
+            "serve_launches": served, "timed_calls": timed.records}
+
+
+def predictor_and_corners(net):
+    """(d) The predictor's fit on the card against the same fit on the CPU,
+    and the whole-subnet table over the corners."""
+    space = net.space
+    cfgs = [sample_subnet(space, seed=s) for s in range(PRED_SUBNETS)]
+    feats = np.stack([search.encode_sr_subnet(c, space) for c in cfgs])
+    targets = np.asarray([search.s4_subnet_flops(c, space) / 1e9 for c in cfgs])
+    start = search.AccuracyPredictor(feats.shape[1], hidden=64, n_layers=2, device="cpu")
+    card = search.AccuracyPredictor(feats.shape[1], hidden=64, n_layers=2, device=DEVICE)
+    card.load_state_dict(start.state_dict())
+    t0 = time.perf_counter()
+    loss = card.fit(feats, targets, **PRED_FIT)
+    fit_s = time.perf_counter() - t0
+    loss_cpu = start.fit(feats, targets, **PRED_FIT)
+    test = np.stack([search.encode_sr_subnet(sample_subnet(space, seed=10_000 + i), space)
+                     for i in range(64)])
+    got, ref = card.predict(test), start.predict(test)
+    err = float(np.max(np.abs(got - ref) / np.abs(ref)))
+    print("  predictor fit on the card: %.2f s, loss %.6g (CPU %.6g); predictions max rel "
+          "diff %.2e (at most %.0e)" % (fit_s, loss, loss_cpu, err, PRED_RTOL), flush=True)
+    if not (err <= PRED_RTOL and abs(loss - loss_cpu) <= PRED_RTOL * abs(loss_cpu)):
+        fail("the predictor's fit on the card disagrees with the CPU's")
+    with TimedCalls() as timed:
+        table = search_latency.build_latency_table(net, SearchSpace(**CORNERS),
+                                                   hr_size=SEARCH_HR)
+    if len(table.table) != 16 or not all(v > 0 for v in table.table.values()):
+        fail("the corner table: %s" % table.table)
+    for key, rec in zip(table.table, timed.records):
+        d = int(key.split("depth:")[1].split("-")[0])
+        pd = int(key.split("pixel_d:")[1])
+        hold_timed_launches(key, rec, {"mbconv": 4 * d, "shuffle_tail": pd})
+    print("  corner table: %s" % {k.split("-", 3)[3]: round(v, 4) for k, v in table.table.items()},
+          flush=True)
+    return {"fit_s": fit_s, "loss": loss, "loss_cpu": loss_cpu, "pred_max_rel_diff": err,
+            "corners": table.table, "corner_calls": timed.records}
+
+
+def data_and_video_clis():
+    """(e) resize_bicubic on the card against the CPU; the oracle-video CLIs
+    (BN frozen: no BN kernel) and the evaluator on oracle-video frames."""
+    b, n_in, n_out = RESIZE
+    x = torch.from_numpy(np.random.RandomState(4).rand(b, n_in, n_in, 3).astype(np.float32))
+    xd = x.to(DEVICE)
+    got = resize_bicubic(xd, n_out, n_out)
+    torch.cuda.synchronize()
+    err = check_close("resize_bicubic %s -> %d: card vs CPU" % (tuple(x.shape), n_out),
+                      got.cpu(), resize_bicubic(x, n_out, n_out), RESIZE_TOL)
+    ms = time_ms(lambda: resize_bicubic(xd, n_out, n_out), iters=10)
+    print("  resize_bicubic: %.4f ms a batch" % ms, flush=True)
+    out = {"resize": {"max_abs_err": err, "ms": ms, "shape": list(x.shape), "out": n_out}}
+    with tempfile.TemporaryDirectory(prefix="ofa_oracle_") as tmp:
+        runs = {
+            "teacher validate": (train_teacher_net_sr_oracle_video.main,
+                                 ["--synthetic", "--path", os.path.join(tmp, "tv")]
+                                 + ORACLE_ARGS["teacher"]),
+            "teacher finetune": (train_teacher_net_sr_oracle_video.main,
+                                 ["--synthetic", "--finetune", "--n_epochs", "1", "--path",
+                                  os.path.join(tmp, "tf")] + ORACLE_ARGS["teacher"]),
+            "ofa oracle": (train_ofa_net_sr_oracle_video.main,
+                           ["--synthetic", "--n_epochs", "1", "--path",
+                            os.path.join(tmp, "ofa")] + ORACLE_ARGS["ofa"]),
+        }
+        for label, (main_fn, argv) in runs.items():
+            zero_kernel_counts()
+            psnr, counts, wall = counted_cli(main_fn, argv)
+            counts = kernel_counts()
+            print("  %s: PSNR-Y %.4f, %.1f s, launches %s" % (label, psnr, wall, counts),
+                  flush=True)
+            if not np.isfinite(psnr) or any(counts.values()):
+                fail("%s: PSNR-Y %s; with BN frozen it launches no kernel, got %s"
+                     % (label, psnr, counts))
+            out[label] = {"psnr": psnr, "wall_s": wall, "launches": counts}
+        argv = ["--synthetic", "--dataset", "oracle_video", "--materialize", "--image_size",
+                str(ORACLE_EVAL_HR), "--path", os.path.join(tmp, "eval")]
+        psnr, counts, wall = counted_cli(eval_ofa_net_sr.main, argv)
+        cfg = uniform_subnet(SearchSpace(), 7, 6, 2, 2)
+        hold_launches("eval_ofa_net_sr --dataset oracle_video --materialize",
+                      {k: counts[k] for k in ("mbconv", "shuffle_tail")},
+                      {"mbconv": sum(cfg.d) * EVAL_FRAMES,
+                       "shuffle_tail": cfg.pixel_d * EVAL_FRAMES})
+        if not np.isfinite(psnr):
+            fail("the oracle-video evaluator's PSNR-Y is %s" % psnr)
+        out["eval oracle_video"] = {"psnr": psnr, "wall_s": wall, "launches": counts}
+    return out
+
+
+def phase9(dev):
+    t0 = time.perf_counter()
+    net = build_net(dev)
+    out = {}
+    out["search"] = search_and_deploy(net)
+    table = search_latency.LatencyTable(dict(out["search"]["lut"]))
+    # the search's first 20 timed calls built its block table
+    out["block_table"] = block_entries(net, table, out["search"]["timed_calls"][:20])
+    with TimedCalls() as timed:
+        out["additivity"] = additivity(net, table, timed)
+    out["predictor"] = predictor_and_corners(net)
+    out["data"] = data_and_video_clis()
+    out["wall_s"] = time.perf_counter() - t0
+    print("  phase 9 took %.1f s" % out["wall_s"], flush=True)
+    return out
+
+
 # -- phase 6: per-kernel numbers at the path's shapes ------------------------
 
 def steady_ms(fn, repeats=3):
@@ -2308,6 +2658,10 @@ def main():
           "parallelism (two ranks on the card over gloo; NCCL at world 1)", flush=True)
     p8 = phase8(g, dev, train_runs, train_runs_bf16)
 
+    print("phase 9: subnet search (latency tables through the kernels, the finder, the "
+          "deployments), the predictor, bicubic and the oracle-video CLIs", flush=True)
+    p9 = phase9(dev)
+
     print("phase 6: per-kernel numbers", flush=True)
     bn_rows = bn_kernel_numbers(g, path_counts, errs)
     bn_rows_bf16 = bn_kernel_numbers(g, path_counts, errs, BF16)
@@ -2351,6 +2705,28 @@ def main():
     rows[0]["max_abs_err_row_bounds"] = p8["mbconv_row_bounds"]["max_abs_err"]
     rows[1]["launches_phase8"] = {k: v["launches"]["shuffle_tail"]
                                   for k, v in p8["frames"].items()}
+    # phase 9's counted runs: the search (its tables and deployments' timed
+    # calls, counted at capture; the recalibration's BN forwards), the
+    # winner's frames, the additivity subnets, the corner table and the
+    # oracle-video evaluator; the oracle CLIs launch nothing (BN frozen)
+    s9, d9 = p9["search"], p9["data"]
+    for r, key in zip(rows[:2], ("mbconv", "shuffle_tail")):
+        r["launches_phase9"] = {
+            "search (table, deployments, counted at capture)": s9["launches"][key],
+            "serve winner": s9["serve_launches"][key],
+            "additivity": sum(a[{"mbconv": "mbconv_launches",
+                                 "shuffle_tail": "tail_launches"}[key]]
+                              for a in p9["additivity"]),
+            "corner table": sum(c[key] for c in p9["predictor"]["corner_calls"]),
+            "eval oracle_video": d9["eval oracle_video"]["launches"][key],
+            "oracle CLIs": sum(d9[k]["launches"][key] for k in ("teacher validate",
+                                                               "teacher finetune",
+                                                               "ofa oracle"))}
+    for r, name in zip(rows[2:], ("bn_forward", "col_sums2", "bn_backward") * 2):
+        key = name + ("_bf16" if r["dtype"] == "bfloat16" else "")
+        r["launches_phase9"] = {"recalibration": s9["launches"][key],
+                                "oracle CLIs": sum(d9[k]["launches"][key] for k in (
+                                    "teacher validate", "teacher finetune", "ofa oracle"))}
     mesh_runs = p8["two_ranks"]
     apply_launches = {}
     for name in ("bn_forward_from_sums", "bn_backward_from_sums"):
@@ -2364,6 +2740,11 @@ def main():
         print("  %-20s %d launches (rank 0 of 2)  %.4f ms/step  plain %.4f  bound %.4f (%s)"
               % (r["name"], r["launches"], r["ms"], r["plain_ms"], r["bound_ms"],
                  r["bound_by"]), flush=True)
+    for r in apply_rows:
+        key = r["name"].split()[0] + ("_bf16" if r["dtype"] == "bfloat16" else "")
+        r["launches_phase9"] = {"recalibration": s9["launches"][key],
+                                "oracle CLIs": sum(d9[k]["launches"][key] for k in (
+                                    "teacher validate", "teacher finetune", "ofa oracle"))}
     rows += apply_rows
     # last: a torch.profiler session leaves the launch path slower for the
     # rest of the process, so every timing above comes first, and the steps
@@ -2391,6 +2772,7 @@ def main():
                       "entry_ms": entry_ms, "train_runs": train_runs,
                       "train_runs_bf16": train_runs_bf16, "step_ms": step_ms,
                       "step_profile": train_profiles, "cli": cli, "x4": x4, "phase8": p8,
+                      "search": p9,
                       "build_s": build_s,
                       "mbconv_smem_bytes": mb_smem, "gpu": smi_line}))
     print(smi_line)

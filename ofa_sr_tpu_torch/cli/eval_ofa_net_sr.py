@@ -22,8 +22,7 @@ pixel-unshuffle grid. The ranks are the processes torchrun starts
 --materialize --spatial_mesh ...`); launched plainly, the mesh is this
 process alone. Every rank scores the whole frame; rank 0 writes the logs.
 
-Not ported yet, and refused: `--export` (ROADMAP queue 1 item 13) and the
-oracle-video dataset (item 7) outside `--synthetic`.
+Not ported yet, and refused: `--export` (ROADMAP queue 1 item 13).
 
 Run: python -m ofa_sr_tpu_torch.cli.eval_ofa_net_sr --checkpoint <dir> [--synthetic]
 """
@@ -37,7 +36,7 @@ import time
 import numpy as np
 import torch
 
-from ..data import Div2KSetXXProvider
+from ..data import Div2KSetXXProvider, OracleVideoProvider
 from ..models import (
     OFAMobileNetS4,
     OFAMobileNetX4,
@@ -102,10 +101,6 @@ def _refuse_unported(args):
         if getattr(args, attr):
             raise NotImplementedError("%s is not ported yet: ROADMAP queue 1 item %d"
                                       % (what, item))
-    if args.dataset == "oracle_video" and not args.synthetic:
-        raise NotImplementedError("--dataset oracle_video (OracleVideoProvider) is not "
-                                  "ported yet: ROADMAP queue 1 item 7; use --dataset div2k "
-                                  "or --synthetic")
 
 
 def _timed(fn, cuda):
@@ -185,7 +180,8 @@ def main(argv=None):
     space = SearchSpace()
     ae = args.x4_autoencoder
     net = make_net(OFAMobileNetX4 if ae else OFAMobileNetS4, space, args)
-    provider = make_sr_provider(args, Div2KSetXXProvider)
+    provider = make_sr_provider(
+        args, OracleVideoProvider if args.dataset == "oracle_video" else Div2KSetXXProvider)
     cfg = RunConfig(test_batch_size=1, image_size=args.image_size,
                     bn_recalib_before_eval=args.bn_recalib,
                     mode="autoencoder" if ae else "sr")

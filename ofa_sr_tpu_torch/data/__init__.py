@@ -1,5 +1,13 @@
 from .datasets import PairedImageDataset, SRImageDataset, SyntheticSRDataset, list_images
-from .providers import DataProvider, Div2KSetXXProvider, Loader, SyntheticSRProvider
+from .providers import (
+    CodecDecoderProvider,
+    DataProvider,
+    Div2KSetXXProvider,
+    ElasticResolution,
+    Loader,
+    OracleVideoProvider,
+    SyntheticSRProvider,
+)
 from .transforms import (
     CenterCrop,
     Compose,
@@ -19,5 +27,6 @@ __all__ = [
     "RandomCrop", "RandomHorizontalFlip", "RandomRotation", "Scale",
     "bicubic_downscale_pil", "to_numpy",
     "PairedImageDataset", "SRImageDataset", "SyntheticSRDataset", "list_images",
-    "DataProvider", "Div2KSetXXProvider", "Loader", "SyntheticSRProvider",
+    "CodecDecoderProvider", "DataProvider", "Div2KSetXXProvider", "ElasticResolution",
+    "Loader", "OracleVideoProvider", "SyntheticSRProvider",
 ]

@@ -12,9 +12,10 @@ The same semantics as the JAX package, so both give the same batches:
 - a thread-pool prefetch of two batches.
 
 Batches stay numpy on the host; the run manager moves each one to the
-device once. The oracle-video and codec providers, the elastic resolution,
-the native loader and the on-device bicubic are not ported yet (ROADMAP
-queue 1 item 7).
+device once. `Div2KSetXXProvider(use_native=True)` trains from the native
+C++ loader (data/native.py), built from csrc/loader at first use; where it
+cannot be built the provider raises with the compiler's report (the JAX
+package keeps its PIL loader then).
 """
 
 from __future__ import annotations
@@ -27,8 +28,44 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .datasets import SRImageDataset, SyntheticSRDataset
-from .transforms import Compose, ModCrop, RandomCrop, RandomHorizontalFlip, RandomRotation
+from .datasets import PairedImageDataset, SRImageDataset, SyntheticSRDataset
+from .transforms import (
+    CenterCrop,
+    Compose,
+    ModCrop,
+    RandomCrop,
+    RandomHorizontalFlip,
+    RandomRotation,
+)
+
+
+class ElasticResolution:
+    """The train resolution drawn per batch, the same on every rank when
+    `sync_distributed`: from `random.Random(int("%d%.3d" % (batch_id,
+    epoch)))` (the reference's MyRandomResizedCrop, as an object)."""
+
+    def __init__(self, image_size_list: Sequence[int], continuous=False,
+                 sync_distributed=True):
+        self.image_size_list = sorted(int2(image_size_list))
+        self.continuous = continuous
+        self.sync_distributed = sync_distributed
+
+    def candidates(self) -> List[int]:
+        if self.continuous:
+            lo, hi = min(self.image_size_list), max(self.image_size_list)
+            return [i for i in range(lo, hi + 1) if i % 4 == 0]
+        return list(self.image_size_list)
+
+    def sample(self, batch_id: int, epoch: int) -> int:
+        if self.sync_distributed:
+            seed = int("%d%.3d" % (batch_id, epoch))
+        else:
+            seed = random.randrange(2 ** 31)
+        return random.Random(seed).choice(self.candidates())
+
+
+def int2(v):
+    return [v] if isinstance(v, int) else list(v)
 
 
 def _valid_split_indices(train_size: int, valid_size: int):
@@ -194,10 +231,6 @@ class Div2KSetXXProvider(_SRFolderProvider):
     DEFAULT_PATH = "/SSD/div2k_setxx"
 
     def __init__(self, root=None, image_size=96, use_native=False, **kw):
-        if use_native:
-            raise NotImplementedError(
-                "the native C++ loader (data/native.py) is not ported yet: ROADMAP queue 1 "
-                "item 7")
         super().__init__(
             root or self.DEFAULT_PATH,
             image_size=image_size,
@@ -206,10 +239,57 @@ class Div2KSetXXProvider(_SRFolderProvider):
                                      RandomRotation(90)]),
             valid_transform=Compose([ModCrop(4)]),
             **kw)
+        if use_native:
+            from .native import NativeSRLoader
+            self.train = NativeSRLoader(
+                self._train_ds.paths, crop=image_size, batch_size=self.train.batch_size,
+                augment=True, n_threads=self.train.num_workers)
 
     @staticmethod
     def name():
         return "div2k_setxx"
+
+
+class OracleVideoProvider(_SRFolderProvider):
+    """Video-frame dirs, numerically sorted, CenterCrop for train and valid
+    (the reference's Oracle_VideoDataProvider)."""
+
+    DEFAULT_PATH = "/SSD/kaist_paper_video_dataset"
+
+    def __init__(self, root=None, image_size=448, **kw):
+        super().__init__(
+            root or self.DEFAULT_PATH,
+            image_size=image_size,
+            train_transform=Compose([CenterCrop(image_size)]),
+            valid_transform=Compose([CenterCrop(image_size)]),
+            numeric_sort=True,
+            **kw)
+
+    @staticmethod
+    def name():
+        return "oracle_video"
+
+
+class CodecDecoderProvider(_SRFolderProvider):
+    """Precomputed codec-decoded LR / pristine HR pairs,
+    `<split>/image` and `<split>/label` (the reference's
+    Codec_DecoderDataProvider)."""
+
+    DEFAULT_PATH = "/SSD/uvg-1080p"
+
+    def __init__(self, root=None, image_size=448, **kw):
+        super().__init__(
+            root or self.DEFAULT_PATH,
+            image_size=image_size,
+            train_transform=None,
+            valid_transform=None,
+            numeric_sort=True,
+            dataset_cls=PairedImageDataset,
+            **kw)
+
+    @staticmethod
+    def name():
+        return "codec_decoder"
 
 
 class SyntheticSRProvider(DataProvider):

@@ -22,11 +22,21 @@ An OFAMobileNetX4 trains in its `mode` ("sr": the decoder on the LR
 inputs; "autoencoder": encoder and decoder on the HR frame), its subnets
 sampled with both trunks' choices.
 
-All three run on the GPU unless the caller passes `device="cpu"`.
+`search(...)` picks a subnet under a latency budget on this device: it
+measures a per-block latency table through the serving path (on the card,
+the MBConv and shuffle-tail kernels), runs the evolutionary finder under
+`constraint_frac` of the largest subnet's table time, and deploys the
+winner beside the smallest and largest uniform subnets: their table and
+measured ms and, given a provider, their PSNR-Y after BN recalibration.
+The JAX package's `exp/search_deploy_demo.py` flow, without its
+checkpoint.
+
+All four run on the GPU unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
 
+import tempfile
 from typing import Iterable, List, Optional
 
 import numpy as np
@@ -43,10 +53,17 @@ from .models.materialize import get_active_subnet
 from .models.ofa_s4 import OFAMobileNetS4
 from .models.ofa_x4 import OFAMobileNetX4
 from .parallel.mesh import shard_batch, shard_params
+from .search.evolution import EvolutionFinder
+from .search.flops import mbconv_macs
+from .search.latency import build_block_latency_table, lut_efficiency_fn, measure_latency_device
+from .train.run_manager import RunConfig, SRRunManager
 from .train.train_step import SRTrainer
 from .utils.device import resolve_device
 
 N_BATCH = 50  # steps per epoch in the subnet seeds: DIV2K's 800 images / 16
+# search: the random draws that estimate how often the finder's draws meet
+# its constraint, and the least share it needs
+PROBE_DRAWS, MIN_ACCEPT = 1000, 0.01
 
 
 def entry(device="cuda"):
@@ -156,3 +173,97 @@ def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda
     metrics = [trainer.train_step(batch, step_subnets(net.space, i, n_subnets, net.n_trunks), lr)
                for i in range(steps)]
     return [{k: float(v) for k, v in m.items()} for m in metrics]
+
+
+def search(net=None, provider=None, *, hr_size: int = 720, constraint_frac: float = 0.85,
+           quality: str = "macs", population_size: int = 64, generations: int = 30,
+           device="cuda") -> dict:
+    """Search `net` (default: a seed-0 full-width OFAMobileNetS4 on
+    `device`; an OFAMobileNetX4 is searched over its decoder, the trunk sr
+    mode runs) for the subnet of most quality within `constraint_frac` of
+    the largest uniform subnet's latency, then deploy it.
+
+    The latency is `lut_efficiency_fn` of a block table measured at
+    `hr_size` HR output (`build_block_latency_table`). Quality: "macs", the
+    trunk's closed-form MACs (every block at the LR size of the largest
+    pixel_d), or "psnr", the masked supernet's PSNR-Y on `provider`'s test
+    frames (memoized, no recalibration). Deployed: the smallest and the
+    largest uniform subnets (at the largest pixel_d) and the winner, each
+    with its table ms, the measured ms of the materialized subnet on a
+    batch-1 frame at its own LR size, and, given `provider`, its PSNR-Y
+    after BN recalibration on `provider.train`.
+
+    The default budget is 0.85 of the largest subnet's time, not the JAX
+    demo's 0.6 (an X4 decoder at 96 px): at 720 px the S4's stem, final
+    convs and shuffle stages take over half of even its largest subnet's
+    time on the H100, and 0.6 leaves next to no subnet under the budget.
+
+    Returns {"constraint_ms", "lut" (the table), "winner" (its
+    SubnetConfig), "history" (the finder's best quality by generation),
+    "candidates": {"uniform_min", "uniform_max", "searched": {"cfg",
+    "lut_ms", "true_ms", "trunk_gmacs"[, "psnr_db"]}}}."""
+    dev = resolve_device(device)
+    net = _default_net(net, "sr", dev, "search")
+    space, n_trunks = net.space, net.n_trunks
+    if quality not in ("macs", "psnr") or (quality == "psnr" and provider is None):
+        raise ValueError("quality must be 'macs', or 'psnr' with a provider; got %r"
+                         % (quality,))
+    # 'sr' mode runs the last trunk: the S4's only one, the X4's decoder
+    stages = range(space.n_stages * (n_trunks - 1), space.n_stages * n_trunks)
+    table = build_block_latency_table(net, space, hr_size=hr_size, trunk_stages=len(stages))
+    eff = lut_efficiency_fn(table, space, hr_size=hr_size, n_trunks=n_trunks)
+    pd_max = max(space.pixel_d_list)
+    lr_macs = hr_size // (2 ** pd_max)
+
+    def trunk_macs(cfg):
+        return sum(mbconv_macs(space, lr_macs, cfg.ks[si * space.max_depth + i],
+                               cfg.e[si * space.max_depth + i])
+                   for si in stages for i in range(cfg.d[si]))
+
+    big = uniform_subnet(space, max(space.ks_list), max(space.expand_list),
+                         max(space.depth_list), pd_max, n_trunks=n_trunks)
+    small = uniform_subnet(space, min(space.ks_list), min(space.expand_list),
+                           min(space.depth_list), pd_max, n_trunks=n_trunks)
+    constraint = constraint_frac * eff(big)
+    # the finder draws random subnets until one meets the constraint (as in
+    # the JAX package): refuse a constraint so tight that it would draw
+    # for ever, with another random stream than the finder's
+    probe = EvolutionFinder(space, eff, None, n_trunks=n_trunks, seed=1)
+    n_ok = sum(eff(probe._random()) <= constraint for _ in range(PROBE_DRAWS))
+    if n_ok < MIN_ACCEPT * PROBE_DRAWS:
+        raise ValueError(
+            "too few random subnets meet the constraint: %d of %d under %.4f ms (%.3g of the "
+            "largest's %.4f; the smallest uniform subnet takes %.4f); raise constraint_frac"
+            % (n_ok, PROBE_DRAWS, constraint, constraint_frac, eff(big), eff(small)))
+
+    with tempfile.TemporaryDirectory(prefix="ofa_search_") as tmp:
+        rm = None
+        if provider is not None:
+            rm = SRRunManager(tmp, net, RunConfig(image_size=provider.image_size, manual_seed=0,
+                                                  bn_recalib_before_eval=True), provider)
+        psnr_cache = {}
+
+        def psnr_quality(cfg):
+            if cfg not in psnr_cache:
+                psnr_cache[cfg] = rm.validate(cfg)[1]
+            return psnr_cache[cfg]
+
+        finder = EvolutionFinder(space, efficiency_fn=eff,
+                                 quality_fn=trunk_macs if quality == "macs" else psnr_quality,
+                                 n_trunks=n_trunks, population_size=population_size,
+                                 max_time_budget=generations, seed=0)
+        winner, _, history = finder.run(constraint)
+
+        report = {"constraint_ms": constraint, "lut": dict(table.table), "winner": winner,
+                  "history": history, "candidates": {}}
+        rng = np.random.RandomState(0)
+        for name, cfg in (("uniform_min", small), ("uniform_max", big), ("searched", winner)):
+            lr = hr_size // (2 ** cfg.pixel_d)
+            x = torch.from_numpy(rng.rand(1, lr, lr, 3).astype(np.float32)).to(dev)
+            entry_ = {"cfg": repr(cfg), "lut_ms": eff(cfg),
+                      "true_ms": measure_latency_device(get_active_subnet(net, cfg), x),
+                      "trunk_gmacs": trunk_macs(cfg) / 1e9}
+            if rm is not None:
+                entry_["psnr_db"] = rm.validate(cfg, recalib_loader=provider.train)[1]
+            report["candidates"][name] = entry_
+    return report

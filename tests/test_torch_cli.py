@@ -127,7 +127,11 @@ def test_eval_refuses_unported(tmp_path, flags, item):
 
 
 def test_eval_oracle_video_needs_synthetic(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """--dataset oracle_video is ported: without --synthetic it reads the
+    video frames, and with no tree at the default path it fails there, as
+    the JAX CLI does (tests/test_torch_oracle_cli.py evaluates a generated
+    tree)."""
+    with pytest.raises(FileNotFoundError, match="kaist_paper_video_dataset"):
         teval.main(["--device", "cpu", "--path", str(tmp_path), "--dataset", "oracle_video"])
     # with --synthetic the dataset choice does not matter, as in the JAX CLI
     assert np.isfinite(teval.main(CPU + ["--path", str(tmp_path), "--image_size", "16"]))

@@ -176,5 +176,16 @@ def test_loader_per_batch_setting_and_lists(image_tree, tmp_path):
 
 
 def test_unported_loader_raises(image_tree):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tprov.Div2KSetXXProvider(image_tree, use_native=True)
+    """The native loader is ported (the name is the test's from before):
+    `use_native=True` trains from the port's own build of csrc/loader,
+    in build/native/ (tests/test_torch_data_video.py holds its batches to
+    the JAX package's), and nothing is refused."""
+    from ofa_sr_tpu_torch.data import native as tnative
+    if not tnative.native_available():
+        pytest.skip("g++ or the zlib / libjpeg headers are missing here")
+    t = tprov.Div2KSetXXProvider(image_tree, image_size=16, train_batch_size=2,
+                                 use_native=True)
+    assert isinstance(t.train, tnative.NativeSRLoader)
+    assert tnative._lib_path().startswith(tnative.BUILD_DIR + os.sep)
+    b = next(iter(t.train))
+    assert b["image"].shape == (2, 16, 16, 3) and b["x4"].shape == (2, 4, 4, 3)

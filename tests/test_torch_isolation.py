@@ -27,7 +27,10 @@ def test_importing_the_port_loads_no_jax():
               "train.run_manager", "train.bn_recalib", "cli.common",
               "cli.train_teacher_net_sr_simple", "cli.eval_ofa_net_sr", "models.ofa_x4",
               "models.reorganize", "train.shrink", "cli.train_ofa_net_sr_simple",
-              "parallel.mesh", "parallel.spatial", "train.tiled_infer"):
+              "parallel.mesh", "parallel.spatial", "train.tiled_infer", "search",
+              "search.flops", "search.encoder", "search.evolution", "search.accuracy_predictor",
+              "search.latency", "data.bicubic", "data.native",
+              "cli.train_teacher_net_sr_oracle_video", "cli.train_ofa_net_sr_oracle_video"):
         assert "ofa_sr_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
