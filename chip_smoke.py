@@ -152,6 +152,29 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    --dataset oracle_video --materialize` (8 MBConv and 2 tail launches a
    frame). Whole subnets are timed with windows of 4 and 12 calls
    (WHOLE_WINDOWS), blocks with measure_latency_device's defaults.
+10. (run after phase 9, before phase 6's timings and profiles) The rest of
+   the SR side and the classification nets: (a) `export_subnet` of phase
+   3's S4 subnet for a true 720p LR 180x320 frame and of phase 7's X4
+   autoencoder subnet for its 720x1280 HR frame, written, loaded on the
+   card with `load_subnet` and run: the artifact against the eager plain
+   path within 1e-6 and against the kernel path (the S4 at FRAME_TOL; the
+   X4 autoencoder, where no float32 path meets FRAME_TOL, no less accurate
+   against float64 than the artifact, F64_FRAME_RATIO), the kernel frames
+   counted (sum(d) MBConv and pixel_d tail launches a frame), and the
+   artifact's, the plain and the kernel frames' ms; (b) `get_net_info` of
+   the full-width S4 and X4 supernets (the `trace` check runs after phase
+   6's profiles: a profiler session slows every later launch); (c)
+   OFAMobileNetV3 and OFAProxylessNASNets at their published widths (1000
+   classes; MBV3 also with width_mult_list [0.65, 1.0] at wid 0 and 1),
+   seeded weights and random BN, batch 16 at 224x224: for max_arch and two
+   sampled archs the eval forward against `StaticClsSubnet` and against
+   `specialize`'s static net (CLS_TOL), the train-mode forward with the BN
+   kernel against the plain one (logits CLS_TOL, running statistics
+   CLS_STATE_TOL) with `bn_forward` launched once a BN of the active arch
+   and no other kernel, ms a batch of each, and `export_cls_subnet` saved,
+   loaded and run against the materialized subnet (1e-6); (d) the tutorial
+   (`ofa_sr_tpu_torch.tutorial`) at its defaults on the card, its launches
+   counted. Whether PIL imports on this machine is printed.
 
 Float32 with TF32 off for cuDNN and matmuls, so the card's numbers compare
 with the CPU's, apart from the bf16 training runs; the shuffle-tail and
@@ -162,6 +185,7 @@ accuracy). Exits non-zero when no CUDA device is present.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import json
@@ -204,7 +228,19 @@ from ofa_sr_tpu_torch.models import (  # noqa: E402
     SubnetConfig,
     get_active_subnet,
 )
+from ofa_sr_tpu_torch import tutorial  # noqa: E402
+from ofa_sr_tpu_torch.models import (  # noqa: E402
+    OFAMobileNetV3,
+    OFAProxylessNASNets,
+    get_active_cls_subnet,
+)
 from ofa_sr_tpu_torch.models.arch import sample_subnet, subnet_seed, uniform_subnet  # noqa: E402
+from ofa_sr_tpu_torch.models.export import (  # noqa: E402
+    export_cls_subnet,
+    export_subnet,
+    load_subnet,
+)
+from ofa_sr_tpu_torch.models.net_config import specialize  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels import _build  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.bn import bn_train_fused  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.bn_stats import (  # noqa: E402
@@ -241,6 +277,7 @@ from ofa_sr_tpu_torch.train.tiled_infer import (  # noqa: E402
     tiled_sr_infer_mesh,
 )
 from ofa_sr_tpu_torch.utils.metrics import psnr_y_device  # noqa: E402
+from ofa_sr_tpu_torch.utils.profile import get_net_info, trace  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. The shuffle
@@ -2379,6 +2416,243 @@ def phase9(dev):
     return out
 
 
+# -- phase 10: export, profile, the classification nets, the tutorial ---------
+
+EXPORT_TOL = dict(rtol=1e-6, atol=1e-6)   # the loaded artifact vs the eager plain path
+CLS_BATCH, CLS_HW = 16, 224
+CLS_TOL = dict(rtol=1e-3, atol=1e-3)      # logits: static nets vs supernet, kernels vs plain
+CLS_STATE_TOL = dict(rtol=1e-4, atol=1e-4)  # running statistics, kernels vs plain
+CLS_ARCH_SEEDS = (1, 2)
+CLS_TIME_ITERS = 5
+# the kernel-table rows whose wrapper's name is not their name's first word
+ROW_WRAPPER = {"fused_mbconv_infer": "mbconv", "fused_shuffle_tail": "shuffle_tail",
+               BWD_ROW: "bn_backward", BF16_ROWS[BWD_ROW]: "bn_backward"}
+
+
+def export_frames(dev, tmp):
+    """(a): each artifact saved, loaded on the card and held to the eager
+    plain path and the kernel path; the kernel frames counted; the
+    artifact's, plain and kernel frames' ms (CUDA events, back to back)."""
+    s4, x4 = build_net(dev), build_x4(dev)
+    cases = (("s4", s4, uniform_subnet(s4.space, 7, 6, 2, 2), "sr", LR_HW),
+             ("x4 autoencoder", x4, uniform_subnet(x4.space, 7, 6, 2, 2, n_trunks=2),
+              "autoencoder", (LR_HW[0] * 4, LR_HW[1] * 4)))
+    rng = np.random.RandomState(10)
+    out, total = {}, {}
+    for name, net, cfg, mode, hw in cases:
+        path = os.path.join(tmp, name.replace(" ", "_") + ".pt2")
+        t0 = time.perf_counter()
+        blob = export_subnet(net, cfg, hw, mode=mode, path=path)
+        export_s = time.perf_counter() - t0
+        served = load_subnet(path, device=dev)
+        subs = {"artifact": served,
+                "plain": get_active_subnet(net, cfg, mode=mode, use_kernels=False),
+                "kernels": get_active_subnet(net, cfg, mode=mode, use_kernels=True)}
+        xs = [torch.from_numpy(rng.rand(1, *hw, 3).astype(np.float32)).to(dev)
+              for _ in range(N_FRAMES)]
+        torch.cuda.synchronize()
+        with torch.inference_mode():
+            zero_kernel_counts()
+            ys = [subs["kernels"](x) for x in xs]
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            expect = {"mbconv": sum(cfg.d) * N_FRAMES,
+                      "shuffle_tail": (cfg.pixel_d if mode == "sr" else 0) * N_FRAMES}
+            got = {k: counts[k] for k in expect}
+            print("  export %s: %d bytes, exported in %.2f s; kernel frames' launches %s "
+                  "(expected %s)" % (name, len(blob), export_s, got, expect), flush=True)
+            if got != expect or any(v for k, v in counts.items() if k not in expect):
+                fail("the %s kernel frames did not go through the serving kernels as expected"
+                     % name)
+            errs = {}
+            sub64 = (get_active_subnet(build_x4(dev).double(), cfg, mode=mode, use_kernels=False,
+                                       fold_tail=False) if mode == "autoencoder" else None)
+            for i in (0, N_FRAMES - 1):
+                a = served(xs[i])
+                errs["frame %d artifact vs plain" % i] = check_close(
+                    "%s frame %d: artifact vs eager plain path" % (name, i), a,
+                    subs["plain"](xs[i]), EXPORT_TOL)
+                if mode == "sr":
+                    errs["frame %d artifact vs kernels" % i] = check_close(
+                        "%s frame %d: artifact vs kernel path" % (name, i), a, ys[i], FRAME_TOL)
+                else:
+                    errs["frame %d kernels vs f64" % i] = f64_frame_check(
+                        "%s frame %d: kernel path" % (name, i), ys[i], [a],
+                        sub64(xs[i].double()))
+            del sub64
+            times = {k: time_ms(lambda sub=sub: [sub(x) for x in xs], iters=3, warmup=1)
+                     / N_FRAMES for k, sub in subs.items()}
+        print("  export %s frame ms (CUDA events, mean of %d frames x 3): %s"
+              % (name, N_FRAMES, {k: round(v, 4) for k, v in times.items()}), flush=True)
+        out[name] = {"bytes": len(blob), "export_s": export_s, "input_hw": list(hw),
+                     "cfg": cfg.describe(), "launches": got, "expected": expect,
+                     "errors": errs, "frame_ms": times}
+        # the counted frames, the checks and the timings
+        for k, v in kernel_counts().items():
+            total[k] = total.get(k, 0) + v
+    out["launches_all"] = total
+    info = {"s4": get_net_info(s4), "x4": get_net_info(x4)}
+    print("  get_net_info: %s" % info, flush=True)
+    out["net_info"] = info
+    return out
+
+
+def cls_bn_count(net, arch):
+    """The train-mode BNs of `arch`: the first conv's, the first block's
+    two, three in each active block, the head's one."""
+    n_blocks = sum(min(d, sp.n_block) for d, sp in zip(arch.d, net.stage_specs))
+    return 3 + 3 * n_blocks + 1
+
+
+def running_stats(net):
+    return {k: v.clone() for k, v in net.state_dict().items()
+            if "running" in k or "num_batches" in k}
+
+
+def cls_case(label, net, arch, x, tmp, export):
+    """(c) for one arch: the eval forward against the static nets, the
+    train-mode forward with and without the BN kernel, launches, ms, and
+    (where `export`) the exported subnet."""
+    saved = running_stats(net)
+    with torch.inference_mode():
+        y = net(x, arch)
+        sub = get_active_cls_subnet(net, arch)
+        static = specialize(net, arch)
+        errs = {"materialized": check_close("%s %s: eval vs StaticClsSubnet"
+                                            % (label, arch.describe()[:40]), sub(x), y, CLS_TOL),
+                "specialized": check_close("%s: eval vs specialize's static net" % label,
+                                           static(x), y, CLS_TOL)}
+        yp = net(x, arch, training=True, use_kernels=False)
+        plain_stats = running_stats(net)
+        net.load_state_dict(saved, strict=False)
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        yk = net(x, arch, training=True, use_kernels=True)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        kern_stats = running_stats(net)
+        net.load_state_dict(saved, strict=False)
+        errs["train logits"] = check_close("%s: train-mode logits, kernels vs plain" % label,
+                                           yk, yp, CLS_TOL)
+        keys = [k for k in kern_stats if "running" in k]
+        errs["train running stats"] = check_close(
+            "%s: running statistics, kernels vs plain" % label,
+            torch.cat([kern_stats[k] for k in keys]), torch.cat([plain_stats[k] for k in keys]),
+            CLS_STATE_TOL)
+        n_bn = cls_bn_count(net, arch)
+        if counts["bn_forward"] != n_bn or any(v for k, v in counts.items()
+                                               if k != "bn_forward"):
+            fail("%s: the train-mode forward launched %s, expected bn_forward %d times and "
+                 "nothing else" % (label, {k: v for k, v in counts.items() if v}, n_bn))
+        ms = {"eval": time_ms(lambda: net(x, arch), iters=CLS_TIME_ITERS, warmup=1),
+              "materialized": time_ms(lambda: sub(x), iters=CLS_TIME_ITERS, warmup=1),
+              "specialized": time_ms(lambda: static(x), iters=CLS_TIME_ITERS, warmup=1),
+              "train kernels": time_ms(lambda: net(x, arch, training=True, use_kernels=True),
+                                       iters=CLS_TIME_ITERS, warmup=1),
+              "train plain": time_ms(lambda: net(x, arch, training=True, use_kernels=False),
+                                     iters=CLS_TIME_ITERS, warmup=1)}
+        net.load_state_dict(saved, strict=False)
+        out = {"arch": arch.describe(), "bn_forward": n_bn, "errors": errs, "ms": ms,
+               "launches": {k: v for k, v in counts.items() if v}}
+        if export:
+            path = os.path.join(tmp, label.replace(" ", "_") + ".pt2")
+            blob = export_cls_subnet(net, arch, CLS_HW, batch=CLS_BATCH, path=path)
+            out["export_bytes"] = len(blob)
+            errs["artifact"] = check_close("%s: artifact vs materialized" % label,
+                                           load_subnet(path, device=x.device)(x), sub(x),
+                                           EXPORT_TOL)
+    print("  %s: bn_forward %d launches; ms a batch of %d: %s" % (
+        label, n_bn, CLS_BATCH, {k: round(v, 4) for k, v in ms.items()}), flush=True)
+    return out
+
+
+def cls_nets(dev, tmp):
+    """(c): both families at published width, MBV3 also at runtime elastic
+    width."""
+    g = torch.Generator().manual_seed(20)
+    x = torch.rand(CLS_BATCH, CLS_HW, CLS_HW, 3, generator=g).to(dev)
+    out, total = {}, {}
+    for label, make, kw in (("MBV3", OFAMobileNetV3, {}),
+                            ("Proxyless", OFAProxylessNASNets, {}),
+                            ("MBV3 w[0.65,1.0]", OFAMobileNetV3,
+                             {"width_mult_list": [0.65, 1.0]})):
+        net = make(n_classes=1000, device=dev, generator=torch.Generator().manual_seed(21),
+                   **kw)
+        randomize_bn(net, torch.Generator().manual_seed(22))
+        archs = [net.max_arch()] + [net.sample_arch(s) for s in CLS_ARCH_SEEDS]
+        if kw:  # wid 0 and 1
+            archs = [dataclasses.replace(archs[0], wid=0), dataclasses.replace(archs[1], wid=1)]
+        out[label] = [cls_case("%s %d" % (label, i), net, a, x, tmp, export=(i == 0 and not kw))
+                      for i, a in enumerate(archs)]
+        for case in out[label]:
+            for k, v in case["launches"].items():
+                total[k] = total.get(k, 0) + v
+        del net
+    return out, total
+
+
+def tutorial_run(tmp):
+    """(d): the tutorial at its defaults on the card, every launch counted."""
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    res = tutorial.main(["--path", os.path.join(tmp, "tutorial")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in kernel_counts().items() if v}
+    winner = SubnetConfig.from_dict(res["winner_cfg"])
+    expect = {"mbconv": sum(winner.d), "shuffle_tail": winner.pixel_d}
+    print("  tutorial: %.1f s; winner %s; deployed %.4f ms a frame; the deployed frame's "
+          "launches %s (expected %s); every launch of the run %s"
+          % (wall, winner.describe(), res["deployed_ms"], res["deployed_launches"], expect,
+             counts), flush=True)
+    if res["deployed_launches"] != expect:
+        fail("the tutorial's deployed frame did not go through the serving kernels")
+    if not counts.get("bn_forward") or counts.get("bn_forward") != counts.get("bn_backward"):
+        fail("the tutorial's training did not run every BN through bn_forward and bn_backward")
+    if res["artifact_max_abs_err_plain"] > EXPORT_TOL["atol"]:
+        fail("the tutorial's artifact differs from its plain path by %.3e"
+             % res["artifact_max_abs_err_plain"])
+    return dict(res, wall_s=wall, launches=counts)
+
+
+def phase10(dev):
+    t0 = time.perf_counter()
+    pil = subprocess.run([sys.executable, "-c", "import PIL; print(PIL.__version__)"],
+                         capture_output=True, text=True, timeout=60)
+    pil_line = (pil.stdout.strip() if pil.returncode == 0
+                else (pil.stderr.strip().splitlines() or ["no output"])[-1])
+    print("  PIL on this machine (python3 -c 'import PIL'): %s" % pil_line, flush=True)
+    out = {"pil": pil_line}
+    with tempfile.TemporaryDirectory(prefix="ofa_sr_p10_") as tmp:
+        out["export"] = export_frames(dev, tmp)
+        out["cls"], out["cls_launches"] = cls_nets(dev, tmp)
+        out["tutorial"] = tutorial_run(tmp)
+    out["wall_s"] = time.perf_counter() - t0
+    print("  phase 10 took %.1f s" % out["wall_s"], flush=True)
+    return out
+
+
+def trace_check(dev, tmp):
+    """(b), run last: `trace` around two kernel frames of phase 3's subnet
+    writes a trace that names both serving kernels."""
+    net = build_net(dev)
+    sub = get_active_subnet(net, uniform_subnet(net.space, 7, 6, 2, 2), use_kernels=True)
+    x = torch.rand(1, *LR_HW, 3, generator=torch.Generator().manual_seed(30)).to(dev)
+    logdir = os.path.join(tmp, "trace")
+    with torch.inference_mode(), trace(logdir) as d:
+        for _ in range(2):
+            sub(x)
+        torch.cuda.synchronize()
+    files = [os.path.join(d, f) for f in os.listdir(d)]
+    text = "".join(open(f).read() for f in files)
+    found = {k: text.count(k) for k in ("mbconv_kernel", "shuffle_tail_kernel")}
+    print("  trace: %s (%d bytes), kernel names found %s" % (
+        [os.path.basename(f) for f in files], len(text), found), flush=True)
+    if len(files) != 1 or not all(found.values()):
+        fail("trace() wrote no trace naming both serving kernels")
+    return {"files": len(files), "bytes": len(text), "names": found}
+
+
 # -- phase 6: per-kernel numbers at the path's shapes ------------------------
 
 def steady_ms(fn, repeats=3):
@@ -2662,6 +2936,10 @@ def main():
           "deployments), the predictor, bicubic and the oracle-video CLIs", flush=True)
     p9 = phase9(dev)
 
+    print("phase 10: export, get_net_info, the classification nets at published width, the "
+          "tutorial", flush=True)
+    p10 = phase10(dev)
+
     print("phase 6: per-kernel numbers", flush=True)
     bn_rows = bn_kernel_numbers(g, path_counts, errs)
     bn_rows_bf16 = bn_kernel_numbers(g, path_counts, errs, BF16)
@@ -2746,6 +3024,20 @@ def main():
                                 "oracle CLIs": sum(d9[k]["launches"][key] for k in (
                                     "teacher validate", "teacher finetune", "ofa oracle"))}
     rows += apply_rows
+    # phase 10's counted runs: the export phase's kernel frames (and their
+    # checks and timings), the classification nets' train-mode forwards
+    # (float32 only), the tutorial (training, evaluation, deployment)
+    e10, t10 = p10["export"]["launches_all"], p10["tutorial"]["launches"]
+    for r in rows:
+        key = ROW_WRAPPER.get(r["name"], r["name"].split()[0])
+        key += "_bf16" if r.get("dtype") == "bfloat16" and key not in ("mbconv",
+                                                                      "shuffle_tail") else ""
+        r["launches_phase10"] = {"export frames": e10.get(key, 0),
+                                 "classification": p10["cls_launches"].get(key, 0),
+                                 "tutorial": t10.get(key, 0)}
+    rows[2]["route_note"] = ("takes every channel count; JAX switches its Pallas BN in only "
+                             "for C % 64 == 0 (ofa_sr_tpu/ops/norm.py:76); the classification "
+                             "nets' C 16-1280 run through it here")
     # last: a torch.profiler session leaves the launch path slower for the
     # rest of the process, so every timing above comes first, and the steps
     # are timed once more after the profiles to show by how much
@@ -2768,11 +3060,14 @@ def main():
         prof["ms_after_profiling"], prof["host_enqueue_ms_after_profiling"] = after
         print("  %s after the profiles: %.4f ms per step (CUDA events), host enqueue %.4f"
               % ((name,) + after), flush=True)
+    print("phase 10 (b): trace() around two kernel frames", flush=True)
+    with tempfile.TemporaryDirectory(prefix="ofa_sr_trace_") as tmp:
+        p10["trace"] = trace_check(dev, tmp)
     print(json.dumps({"kernels": rows, "frame_ms": frame_ms, "frame_profile": profiles,
                       "entry_ms": entry_ms, "train_runs": train_runs,
                       "train_runs_bf16": train_runs_bf16, "step_ms": step_ms,
                       "step_profile": train_profiles, "cli": cli, "x4": x4, "phase8": p8,
-                      "search": p9,
+                      "search": p9, "phase10": p10,
                       "build_s": build_s,
                       "mbconv_smem_bytes": mb_smem, "gpu": smi_line}))
     print(smi_line)

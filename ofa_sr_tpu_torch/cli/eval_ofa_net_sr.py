@@ -22,7 +22,11 @@ pixel-unshuffle grid. The ranks are the processes torchrun starts
 --materialize --spatial_mesh ...`); launched plainly, the mesh is this
 process alone. Every rank scores the whole frame; rank 0 writes the logs.
 
-Not ported yet, and refused: `--export` (ROADMAP queue 1 item 13).
+`--export PATH` writes the subnet as a serving artifact (`torch.export`
+of the materialized plain path with folded BN, models/export.py; served by
+`load_subnet`) for the test frames' LR shape, as the JAX package's writes
+its StableHLO one (also under `--x4_autoencoder`: the decoder's sr-mode
+subnet on the LR frame), then evaluates.
 
 Run: python -m ofa_sr_tpu_torch.cli.eval_ofa_net_sr --checkpoint <dir> [--synthetic]
 """
@@ -44,6 +48,7 @@ from ..models import (
     get_active_subnet,
     uniform_subnet,
 )
+from ..models.export import export_subnet
 from ..parallel.spatial import make_spatial_infer
 from ..train import RunConfig, SRRunManager
 from ..train.tiled_infer import (
@@ -73,7 +78,9 @@ def build_args(argv=None):
     p.add_argument("--materialize", action="store_true",
                    help="slice the static subnet (the deployment path)")
     p.add_argument("--bn_recalib", action="store_true")
-    p.add_argument("--export", type=str, default=None, help="not ported yet")
+    p.add_argument("--export", type=str, default=None,
+                   help="write a serving artifact (torch.export of the BN-folded subnet) for "
+                        "the test frames' LR shape, then continue with the evaluation")
     p.add_argument("--frame_log", type=str, default=None,
                    help="JSONL path for per-frame PSNR (and, materialized, seconds)")
     p.add_argument("--tile", type=int, default=None,
@@ -89,18 +96,6 @@ def build_args(argv=None):
                    help="evaluate an OFAMobileNetX4 in autoencoder mode (learned downscale + "
                         "SR): the net takes the HR frame itself")
     return p.parse_args(argv)
-
-
-_UNPORTED = (
-    ("export", "--export (an AOT serving artifact, models/export.py)", 13),
-)
-
-
-def _refuse_unported(args):
-    for attr, what, item in _UNPORTED:
-        if getattr(args, attr):
-            raise NotImplementedError("%s is not ported yet: ROADMAP queue 1 item %d"
-                                      % (what, item))
 
 
 def _timed(fn, cuda):
@@ -173,7 +168,6 @@ def materialized_eval(rm, sub_cfg, args, mesh=None):
 
 def main(argv=None):
     args = build_args(argv)
-    _refuse_unported(args)
     set_seeds(args.manual_seed)
     mesh = init_mesh(args)
 
@@ -193,6 +187,11 @@ def main(argv=None):
                              n_trunks=net.n_trunks)
     if args.bn_recalib:
         rm.reset_running_statistics(sub_cfg, n_images=64, batch_size=16)
+    if args.export and rm.writer:
+        lr = next(iter(provider.test))["x%d" % (2 ** sub_cfg.pixel_d)]
+        blob = export_subnet(net, sub_cfg, (lr.shape[1], lr.shape[2]), path=args.export)
+        rm.write_log("exported %s (%d bytes, input %dx%d)"
+                     % (args.export, len(blob), lr.shape[1], lr.shape[2]), "valid")
     if args.materialize:
         return materialized_eval(rm, sub_cfg, args, mesh)
 

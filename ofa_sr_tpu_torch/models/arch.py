@@ -2,7 +2,8 @@
 
 Counterpart of ofa_sr_tpu/models/arch.py. A subnet is an immutable host-side
 `SubnetConfig`; the port's eager forward slices weights by it directly, so
-there is no device-side encoding (`to_device` in the JAX package).
+there is no device-side encoding (`to_device` in the JAX package). Its
+`to_dict` / `from_dict` are the JAX package's JSON schema.
 
 Sampling keeps the reference's exact draw order: `random.seed(subnet_seed)`,
 then per-block `random.choice(ks)`, per-block choice(e), per-stage choice(d)
@@ -74,6 +75,18 @@ class SubnetConfig:
 
     def describe(self) -> str:
         return "ks%s_e%s_d%s_pd%d" % (list(self.ks), list(self.e), list(self.d), self.pixel_d)
+
+    # JSON serialization: the SR side's net.config, the JAX package's schema
+    def to_dict(self) -> dict:
+        return {"name": "SubnetConfig", "ks": list(self.ks), "e": list(self.e),
+                "d": list(self.d), "pixel_d": int(self.pixel_d)}
+
+    @staticmethod
+    def from_dict(d: dict) -> "SubnetConfig":
+        if d.get("name", "SubnetConfig") != "SubnetConfig":
+            raise ValueError("not a SubnetConfig dict: %r" % d.get("name"))
+        return SubnetConfig(ks=tuple(d["ks"]), e=tuple(d["e"]), d=tuple(d["d"]),
+                            pixel_d=int(d["pixel_d"]))
 
 
 def check_n_trunks(space: SearchSpace, cfg: SubnetConfig, n_trunks: int):

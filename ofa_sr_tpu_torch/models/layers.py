@@ -21,17 +21,27 @@ kernel-transform matrices stay float32, and the gradients reach the float32
 masters through the casts) and `bn_group` (None, or under data parallelism
 the mesh's process group: train-mode BN then takes the moments of every
 rank's rows, the JAX package's BN over a sharded batch).
+
+The classification nets' features of the MBConv (JAX `mbconv_init` /
+`_masked_mbconv_apply`): input and output widths other than the trunk's,
+a per-block activation, a stride in the depthwise conv (padding k//2 per
+side, the reference's), the squeeze-excite module under `depth_conv.se`,
+and elastic output width, which JAX masks (`channel_mask`) and the port
+slices (the point-linear conv's and its BN's first `out_ch` channels).
 """
 
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.activations import relu6
+from ..ops.activations import apply_act, h_sigmoid
 from ..ops.conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init, icnr_conv_init
 from ..ops.elastic import transform_kernel_chain, transform_matrices_init
 from ..ops.norm import batch_norm, batch_norm_train
 from ..ops.pixelshuffle import pixel_shuffle, pixel_unshuffle
+from ..utils.common import make_divisible
 from .arch import SearchSpace
 
 
@@ -112,22 +122,64 @@ def shuffle_slot(y, shuffle):
     raise ValueError("shuffle must be None, 'shuffle' or 'unshuffle', got %r" % (shuffle,))
 
 
-class DynamicMBConvLayer(nn.Module):
-    """Elastic MBConv: 1x1 expand -> BN -> relu6 -> k x k depthwise (elastic
-    kernel) -> BN -> relu6 -> 1x1 project -> BN. Banks at max shape."""
+class Conv1x1Bias(nn.Module):
+    """A 1x1 conv with a bias (the SE module's reduce and expand): OIHW
+    `weight` [out, in, 1, 1] and `bias` [out]."""
 
-    def __init__(self, space: SearchSpace, *, generator):
+    def __init__(self, in_ch, out_ch, *, generator):
+        super().__init__()
+        self.weight = nn.Parameter(conv_init(1, in_ch, out_ch, generator=generator))
+        self.bias = nn.Parameter(self.weight.new_zeros(out_ch))
+
+
+class SEModule(nn.Module):
+    """Squeeze-excite at elastic width (the reference's SEModule /
+    DynamicSE): global average pool -> 1x1 reduce (+bias) -> ReLU -> 1x1
+    expand (+bias) -> h_sigmoid gate on the input. Bottleneck
+    make_divisible(mid // 4, 8), both at max width and at the active
+    `mid` (JAX's `se_mid`)."""
+
+    def __init__(self, mid, *, generator):
+        super().__init__()
+        se_mid = make_divisible(mid // 4, 8)
+        self.fc = nn.Module()
+        self.fc.reduce = Conv1x1Bias(mid, se_mid, generator=generator)
+        self.fc.expand = Conv1x1Bias(se_mid, mid, generator=generator)
+
+    def forward(self, y, compute_dtype=None):
+        mid = y.shape[-1]
+        se_mid = make_divisible(mid // 4, 8)
+        r, e = self.fc.reduce, self.fc.expand
+        g = y.mean(dim=(1, 2))
+        g = F.linear(g, cast(r.weight[:se_mid, :mid, 0, 0], compute_dtype), r.bias[:se_mid])
+        g = torch.clamp(g, min=0.0)
+        g = F.linear(g, cast(e.weight[:mid, :se_mid, 0, 0], compute_dtype), e.bias[:mid])
+        return y * h_sigmoid(g)[:, None, None, :]
+
+
+class DynamicMBConvLayer(nn.Module):
+    """Elastic MBConv: 1x1 expand -> BN -> act -> k x k depthwise (elastic
+    kernel, stride) -> BN -> act [-> SE] -> 1x1 project -> BN. Banks at max
+    shape: `in_ch` -> round(in_ch * max_expand) -> `out_ch` (the trunk's
+    width by default), the kernel-transform matrices when
+    `use_transform` and the space has more than one kernel size."""
+
+    def __init__(self, space: SearchSpace, *, generator, in_ch=None, out_ch=None,
+                 use_se=False, use_transform=True):
         super().__init__()
         self.ks_list = list(space.ks_list)
-        c = space.width
-        mid = round(c * space.max_expand)
-        self.inverted_bottleneck = ConvBN(conv_init(1, c, mid, generator=generator))
+        c_in = space.width if in_ch is None else in_ch
+        c_out = space.width if out_ch is None else out_ch
+        mid = round(c_in * space.max_expand)
+        self.inverted_bottleneck = ConvBN(conv_init(1, c_in, mid, generator=generator))
         mats = (transform_matrices_init(space.ks_list)
-                if len(space.ks_list) > 1 else None)
+                if use_transform and len(space.ks_list) > 1 else None)
         self.depth_conv = ConvBN(
             depthwise_conv_init(space.max_ks, mid, generator=generator),
             matrices=mats)
-        self.point_linear = ConvBN(conv_init(1, mid, c, generator=generator))
+        self.point_linear = ConvBN(conv_init(1, mid, c_out, generator=generator))
+        if use_se:
+            self.depth_conv.se = SEModule(mid, generator=generator)
 
     def active_depthwise(self, ks, compute_dtype=None):
         """The effective ks x ks depthwise bank [mid_max, 1, ks, ks], in the
@@ -140,27 +192,35 @@ class DynamicMBConvLayer(nn.Module):
         return transform_kernel_chain(w, mats, self.ks_list, ks,
                                       use_transform=bool(mats)).to(w.dtype)
 
-    def forward(self, x, ks, mid, *, bn_training=False, use_kernels=False,
-                compute_dtype=None, spatial_mask=None, bn_group=None):
-        """`spatial_mask`: bucketed eval's (1, H, W, 1) mask, re-zeroing the
+    def forward(self, x, ks, mid, *, act="relu6", stride=1, out_ch=None, bn_training=False,
+                use_kernels=False, compute_dtype=None, spatial_mask=None, bn_group=None):
+        """x's channels are the active input width; `mid` the active middle
+        width, `out_ch` the active output width (None: the bank's).
+        `spatial_mask`: bucketed eval's (1, H, W, 1) mask, re-zeroing the
         pad before the depthwise conv (the BN bias made it nonzero)."""
         ib, dw, pl = self.inverted_bottleneck, self.depth_conv, self.point_linear
         bn = dict(bn_training=bn_training, use_kernels=use_kernels, bn_group=bn_group)
-        y = relu6(bn_apply(conv2d(x, cast(ib.conv.weight[:mid], compute_dtype)), ib.bn, mid,
-                           **bn))
+        w_ib = ib.conv.weight[:mid, :x.shape[-1]]
+        y = apply_act(bn_apply(conv2d(x, cast(w_ib, compute_dtype)), ib.bn, mid, **bn), act)
         if spatial_mask is not None:
             y = y * spatial_mask
-        y = depthwise_conv2d(y, self.active_depthwise(ks, compute_dtype)[:mid])
-        y = relu6(bn_apply(y, dw.bn, mid, **bn))
-        return bn_apply(conv2d(y, cast(pl.conv.weight[:, :mid], compute_dtype)), pl.bn, **bn)
+        y = depthwise_conv2d(y, self.active_depthwise(ks, compute_dtype)[:mid], stride)
+        y = apply_act(bn_apply(y, dw.bn, mid, **bn), act)
+        if hasattr(dw, "se"):
+            y = dw.se(y, compute_dtype)
+        y = conv2d(y, cast(pl.conv.weight[:out_ch, :mid], compute_dtype))
+        return bn_apply(y, pl.bn, out_ch, **bn)
 
 
 class MobileInvertedResidualBlock(nn.Module):
-    """MBConv with the identity shortcut."""
+    """MBConv with the identity shortcut (`shortcut=False`: without, the
+    first block of a classification stage)."""
 
-    def __init__(self, mobile_inverted_conv: DynamicMBConvLayer):
+    def __init__(self, mobile_inverted_conv: nn.Module, shortcut: bool = True):
         super().__init__()
         self.mobile_inverted_conv = mobile_inverted_conv
+        self.shortcut = shortcut
 
     def forward(self, x, ks, mid, **kw):
-        return self.mobile_inverted_conv(x, ks, mid, **kw) + x
+        y = self.mobile_inverted_conv(x, ks, mid, **kw)
+        return y + x if self.shortcut else y

@@ -46,14 +46,16 @@ def depthwise_conv_init(kernel_size, channels, *, generator):
                              generator=generator, device=generator.device)
 
 
-def conv2d(x, w):
-    """2D conv, NHWC x OIHW -> NHWC, SAME padding k//2 per side (odd k)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=w.shape[-1] // 2)
+def conv2d(x, w, stride=1):
+    """2D conv, NHWC x OIHW -> NHWC, padding k//2 per side (odd k) at any
+    stride: the reference's get_same_padding, not XLA's "SAME", which pads
+    a stride-2 conv asymmetrically."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=w.shape[-1] // 2)
     return y.permute(0, 2, 3, 1)
 
 
-def depthwise_conv2d(x, w):
-    """Depthwise conv, SAME padding: w is [C,1,k,k], groups = C."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=w.shape[-1] // 2,
+def depthwise_conv2d(x, w, stride=1):
+    """Depthwise conv, padding k//2 per side: w is [C,1,k,k], groups = C."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=w.shape[-1] // 2,
                  groups=x.shape[-1])
     return y.permute(0, 2, 3, 1)

@@ -1,10 +1,10 @@
-"""Closed-form MACs and parameter counts of S4 subnets, and the per-block
-FLOPs table (counterpart of ofa_sr_tpu/search/flops.py).
+"""Closed-form MACs and parameter counts of S4 subnets, the classification
+nets' MACs, and the per-block FLOPs table (counterpart of
+ofa_sr_tpu/search/flops.py).
 
 Numpy and plain Python only: the same integers as the JAX package for the
 same subnet. The reference counts MACs (weight-ops per position) and calls
-the field 'flops'; so do both packages. `cls_subnet_flops`, the
-classification nets' count, waits for the port of those nets.
+the field 'flops'; so do both packages.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..models.arch import SearchSpace, SubnetConfig
+from ..utils.common import make_divisible
 
 
 def _conv_macs(h, w, cin, cout, k, groups=1):
@@ -87,6 +88,47 @@ def s4_subnet_flops(cfg: SubnetConfig, space: SearchSpace, hr_size=96, conv_ks=5
         hh *= 2
         ww *= 2
     f += _conv_macs(hh, ww, w, 3, conv_ks)
+    return f
+
+
+def cls_subnet_flops(net, arch, image_size=224):
+    """MACs of a classification subnet (`net` an ElasticClassifierNet) at
+    the widths of `arch.wid`, as the forward runs them."""
+    wid = len(net.width_mult_list) - 1 if getattr(arch, "wid", None) is None else arch.wid
+    ins, outs = net.active_block_channels(wid)
+    fw = net.first_conv_widths[wid]
+    fbo = net.first_block_outs[wid]
+    fm_w = net.feature_mix_widths[wid]
+    hw = image_size // 2
+    f = _conv_macs(hw, hw, 3, fw, 3)
+    # the first block (e1, k3)
+    f += _conv_macs(hw, hw, fw, fw, 3, groups=fw)
+    f += _conv_macs(hw, hw, fw, fbo, 1)
+    bi = 0
+    for si, spec in enumerate(net.stage_specs):
+        for i in range(spec.n_block):
+            in_ch, out_ch = ins[bi], outs[bi]
+            stride = spec.stride if i == 0 else 1
+            if i < arch.d[si] or i == 0:
+                mid = make_divisible(round(in_ch * arch.e[bi]), 8)
+                k = arch.ks[bi]
+                f += _conv_macs(hw, hw, in_ch, mid, 1)
+                hw2 = hw // stride
+                f += _conv_macs(hw2, hw2, mid, mid, k, groups=mid)
+                if spec.se:
+                    f += mid * make_divisible(mid // 4, 8) * 2
+                f += _conv_macs(hw2, hw2, mid, out_ch, 1)
+            if i == 0:
+                hw //= stride
+            bi += 1
+    last_w = outs[-1]
+    if net.final_expand_width:
+        f += _conv_macs(hw, hw, last_w, net.final_expand_width, 1)
+        f += net.final_expand_width * net.feature_mix_width
+        f += net.feature_mix_width * net.n_classes
+    else:
+        f += _conv_macs(hw, hw, last_w, fm_w, 1)
+        f += fm_w * net.n_classes
     return f
 
 

@@ -9,10 +9,11 @@ msgpack checkpoints (the bridge below covers weights), but it reads a
 reference `.pth.tar` or a raw state_dict: the port's state_dict has the
 reference layout.
 
-The bridge (counterpart of the torch-interop half, whose `import_torch_s4`
-and `import_torch_x4` read the port's `state_dict()` unchanged) goes the
-other direction: the JAX package's `(params, state)` for OFAMobileNetS4 or
-OFAMobileNetX4, as numpy arrays (or anything `np.asarray` takes), become a
+The bridge (counterpart of the torch-interop half, whose `import_torch_s4`,
+`import_torch_x4` and `import_torch_mbv3` read the port's `state_dict()`
+unchanged) goes the other direction: the JAX package's `(params, state)`
+for OFAMobileNetS4, OFAMobileNetX4, OFAMobileNetV3 or OFAProxylessNASNets,
+as numpy arrays (or anything `np.asarray` takes), become a
 state_dict that the port's net's `load_state_dict` accepts. Conv kernels HWIO -> OIHW;
 depthwise [k,k,1,C] -> [C,1,k,k]; BN scale/bias/mean/var ->
 weight/bias/running_mean/running_var.
@@ -176,4 +177,35 @@ def x4_state_dict_from_jax(params, state):
             _put_conv_layer(sd, "%s.%d" % (key, i), p, s)
     for key in ("dec_first_conv_block", "dec_final_output_conv_block"):
         _put_conv_layer(sd, key, params[key], state[key])
+    return sd
+
+
+def mbv3_state_dict_from_jax(params, state):
+    """JAX OFAMobileNetV3 or OFAProxylessNASNets (params, state) -> the
+    port's state_dict, in the reference layout `import_torch_mbv3` reads:
+    the static first block as `blocks.0`, the elastic blocks from
+    `blocks.1` (SE under `depth_conv.se.fc`), the MBV3 head's BN-less
+    `feature_mix_layer`, and the classifier's [in, out] weight transposed
+    to torch Linear's [out, in]."""
+    sd = {}
+    _put_conv_layer(sd, "first_conv", params["first_conv"], state["first_conv"])
+    fb, fbs = params["first_block"], state["first_block"]
+    for part, key in (("depth_conv", "dw"), ("point_linear", "pl")):
+        prefix = "blocks.0.mobile_inverted_conv." + part
+        sd[prefix + ".conv.weight"] = _hwio_to_oihw(fb[key]["w"])
+        _put_bn(sd, prefix + ".bn", fb[key]["bn"], fbs[key]["bn"])
+    for i, (p, s) in enumerate(zip(params["blocks"], state["blocks"])):
+        _put_mbconv(sd, "blocks.%d" % (i + 1), p, s)
+        if "se" in p:
+            sep = "blocks.%d.mobile_inverted_conv.depth_conv.se.fc" % (i + 1)
+            for part in ("reduce", "expand"):
+                sd["%s.%s.weight" % (sep, part)] = _hwio_to_oihw(p["se"][part]["w"])
+                sd["%s.%s.bias" % (sep, part)] = _tensor(p["se"][part]["b"])
+    if "final_expand" in params:
+        _put_conv_layer(sd, "final_expand_layer", params["final_expand"], state["final_expand"])
+        sd["feature_mix_layer.conv.weight"] = _hwio_to_oihw(params["feature_mix"]["conv"]["w"])
+    else:
+        _put_conv_layer(sd, "feature_mix_layer", params["feature_mix"], state["feature_mix"])
+    sd["classifier.linear.weight"] = _tensor(np.asarray(params["classifier"]["w"]).T)
+    sd["classifier.linear.bias"] = _tensor(params["classifier"]["b"])
     return sd

@@ -24,10 +24,6 @@ moments, gradient and metrics; validation runs whole on every rank, as the
 JAX package runs it replicated; checkpoints, `latest.txt`, the logs and the
 run's info files are written by rank 0 alone, the process-per-device form
 of JAX's single writer.
-
-One difference from the JAX package: `reset_running_statistics` of an
-autoencoder run recalibrates in autoencoder mode, as `validate` does; the
-JAX package's runs the X4 net's decoder alone there, on the HR frame.
 """
 
 from __future__ import annotations
@@ -458,7 +454,10 @@ class SRRunManager:
 
     def reset_running_statistics(self, cfg: SubnetConfig, n_images=2000, batch_size=100):
         """Recalibrate the running statistics for `cfg` over the provider's
-        calibration subset."""
+        calibration subset, in `bn_recalibrate`'s default mode "sr" whatever
+        the run's mode (an X4 net's decoder alone), on the HR "image"
+        batch, as the JAX package's does. `validate`'s
+        `recalib_loader` recalibrates in the run's mode instead."""
         loader = self.provider.build_sub_train_loader(n_images, batch_size)
         bn_recalibrate(self.net, cfg, cfg.pixel_d, loader, use_kernels=self.trainer.use_kernels,
-                       mode=self.run_config.mode, mesh=self.mesh)
+                       mesh=self.mesh)

@@ -1,6 +1,7 @@
 """PSNR on the Y channel with the reference's uint8 semantics, as tensor ops
-on the tensors' own device (counterpart of the device half of
-ofa_sr_tpu/utils/metrics.py).
+on the tensors' own device, and the numpy twins of the reference's host
+helpers (counterpart of ofa_sr_tpu/utils/metrics.py; the numpy half is this
+package's own copy).
 
 clamp to [0, 1], x255, round, ITU-R 601 Y with a second round, MSE,
 20*log10(255/sqrt(mse)); inf where the images are equal. `torch.round`
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # ITU-R 601 RGB->Y weights (the reference's rgb2y)
@@ -69,3 +71,43 @@ def y_squared_error_sum(pred, target, channel_axis=-1):
     totals is the whole batch's PSNR-Y)."""
     sq = _y_squared_errors(pred, target, channel_axis)
     return sq.sum(), sq.numel()
+
+
+def psnr_rgb_device(pred, target):
+    """PSNR of uint8-rounded [0,1] RGB images (no Y conversion), one
+    scalar tensor."""
+    return psnr_from_mse(torch.square(quantize_img(pred) - quantize_img(target)).mean())
+
+
+# -- host (numpy) twins of the reference's helpers -----------------------------
+
+def psnr_np(img1, img2):
+    """The reference psnr: uint8 images, float64 math."""
+    assert img1.dtype == img2.dtype == np.uint8
+    mse = np.mean((img1.astype(np.float64) - img2.astype(np.float64)) ** 2)
+    if mse == 0:
+        return float("inf")
+    return 20 * np.log10(255.0 / np.sqrt(mse))
+
+
+def tensor2img_np(arr, out_type=np.uint8, min_max=(0, 1)):
+    """The reference tensor2img_np for HWC (or NHWC, the batch kept) arrays:
+    clamp to min_max, scale to [0, 1], and for uint8 x255 and round."""
+    a = np.clip(np.asarray(arr, dtype=np.float32), *min_max)
+    a = (a - min_max[0]) / (min_max[1] - min_max[0])
+    if out_type == np.uint8:
+        a = (a * 255.0).round()
+    return a.astype(out_type)
+
+
+def rgb2y_np(img):
+    """The reference rgb2y: uint8 RGB -> rounded uint8 Y (ITU-R 601)."""
+    assert img.dtype == np.uint8
+    y = (np.dot(img[..., :3], list(Y_WEIGHTS)) / 255.0 + 16.0).round()
+    return y.astype(np.uint8)
+
+
+def rgb2gray_np(img):
+    """The reference rgb2gray: rounded luma in the image's own dtype."""
+    gray = np.dot(img[..., :3], [0.299, 0.587, 0.114]).round()
+    return gray.astype(img.dtype)

@@ -110,15 +110,20 @@ def test_eval_validate_and_materialize(teacher_run, tmp_path):
                                         (["--tile_mesh"], 10), (["--spatial_mesh"], 10),
                                         (["--x4_autoencoder", "--tile", "8"], 10)])
 def test_eval_refuses_unported(tmp_path, flags, item):
-    """--export (item 13) is refused. Item 10's options are ported: with
-    --materialize each runs (in one process: a world of one; here the 8x8
-    LR frames are smaller than a tile's window and run whole, except under
-    --spatial_mesh, whose slab runs with zero halos and row bounds) and
-    scores the untiled run's mean PSNR-Y within 1e-4 dB. Real tiles and two
-    ranks: tests/test_torch_tiled.py."""
+    """Every option is ported now. --export (item 13) writes the serving
+    artifact and evaluates as without it (tests/test_torch_export.py serves
+    the artifact). Item 10's options: with --materialize each runs (in one
+    process: a world of one; here the 8x8 LR frames are smaller than a
+    tile's window and run whole, except under --spatial_mesh, whose slab
+    runs with zero halos and row bounds) and scores the untiled run's mean
+    PSNR-Y within 1e-4 dB. Real tiles and two ranks:
+    tests/test_torch_tiled.py."""
     if item == 13:
-        with pytest.raises(NotImplementedError, match="item %d" % item):
-            _eval(tmp_path, *flags)
+        art = str(tmp_path / flags[1])
+        np.testing.assert_allclose(_eval(tmp_path / "x", flags[0], art), _eval(tmp_path / "v"),
+                                   rtol=0, atol=1e-4)
+        assert os.path.getsize(art) > 0
+        assert "exported %s" % art in _valid_log(tmp_path / "x")
         return
     ae = ["--x4_autoencoder"] if "--x4_autoencoder" in flags else []
     whole = _eval(tmp_path / "whole", "--materialize", *ae)

@@ -30,7 +30,9 @@ def test_importing_the_port_loads_no_jax():
               "parallel.mesh", "parallel.spatial", "train.tiled_infer", "search",
               "search.flops", "search.encoder", "search.evolution", "search.accuracy_predictor",
               "search.latency", "data.bicubic", "data.native",
-              "cli.train_teacher_net_sr_oracle_video", "cli.train_ofa_net_sr_oracle_video"):
+              "cli.train_teacher_net_sr_oracle_video", "cli.train_ofa_net_sr_oracle_video",
+              "models.export", "models.ofa_cls", "models.materialize_cls", "models.net_config",
+              "utils.profile", "tools.media", "tutorial"):
         assert "ofa_sr_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

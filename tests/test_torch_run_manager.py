@@ -21,6 +21,7 @@ import torch
 
 from ofa_sr_tpu.data import SyntheticSRProvider as JaxProvider
 from ofa_sr_tpu.models import OFAMobileNetS4 as JaxS4
+from ofa_sr_tpu.models import OFAMobileNetX4 as JaxX4
 from ofa_sr_tpu.models import arch as jarch
 from ofa_sr_tpu.train import RunConfig as JaxRunConfig
 from ofa_sr_tpu.train import SRRunManager as JaxRunManager
@@ -31,6 +32,7 @@ from ofa_sr_tpu.train import run_manager as jrm
 from ofa_sr_tpu_torch.data import SyntheticSRProvider
 from ofa_sr_tpu_torch.models import (
     OFAMobileNetS4,
+    OFAMobileNetX4,
     SearchSpace,
     SubnetConfig,
     max_subnet,
@@ -39,7 +41,7 @@ from ofa_sr_tpu_torch.models import (
 from ofa_sr_tpu_torch.train import RunConfig, SRRunManager, SRTrainer, bn_recalibrate
 from ofa_sr_tpu_torch.train import checkpoint as tckpt
 from ofa_sr_tpu_torch.train import run_manager as trm
-from ofa_sr_tpu_torch.train.checkpoint import s4_state_dict_from_jax
+from ofa_sr_tpu_torch.train.checkpoint import s4_state_dict_from_jax, x4_state_dict_from_jax
 
 SMALL_KW = dict(ks_list=[3, 5, 7], expand_list=[2, 3], depth_list=[1, 2], pixel_d_list=[1, 2],
                 n_stages=2, width=8)
@@ -214,6 +216,54 @@ def test_validate_recalib_restores_and_reset_running_statistics(tmp_path):
     rm.reset_running_statistics(cfg, n_images=4, batch_size=2)
     assert not _state_dict_equal(rm.net.state_dict(), before)
     assert np.isclose(rm.validate(cfg)[1], recal[1], rtol=1e-6)
+
+
+X4_KW = dict(ks_list=[3, 5], expand_list=[2, 3], depth_list=[1, 2], pixel_d_list=[1, 2],
+             n_stages=1, width=8)
+# the X4 decoder's statistics after its long skip are means of O(1)
+# activations that cancel to ~1e-2: float32 sums in another order differ
+# there by ~2e-6 absolute, so they are held within 1e-5 absolute
+X4_RECAL_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def test_x4_autoencoder_recalibration_matches_jax(tmp_path):
+    """An X4 autoencoder run's `reset_running_statistics` recalibrates as
+    JAX's does, in the default "sr" mode (the decoder alone, on the HR
+    image), and `bn_recalibrate(mode="autoencoder")` (validate's rule for
+    such a run) as JAX's does in that mode: every running statistic within
+    X4_RECAL_TOL of JAX's on the same loader and weights."""
+    kw = dict(n_epochs=1, base_lr=1e-3, train_batch_size=4, mode="autoencoder")
+    jrun = JaxRunManager(str(tmp_path / "jax"), JaxX4(jarch.SearchSpace(**X4_KW)),
+                         JaxRunConfig(**kw), JaxProvider(**PROVIDER_KW))
+    net = OFAMobileNetX4(SearchSpace(**X4_KW), device="cpu")
+    net.load_state_dict(x4_state_dict_from_jax(jrun.params, jrun.state))
+    trun = SRRunManager(str(tmp_path / "port"), net, RunConfig(**kw),
+                        SyntheticSRProvider(**PROVIDER_KW))
+    jcfg = jarch.SubnetConfig(ks=(3, 5, 5, 3), e=(2, 3, 3, 2), d=(2, 1), pixel_d=2)
+    cfg = SubnetConfig(ks=jcfg.ks, e=jcfg.e, d=jcfg.d, pixel_d=2)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+
+    jrun.reset_running_statistics(jcfg, n_images=8, batch_size=4)
+    trun.reset_running_statistics(cfg, n_images=8, batch_size=4)
+    ref = x4_state_dict_from_jax(jrun.params, jrun.state)
+    got = net.state_dict()
+    for k in got:
+        np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), err_msg=k, **X4_RECAL_TOL)
+    # the decoder alone: no encoder statistic moved
+    enc = [k for k in got if "running" in k and (k.startswith("enc_") or k.startswith(
+        "blocks.0.") or k.startswith("blocks.1.") or k.startswith("blocks.2.")
+        or k.startswith("blocks.3."))]
+    assert enc and all(torch.equal(got[k], before[k]) for k in enc)
+
+    batches = list(trun.provider.build_sub_train_loader(8, 4))
+    js = jax_bn_recalibrate(jrun.net, jrun.params, jrun.state, jcfg.to_device(jrun.net.space),
+                            2, batches, mode="autoencoder")
+    bn_recalibrate(net, cfg, 2, batches, mode="autoencoder")
+    ref = x4_state_dict_from_jax(jrun.params, js)
+    got = net.state_dict()
+    for k in got:
+        np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), err_msg=k, **X4_RECAL_TOL)
+    assert not all(torch.equal(got[k], before[k]) for k in enc)
 
 
 # -- bucketed eval ------------------------------------------------------------

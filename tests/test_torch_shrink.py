@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from ofa_sr_tpu.cli import eval_ofa_net_sr as jeval
 from ofa_sr_tpu.cli import train_ofa_net_sr_simple as jshrink_cli
 from ofa_sr_tpu.data import SyntheticSRProvider as JaxProvider
 from ofa_sr_tpu.models import OFAMobileNetX4 as JaxX4
@@ -24,6 +25,7 @@ from ofa_sr_tpu.models import arch as jarch
 from ofa_sr_tpu.train import RunConfig as JaxRunConfig
 from ofa_sr_tpu.train import SRRunManager as JaxRunManager
 from ofa_sr_tpu.train import run_manager as jrm
+from ofa_sr_tpu.train import checkpoint as jckpt
 from ofa_sr_tpu.train import shrink as jshrink
 from ofa_sr_tpu_torch.cli import eval_ofa_net_sr as teval
 from ofa_sr_tpu_torch.cli import train_ofa_net_sr_simple as tshrink_cli
@@ -33,7 +35,12 @@ from ofa_sr_tpu_torch.models import reorganize as treorg
 from ofa_sr_tpu_torch.train import RunConfig, SRRunManager
 from ofa_sr_tpu_torch.train import run_manager as trm
 from ofa_sr_tpu_torch.train import shrink as tshrink
-from ofa_sr_tpu_torch.train.checkpoint import save_checkpoint, x4_state_dict_from_jax
+from ofa_sr_tpu_torch.train.checkpoint import (
+    checkpoint_state_dict,
+    load_checkpoint,
+    save_checkpoint,
+    x4_state_dict_from_jax,
+)
 from test_torch_cli import JAX_ONLY, PORT_ONLY
 
 SMALL_KW = dict(ks_list=[3, 5], expand_list=[2, 3], depth_list=[1, 2], pixel_d_list=[1, 2],
@@ -333,6 +340,16 @@ def test_eval_x4_autoencoder(shrink_runs, tmp_path):
         assert len(f.readlines()) == 4
     recal = teval.main(args + ["--path", str(tmp_path / "r"), "--bn_recalib"])
     assert np.isfinite(recal) and recal != plain
+    # --bn_recalib against JAX's CLI on the same weights (the port's
+    # checkpoint through import_torch_x4) and frames: both recalibrate the
+    # decoder alone, on the HR image
+    sd = checkpoint_state_dict(load_checkpoint(ckpt))
+    jfile = jckpt.save_weights(str(tmp_path), *jckpt.import_torch_x4(sd, JaxX4(
+        jarch.SearchSpace())), "jax.ckpt")
+    jrecal = jeval.main(["--synthetic", "--dataset", "div2k", "--image_size", "16",
+                         "--x4_autoencoder", "--bn_recalib", "--checkpoint", jfile,
+                         "--path", str(tmp_path / "j")])
+    np.testing.assert_allclose(recal, jrecal, **TOL)
 
 
 def test_kd_teacher_checkpoint_is_port_native(tmp_path):
