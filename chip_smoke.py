@@ -175,6 +175,35 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    loaded and run against the materialized subnet (1e-6); (d) the tutorial
    (`ofa_sr_tpu_torch.tutorial`) at its defaults on the card, its launches
    counted. Whether PIL imports on this machine is printed.
+11. (run after phase 10, before phase 6's timings and profiles)
+   Classification training: (a) `ClsTrainer` on OFAMobileNetV3 and
+   OFAProxylessNASNets at the published widths, 1000 classes, seeded
+   weights and random BN, batch 64 at 224 px, SGD with Nesterov momentum,
+   weight decay 3e-5, label smoothing 0.1: one step of one subnet (the
+   kernel phase's draw) and one of TASK_PHASES[("expand", 2)]'s 4 subnets
+   with KD against a ks7/e6/d4 teacher, each in float32 and bf16, the
+   kernel path against the plain path from the same weights (losses
+   STEP_TOL, bf16 BF16_STEP_TOL; float32 parameters STEP_TOL and running
+   statistics CLS_STATE_TOL) with `bn_forward` and `bn_backward` launched
+   once per executed BN and nothing else; ms per step (CUDA events) and
+   host enqueue ms in alternating rounds, each path's peak
+   max_memory_allocated; the BN kernels at the step's extreme shapes (the
+   most rows, 802,816, at the fewest and most channels; the most channels
+   at 3,136 rows) against their plain versions, float32 against float64
+   sums, ms a launch beside F.batch_norm (train) /
+   native_batch_norm_backward and the bound; the one-subnet kernel step of
+   each family profiled with phase 6's. (b) The five classification CLIs,
+   --synthetic, counted: the CIFAR teacher for 1 epoch and a resumed
+   second, the CIFAR supernet with KD from it; `train_ofa_net --task
+   kernel` then `--task depth --phase 1 --warmstart`; `eval_ofa_net`
+   plain, --materialize and --export from that checkpoint (the artifact
+   against the recalibrated materialized subnet, EXPORT_TOL);
+   `eval_specialized_net --supernet_checkpoint --arch_config`; BN launches
+   against each run's executed BNs, checkpoint and log files, finite
+   losses. (c) Cifar10Provider on a seeded pickle directory and
+   ImagenetProvider with ElasticResolution(128-224) on a seeded PNG tree,
+   one epoch each through ClsRunManager (the folder epoch at all four
+   sizes), BN launches counted.
 
 Float32 with TF32 off for cuDNN and matmuls, so the card's numbers compare
 with the CPU's, apart from the bf16 training runs; the shuffle-tail and
@@ -184,12 +213,14 @@ accuracy). Exits non-zero when no CUDA device is present.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import dataclasses
 import functools
 import hashlib
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -212,14 +243,26 @@ from ofa_sr_tpu_torch.entry import (  # noqa: E402
 from ofa_sr_tpu_torch import entry as entry_mod  # noqa: E402
 from ofa_sr_tpu_torch import search  # noqa: E402
 from ofa_sr_tpu_torch.cli import (  # noqa: E402
+    eval_ofa_net,
     eval_ofa_net_sr,
+    eval_specialized_net,
+    train_ofa_net,
+    train_ofa_net_cifar10_simple,
     train_ofa_net_sr_oracle_video,
     train_ofa_net_sr_simple,
+    train_teacher_net_cifar10_simple,
     train_teacher_net_sr_oracle_video,
     train_teacher_net_sr_simple,
 )
 from ofa_sr_tpu_torch.cli.common import make_net, make_sr_provider  # noqa: E402
-from ofa_sr_tpu_torch.data import SyntheticSRProvider  # noqa: E402
+from ofa_sr_tpu_torch.data import (  # noqa: E402
+    Cifar10Provider,
+    ElasticResolution,
+    ImagenetProvider,
+    SyntheticClsProvider,
+    SyntheticSRProvider,
+)
+from ofa_sr_tpu_torch.model_zoo import ofa_net  # noqa: E402
 from ofa_sr_tpu_torch.data.bicubic import resize_bicubic  # noqa: E402
 from ofa_sr_tpu_torch.models import (  # noqa: E402
     OFAMobileNetS4,
@@ -268,7 +311,13 @@ from ofa_sr_tpu_torch.ops.kernels.shuffle_tail import (  # noqa: E402
 from ofa_sr_tpu_torch.ops.norm import batch_norm_train  # noqa: E402
 from ofa_sr_tpu_torch.search import latency as search_latency  # noqa: E402
 from rank_launch import free_port, launch  # noqa: E402
-from ofa_sr_tpu_torch.train import RunConfig, SRRunManager, SRTrainer  # noqa: E402
+from ofa_sr_tpu_torch.train import (  # noqa: E402
+    ClsRunManager,
+    ClsTrainer,
+    RunConfig,
+    SRRunManager,
+    SRTrainer,
+)
 from ofa_sr_tpu_torch.train.checkpoint import load_weights_lenient  # noqa: E402
 from ofa_sr_tpu_torch.train.tiled_infer import (  # noqa: E402
     receptive_field_radius,
@@ -2653,6 +2702,554 @@ def trace_check(dev, tmp):
     return {"files": len(files), "bytes": len(text), "names": found}
 
 
+# -- phase 11: classification training ---------------------------------------
+
+CLS_TRAIN_BATCH, CLS_TRAIN_HW = 64, 224   # train_ofa_net's per-device batch at 224 px
+CLS_LR = 2.5e-3                          # the depth and expand phase-1 presets' LR
+# a parameter past STEP_TOL after a step, kernels against plain (the
+# classification step's gradients are 10-60x the early convs' weights, and
+# train-mode BN's E[x^2] - mean^2 cancels on channels whose mean dwarfs their
+# spread, so float32 noise alone passes STEP_TOL's atol there): its update
+# within this share of the float64 step's update (relative L2), the plain
+# float32 path's share reported beside it
+CLS_UPDATE_RTOL = 5e-2
+CLS_EVAL_HW = 224                         # eval_ofa_net's default --image_size
+CLS_STEP_ROUNDS = 3                       # rounds of (plain, kernels, kernels, plain) timing
+CLS_FAMILIES = (("MBV3", OFAMobileNetV3), ("Proxyless", OFAProxylessNASNets))
+CLS_DTYPES = ((None, "f32"), (BF16, "bf16"))
+CLS_STEP_PATHS = ("plain", "kernels")
+# (c): the real data paths' sizes, all drawn in one epoch of the folder provider
+ELASTIC_SIZES = (128, 160, 192, 224)
+FOLDER_BATCH, FOLDER_TRAIN_PER_CLASS, FOLDER_CLASSES = 8, 24, 4  # 12 batches: all 4 sizes
+CIFAR_PER_BATCH_FILE, CIFAR_BATCH = 64, 64
+
+
+def cls_envelopes(net):
+    """The phase's two steps: one subnet of the kernel phase (ks drawn, e6,
+    d4), and TASK_PHASES[("expand", 2)]'s 4 subnets (ks, e and d drawn)."""
+    expand = train_ofa_net.TASK_PHASES[("expand", 2)]
+    return {"1 subnet": [net.sample_arch(seed=subnet_seed(0, 1, 0, 0), expand_candidates=[6],
+                                         depth_candidates=[4])],
+            "4 subnets + KD": [net.sample_arch(seed=subnet_seed(0, 1, 0, k),
+                                               ks_candidates=expand["ks_list"],
+                                               expand_candidates=expand["expand_list"],
+                                               depth_candidates=expand["depth_list"])
+                               for k in range(expand["dynamic_batch_size"])]}
+
+
+def cls_train_net(make, dev, seed, **kw):
+    net = make(n_classes=1000, device=dev, generator=torch.Generator().manual_seed(seed), **kw)
+    randomize_bn(net, torch.Generator().manual_seed(seed + 1))
+    return net
+
+
+def cls_trainer(net, env, teacher, use_kernels, dtype):
+    kd = env != "1 subnet"
+    return ClsTrainer(net, opt_type="sgd", weight_decay=3e-5, momentum=0.9, nesterov=True,
+                      label_smoothing=0.1, kd_ratio=1.0 if kd else 0.0,
+                      teacher=teacher if kd else None, use_kernels=use_kernels,
+                      compute_dtype=dtype)
+
+
+BN_PATH_KEYS = ("bn_forward", "bn_backward", "bn_forward_bf16", "bn_backward_bf16")
+
+
+def cls_bn_launches_wrong(counts, expect, bf16):
+    """bn_launches_wrong for a classification step: also no kernel of the
+    mesh route and no serving kernel."""
+    others = {k: v for k, v in counts.items() if v and k not in BN_PATH_KEYS}
+    return bn_launches_wrong(counts, expect, bf16) or (
+        "launched %s" % others if others else None)
+
+
+def cls_step_checks(label, net, w0, batch, archs, env, teacher, dtype):
+    """One step from w0 on the kernel path (counted) and on the plain path:
+    losses, and in float32 the parameters and running statistics after it."""
+    bf16 = dtype is BF16
+    runs = [("kernels", net, True, batch, teacher), ("plain", net, False, batch, teacher)]
+    if not bf16:  # the plain path in float64: the reference of the float32 updates
+        net64, t64 = (copy.deepcopy(m).double() for m in (net, teacher[0]))
+        net64.load_state_dict(w0)
+        runs.append(("float64", net64, False, dict(batch, image=batch["image"].double()),
+                     (t64, teacher[1])))
+    out = {}
+    for name, n_, use_kernels, b, t in runs:
+        n_.load_state_dict(w0)
+        tr = cls_trainer(n_, env, t, use_kernels, dtype)
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        m = tr.train_step(b, archs, CLS_LR)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        out[name] = {"loss": m["loss"].float().cpu(), "counts": counts,
+                     "params": {k: p.detach().clone() for k, p in n_.named_parameters()},
+                     "stats": running_stats(n_), "metrics": {k: float(v) for k, v in m.items()}}
+    kern, plain = out["kernels"], out["plain"]
+    expect = sum(cls_bn_count(net, a) for a in archs)
+    wrong = cls_bn_launches_wrong(kern["counts"], expect, bf16)
+    print("  %s: BN launches %s (expected %d each), loss %.5f (plain %.5f)"
+          % (label, {k: v for k, v in kern["counts"].items() if v}, expect,
+             kern["metrics"]["loss"], plain["metrics"]["loss"]), flush=True)
+    if wrong:
+        fail("%s: the kernel path %s" % (label, wrong))
+    if any(plain["counts"].values()):
+        fail("%s: the plain path launched %s" % (label, {k: v for k, v in plain["counts"].items()
+                                                         if v}))
+    if not all(np.isfinite(v) for v in kern["metrics"].values()):
+        fail("%s: non-finite metrics %s" % (label, kern["metrics"]))
+    errs = {"loss": check_close("%s: loss, kernels vs plain" % label, kern["loss"][None],
+                                plain["loss"][None], BF16_STEP_TOL if bf16 else STEP_TOL)}
+    if not bf16:
+        errs["params"] = max(float((kern["params"][n] - plain["params"][n]).abs().max())
+                             for n in kern["params"])
+        # each tensor at STEP_TOL; a tensor past it (float32 noise in a
+        # gradient 10-60x its weights) with its update within CLS_UPDATE_RTOL
+        # of the float64 step's (relative L2), the plain path's measured
+        # beside it
+        ref = out["float64"]["params"]
+        errs["past_step_tol"] = {}
+        for n, k_n in kern["params"].items():
+            if bool(torch.isclose(k_n, plain["params"][n], **STEP_TOL).all()):
+                continue
+            size = float((ref[n] - w0[n].double()).norm())
+            rel = {p: float((o["params"][n].double() - ref[n]).norm()) / size
+                   for p, o in (("kernels", kern), ("plain", plain))}
+            errs["past_step_tol"][n] = rel
+            if not rel["kernels"] <= CLS_UPDATE_RTOL:
+                fail("%s: %s's update on the kernel path is %.3e of its size from the float64 "
+                     "step's (the plain path's %.3e; bound %.0e)"
+                     % (label, n, rel["kernels"], rel["plain"], CLS_UPDATE_RTOL))
+        keys = [k for k in kern["stats"] if "running" in k]
+        errs["running stats"] = check_close(
+            "%s: running statistics, kernels vs plain" % label,
+            torch.cat([kern["stats"][k] for k in keys]),
+            torch.cat([plain["stats"][k] for k in keys]), CLS_STATE_TOL)
+        worst = {p: max([r[p] for r in errs["past_step_tol"].values()] or [0.0])
+                 for p in ("kernels", "plain")}
+        print("  %s: params after the step, kernels vs plain: max_abs_err %.3e; %d tensors past "
+              "STEP_TOL, their updates at most %.3e (kernels) and %.3e (plain) of their size "
+              "from the float64 step's  ok" % (label, errs["params"], len(errs["past_step_tol"]),
+                                                worst["kernels"], worst["plain"]), flush=True)
+    return {"archs": [a.describe() for a in archs], "bn_per_step": expect,
+            "launches": {k: v for k, v in kern["counts"].items() if v},
+            "metrics": kern["metrics"], "plain_metrics": plain["metrics"], "errors": errs}
+
+
+def cls_step_times(label, net, batch, archs, env, teacher, dtype):
+    """ms per step (CUDA events) and host enqueue ms of the plain and kernel
+    paths in CLS_STEP_ROUNDS rounds of (plain, kernels, kernels, plain), and
+    each path's peak of torch.cuda.max_memory_allocated over a step. The
+    steps move the weights; the timings do not depend on their values."""
+    trainers = {p: cls_trainer(net, env, teacher, p == "kernels", dtype) for p in CLS_STEP_PATHS}
+
+    def run(p):
+        trainers[p].train_step(batch, archs, CLS_LR)
+
+    peak = {}
+    for p in CLS_STEP_PATHS:
+        run(p)  # warm: cuDNN's algorithm choice, the allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run(p)
+        torch.cuda.synchronize()
+        peak[p] = torch.cuda.max_memory_allocated() / 2 ** 20
+    times = {p: [] for p in CLS_STEP_PATHS}
+    for p in (CLS_STEP_PATHS + CLS_STEP_PATHS[::-1]) * CLS_STEP_ROUNDS:
+        times[p].append(timed_steps(lambda: run(p), 1))
+    out = {}
+    for p in CLS_STEP_PATHS:
+        ev, host = zip(*times[p])
+        out[p] = {"ms": list(ev), "host_enqueue_ms": list(host), "median_ms": float(np.median(ev)),
+                  "median_host_enqueue_ms": float(np.median(host)), "peak_mib": peak[p]}
+        print("  %s, %s: ms per step %s, median %.3f; host enqueue median %.3f; peak %.0f MiB"
+              % (label, p, [round(t, 2) for t in ev], np.median(ev), np.median(host), peak[p]),
+              flush=True)
+    return out, functools.partial(run, "kernels")
+
+
+def cls_bn_train_shapes(net, arch, b=None, hw=None):
+    """Every train-mode BN's NHWC shape in a step of `arch` at batch b and
+    hw px, in network order: cls_bn_count(net, arch) of them."""
+    b, hw = b or CLS_TRAIN_BATCH, hw or CLS_TRAIN_HW
+    a = net.arch_to_device(arch)
+    s = hw // 2
+    shapes = [(b, s, s, a["first_w"])] * 2 + [(b, s, s, a["fb_out"])]
+    bi = 0
+    for si, sp in enumerate(net.stage_specs):
+        for i in range(sp.n_block):
+            if i == 0 or i < a["depth"][si]:
+                mid = a["mid"][bi]
+                shapes.append((b, s, s, mid))
+                s = -(-s // (sp.stride if i == 0 else 1))
+                shapes += [(b, s, s, mid), (b, s, s, a["out_ch"][bi])]
+            bi += 1
+    return shapes + [(b, s, s, net.final_expand_width or a["fm_w"])]
+
+
+def cls_bn_shapes(net):
+    """The step's BN shapes at its extremes (max_arch): the most rows at the
+    fewest and at the most channels (the first conv's, the first stage's
+    expand at 112x112), and the most channels (at 7x7)."""
+    shapes = cls_bn_train_shapes(net, net.max_arch())
+    rows = lambda s: s[0] * s[1] * s[2]  # noqa: E731
+    most = max(rows(s) for s in shapes)
+    wide = max(shapes, key=lambda s: (s[3], -rows(s)))
+    at_most = [s for s in shapes if rows(s) == most]
+    return sorted({min(at_most, key=lambda s: s[3]), max(at_most, key=lambda s: s[3]), wide},
+                  key=lambda s: (-rows(s), s[3]))
+
+
+def cls_bn_numbers(g, net, dtype):
+    """The BN kernels at the step's extreme shapes: bn_forward and
+    bn_backward against their plain versions (MOMENT_TOL, TOL; bf16 dx
+    BF16_DX_TOL) and, for float32, the moments, running statistics and dx
+    of each against a float64 computation (reported); ms per launch back to
+    back beside the plain version, F.batch_norm in train mode /
+    native_batch_norm_backward on the channels-last NCHW view, and the
+    bound (bytes, as in phase 6)."""
+    bf16 = dtype is BF16
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+    rows = []
+    for shp in cls_bn_shapes(net):
+        n, c = int(np.prod(shp[:3])), shp[3]
+        x = (1.5 * randn(g, *shp) + 0.3).to(dtype).contiguous()
+        scale, bias = (0.5 + torch.rand(c, generator=g)).to(DEVICE), randn(g, c, scale=0.2)
+        rm0, rv0 = randn(g, c, scale=0.2), (0.5 + torch.rand(c, generator=g)).to(DEVICE)
+        kw = dict(momentum=0.1, eps=BN_EPS, update_var="unbiased")
+        tag = "cls %s %s" % ("bf16" if bf16 else "f32", shp)
+        rmk, rvk, rmp, rvp = rm0.clone(), rv0.clone(), rm0.clone(), rv0.clone()
+        yk, mk, vk, ik = launched(bn_forward, lambda: bn_forward(x, scale, bias, rmk, rvk, **kw),
+                                  bf16)
+        yp, mp, vp, ip = bn_forward_reference(x, scale, bias, rmp, rvp, **kw)
+        torch.cuda.synchronize()
+        errs = {"mean": check_close("bn_forward %s mean" % tag, mk, mp, MOMENT_TOL),
+                "var": check_close("bn_forward %s var" % tag, vk, vp, MOMENT_TOL),
+                "y": check_close("bn_forward %s y" % tag, yk.float(), yp.float(),
+                                 BF16_DX_TOL if bf16 else TOL),
+                "running_var": check_close("bn_forward %s running_var" % tag, rvk, rvp,
+                                           MOMENT_TOL)}
+        dy = randn(g, *shp).to(dtype)
+        dxk, dsk, dbk = launched(bn_backward, lambda: bn_backward(dy, x, scale, mk, ik), bf16)
+        dxp, dsp, dbp = bn_backward_reference(dy, x, scale, mk, ik)
+        torch.cuda.synchronize()
+        errs["dx"] = check_close("bn_backward %s dx" % tag, dxk.float(), dxp.float(),
+                                 BF16_DX_TOL if bf16 else TOL)
+        dyf, xf = dy.view(n, c).float(), x.view(n, c).float()
+        check_sums("bn_backward %s dscale" % tag, dsk, dsp, dyf * ((xf - mk) * ik))
+        check_sums("bn_backward %s dbias" % tag, dbk, dbp, dyf)
+        f64 = None
+        if not bf16:  # float64 sums of the same inputs
+            x64, dy64 = xf.double(), dyf.double()
+            m64 = x64.mean(0)
+            v64 = (x64 * x64).mean(0) - m64 * m64
+            i64 = torch.rsqrt(v64 + BN_EPS)
+            rv64 = 0.9 * rv0.double() + 0.1 * v64 * n / (n - 1)
+            xh = (x64 - m64) * i64
+            dx64 = (scale.double() * i64 * (dy64 - dy64.mean(0) - xh * (dy64 * xh).mean(0)))
+            # the backward at the kernel's own (mean, inv) against float64 at those
+            xh_k = (x64 - mk.double()) * ik.double()
+            dx64_k = (scale.double() * ik.double() * (dy64 - dy64.mean(0)
+                                                        - xh_k * (dy64 * xh_k).mean(0)))
+            f64 = {}
+            for part, kt, pt, rt in (("mean", mk, mp, m64), ("var", vk, vp, v64),
+                                     ("running_var", rvk, rvp, rv64),
+                                     ("dx", dxk.view(n, c), dxp.view(n, c), dx64_k)):
+                f64[part] = {"kernel": float((kt.double() - rt).abs().max()),
+                             "plain": float((pt.double() - rt).abs().max())}
+            f64["dx_vs_exact_moments"] = float((dxk.view(n, c).double() - dx64).abs().max())
+            print("  %s against float64: %s" % (tag, {k: v for k, v in f64.items()}), flush=True)
+        lib_rm, lib_rv = rm0.clone(), rv0.clone()
+
+        def fwd_library():
+            return torch.nn.functional.batch_norm(nchw(x), lib_rm, lib_rv, scale, bias,
+                                                  training=True, momentum=0.1, eps=BN_EPS)
+
+        def bwd_library():
+            return torch.ops.aten.native_batch_norm_backward(
+                nchw(dy), nchw(x), scale, None, None, mk, ik, True, BN_EPS, [True, True, True])
+
+        try:
+            fwd_library()
+        except RuntimeError:  # a yardstick only: the port never calls it
+            fwd_library = None
+        try:
+            bwd_library()
+        except RuntimeError:
+            bwd_library = None
+        rows.append({"shape": list(shp), "dtype": "bf16" if bf16 else "f32", "errors": errs,
+                     "vs_float64": f64,
+                     "bn_forward": measure_shape(
+                         lambda: bn_forward(x, scale, bias, rmk, rvk, **kw),
+                         lambda: bn_forward_reference(x, scale, bias, rmp, rvp, **kw),
+                         flops=6 * n * c, nbytes_=2 * nbytes(x) + 9 * c * 4, launches=1,
+                         unit="call", library=fwd_library),
+                     "bn_backward": measure_shape(
+                         lambda: bn_backward(dy, x, scale, mk, ik),
+                         lambda: bn_backward_reference(dy, x, scale, mk, ik),
+                         flops=11 * n * c, nbytes_=3 * nbytes(dy) + 5 * c * 4, launches=1,
+                         unit="call", library=bwd_library)})
+        for k in ("bn_forward", "bn_backward"):
+            r = rows[-1][k]
+            r.pop("_t")
+            print("  %s %s: %.4f ms a launch, plain %.4f, library %s, bound %.4f"
+                  % (k, tag, r["ms_per_launch"], r["plain_ms_per_launch"],
+                     "%.4f" % r["library_ms_per_launch"] if r["library_ms_per_launch"]
+                     else "refused", r["bound_ms_per_launch"]), flush=True)
+    return rows
+
+
+def cls_trainer_phase(g, dev):
+    """(a) Both families at the published widths, 1000 classes, seeded
+    weights and random BN, batch 64 at 224 px."""
+    gb = torch.Generator().manual_seed(40)
+    batch = {"image": torch.rand(CLS_TRAIN_BATCH, CLS_TRAIN_HW, CLS_TRAIN_HW, 3,
+                                 generator=gb).to(dev),
+             "label": torch.randint(0, 1000, (CLS_TRAIN_BATCH,), generator=gb).to(dev)}
+    out, profiles, launches = {}, [], {}
+    for fam, make in CLS_FAMILIES:
+        net = cls_train_net(make, dev, 41)
+        teacher_net = cls_train_net(make, dev, 43, ks_list=[7], expand_list=[6], depth_list=[4])
+        teacher = (teacher_net, teacher_net.max_arch())
+        w0 = {k: v.clone() for k, v in net.state_dict().items()}
+        rec = {"bn_shapes": {}}
+        for a in (net.max_arch(), net.sample_arch(seed=1)):
+            if len(cls_bn_train_shapes(net, a)) != cls_bn_count(net, a):
+                fail("%s: the BN shape list disagrees with the BN count" % fam)
+        for env, archs in cls_envelopes(net).items():
+            for dtype, dname in CLS_DTYPES:
+                label = "%s %s %s" % (fam, env, dname)
+                r = cls_step_checks(label, net, w0, batch, archs, env, teacher, dtype)
+                for k, v in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+                net.load_state_dict(w0)
+                r["times"], run = cls_step_times(label, net, batch, archs, env, teacher, dtype)
+                if env == "1 subnet" and dtype is None:
+                    profiles.append(("cls %s 1 subnet kernels" % fam, run, 1,
+                                     r["times"]["kernels"]["median_ms"]))
+                rec[env + " " + dname] = r
+        net.load_state_dict(w0)
+        for dtype, dname in CLS_DTYPES:
+            rec["bn_shapes"][dname] = cls_bn_numbers(g, net, dtype or torch.float32)
+        out[fam] = rec
+        del net, teacher_net, teacher, w0
+        torch.cuda.empty_cache()
+    return out, profiles, launches
+
+
+def cls_run_expect(net, epochs, n_batch, n_subnets, constraints=None):
+    """bn_forward (= bn_backward) launches of training epochs `epochs` of
+    n_batch steps: one per executed BN of each sampled subnet."""
+    return sum(cls_bn_count(net, net.sample_arch(seed=subnet_seed(e, n_batch, i, k),
+                                                 **(constraints or {})))
+               for e in epochs for i in range(n_batch) for k in range(n_subnets))
+
+
+def check_cls_cli(label, counts, fwd, bwd):
+    """A float32 run's launches: bn_forward `fwd` and bn_backward `bwd`
+    times, no other kernel."""
+    got = {k: v for k, v in counts.items() if v}
+    print("  %s: launches %s (expected bn_forward %d, bn_backward %d)" % (label, got, fwd, bwd),
+          flush=True)
+    if counts["bn_forward"] != fwd or counts["bn_backward"] != bwd or \
+            sum(counts.values()) != fwd + bwd:
+        fail("%s: expected bn_forward %d and bn_backward %d launches and no other, got %s"
+             % (label, fwd, bwd, got))
+
+
+def check_run_files(label, path, best):
+    for f in ("checkpoint/checkpoint.pth.tar", "checkpoint/latest.txt",
+              "checkpoint/model_best.pth.tar", "logs/train_console.txt",
+              "logs/valid_console.txt"):
+        if not os.path.isfile(os.path.join(path, f)):
+            fail("%s wrote no %s" % (label, f))
+    if not np.isfinite(best):
+        fail("%s returned %r" % (label, best))
+    with open(os.path.join(path, "logs", "valid_console.txt")) as f:
+        losses = [float(line.split("train loss ")[1].split()[0]) for line in f
+                  if "train loss" in line]
+    if not losses or not all(np.isfinite(losses)):
+        fail("%s: train losses %s" % (label, losses))
+    return losses
+
+
+def cls_cli_phase(tmp):
+    """(b) The CIFAR chain and the ImageNet chain through the CLIs,
+    --synthetic, on the card, every run counted."""
+    out = {}
+    teacher = os.path.join(tmp, "cifar_teacher")
+    # CPU nets for their archs and BN counts (the draws do not depend on the device)
+    cifar_net = OFAMobileNetV3(n_classes=10, ks_list=[7], expand_list=[6], depth_list=[4],
+                               device="cpu")
+    per_step = cls_bn_count(cifar_net, cifar_net.max_arch())
+    tb = train_teacher_net_cifar10_simple.build_args([]).base_batch_size
+    for label, n_epochs, epochs in (("teacher 1 epoch", "1", 1), ("teacher resumed", "2", 1)):
+        best, counts, wall = counted_cli(train_teacher_net_cifar10_simple.main, [
+            "--synthetic", "--path", teacher, "--n_epochs", n_epochs, "--warmup_epochs", "0"])
+        steps = epochs * 2  # the synthetic provider: 2 batches an epoch
+        check_cls_cli("cifar " + label, counts, steps * per_step, steps * per_step)
+        out[label] = {"best": best, "launches": counts, "wall_s": wall,
+                      "losses": check_run_files(label, teacher, best), "batch": tb}
+    with open(os.path.join(teacher, "logs", "valid_console.txt")) as f:
+        if "Epoch 2:" not in f.read():
+            fail("the teacher CLI did not resume at epoch 2")
+    ofa = os.path.join(tmp, "cifar_ofa")
+    best, counts, wall = counted_cli(train_ofa_net_cifar10_simple.main, [
+        "--synthetic", "--path", ofa, "--n_epochs", "1", "--warmup_epochs", "0",
+        "--kd_ratio", "1.0", "--teacher_ckpt", os.path.join(teacher, "checkpoint")])
+    check_cls_cli("cifar ofa + KD", counts, 2 * per_step, 2 * per_step)
+    out["cifar ofa + KD"] = {"best": best, "launches": counts, "wall_s": wall,
+                             "losses": check_run_files("cifar ofa", ofa, best)}
+    # the ImageNet chain
+    kernel, depth = os.path.join(tmp, "kernel"), os.path.join(tmp, "depth")
+    for label, argv, path, preset in (
+            ("train_ofa_net kernel", ["--task", "kernel", "--n_epochs", "1"], kernel,
+             train_ofa_net.TASK_PHASES[("kernel", 1)]),
+            ("train_ofa_net depth 1", ["--task", "depth", "--phase", "1", "--n_epochs", "1",
+                                       "--warmstart", os.path.join(kernel, "checkpoint")],
+             depth, train_ofa_net.TASK_PHASES[("depth", 1)])):
+        best, counts, wall = counted_cli(train_ofa_net.main,
+                                         ["--synthetic", "--path", path] + argv)
+        net = OFAMobileNetV3(ks_list=preset["ks_list"], expand_list=preset["expand_list"],
+                             depth_list=preset["depth_list"], device="cpu")
+        expect = cls_run_expect(net, range(1 + preset["warmup_epochs"]), 4,
+                                preset["dynamic_batch_size"])
+        check_cls_cli(label, counts, expect, expect)
+        out[label] = {"best": best, "launches": counts, "wall_s": wall,
+                      "losses": check_run_files(label, path, best)}
+    # the evaluators from the depth run's checkpoint
+    ckpt = os.path.join(depth, "checkpoint")
+    full = OFAMobileNetV3(device="cpu")
+    arch = full.sample_arch(seed=0)
+    recal = 2 * cls_bn_count(full, arch)  # 64 calibration images in batches of 32
+    art = os.path.join(tmp, "eval.pt2")
+    for label, extra in (("eval_ofa_net", []), ("eval_ofa_net --materialize", ["--materialize"]),
+                         ("eval_ofa_net --export", ["--export", art])):
+        top1, counts, wall = counted_cli(eval_ofa_net.main, [
+            "--synthetic", "--path", os.path.join(tmp, "eval"), "--checkpoint", ckpt] + extra)
+        check_cls_cli(label, counts, recal, 0)
+        if not np.isfinite(top1):
+            fail("%s returned %r" % (label, top1))
+        out[label] = {"top1": top1, "launches": counts, "wall_s": wall}
+    # the artifact against the recalibrated materialized subnet, rebuilt
+    net = ofa_net(checkpoint=ckpt, device=DEVICE)
+    rm = ClsRunManager(os.path.join(tmp, "recal"), net, RunConfig(), SyntheticClsProvider(
+        n_train=64, n_test=32, image_size=CLS_EVAL_HW, n_classes=1000, train_batch_size=32,
+        test_batch_size=32))
+    rm.reset_running_statistics(arch, n_images=64, batch_size=32)
+    x = torch.rand(1, CLS_EVAL_HW, CLS_EVAL_HW, 3, generator=torch.Generator().manual_seed(44))
+    with torch.inference_mode():
+        x = x.to(DEVICE)
+        out["export_max_abs_err"] = check_close(
+            "eval_ofa_net --export: artifact vs the materialized subnet",
+            load_subnet(art, device=DEVICE)(x), get_active_cls_subnet(net, arch)(x), EXPORT_TOL)
+    del net, rm
+    cfg = os.path.join(tmp, "arch.json")
+    with open(cfg, "w") as f:
+        json.dump({"ks": list(arch.ks), "e": [6] * len(arch.e), "d": list(arch.d)}, f)
+    top1, counts, wall = counted_cli(eval_specialized_net.main, [
+        "--synthetic", "--supernet_checkpoint", ckpt, "--arch_config", cfg])
+    check_cls_cli("eval_specialized_net", counts, 0, 0)
+    out["eval_specialized_net"] = {"top1": top1, "launches": counts, "wall_s": wall}
+    return out
+
+
+def write_cifar(root, g):
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    for name in ["data_batch_%d" % i for i in range(1, 6)] + ["test_batch"]:
+        d = {b"data": torch.randint(0, 256, (CIFAR_PER_BATCH_FILE, 3072), generator=g,
+                                    dtype=torch.uint8).numpy(),
+             b"labels": torch.randint(0, 10, (CIFAR_PER_BATCH_FILE,), generator=g).tolist()}
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump(d, f)
+    return root
+
+
+def write_folder(root, g):
+    """<root>/{train,val}/<class>/*.png, seeded images of 200-320 px sides."""
+    from PIL import Image
+    for split, n in (("train", FOLDER_TRAIN_PER_CLASS), ("val", 2)):
+        for c in range(FOLDER_CLASSES):
+            d = os.path.join(root, split, "n%02d" % c)
+            os.makedirs(d)
+            for i in range(n):
+                h, w = (int(v) for v in torch.randint(200, 321, (2,), generator=g))
+                Image.fromarray(torch.randint(0, 256, (h, w, 3), generator=g,
+                                              dtype=torch.uint8).numpy()).save(
+                    os.path.join(d, "%d.png" % i))
+    return root
+
+
+def real_data_phase(tmp):
+    """(c) Cifar10Provider on a seeded pickle directory and ImagenetProvider
+    with ElasticResolution on a seeded PNG tree, one epoch each through
+    ClsRunManager, every BN launch counted; the folder epoch draws all four
+    sizes."""
+    g = torch.Generator().manual_seed(45)
+    out = {}
+    elastic = ElasticResolution(list(ELASTIC_SIZES))
+    n_batch = FOLDER_TRAIN_PER_CLASS * FOLDER_CLASSES // FOLDER_BATCH
+    drawn = [elastic.sample(b, 0) for b in range(n_batch)]
+    if set(drawn) != set(ELASTIC_SIZES):
+        fail("the folder epoch's draws %s miss a size of %s" % (drawn, ELASTIC_SIZES))
+    for label, provider, n_classes in (
+            ("cifar10", lambda: Cifar10Provider(root=write_cifar(os.path.join(tmp, "cifar"), g),
+                                                train_batch_size=CIFAR_BATCH,
+                                                test_batch_size=CIFAR_BATCH), 10),
+            ("imagenet folder", lambda: ImagenetProvider(
+                root=write_folder(os.path.join(tmp, "folder"), g), image_size=max(ELASTIC_SIZES),
+                train_batch_size=FOLDER_BATCH, test_batch_size=FOLDER_BATCH,
+                elastic=elastic), 1000)):
+        prov = provider()
+        net = OFAMobileNetV3(n_classes=n_classes, ks_list=[3, 5, 7], expand_list=[6],
+                             depth_list=[4], device=DEVICE,
+                             generator=torch.Generator().manual_seed(46))
+        rm = ClsRunManager(os.path.join(tmp, label.replace(" ", "_")), net,
+                           RunConfig(n_epochs=1, base_lr=0.01, opt_type="sgd",
+                                     train_batch_size=prov.train.batch_size), prov)
+        steps = len(prov.train)
+        seen = []
+        real = rm.trainer.train_step
+
+        def step(batch, archs, lr, real=real, seen=seen):
+            seen.append(int(batch["image"].shape[1]))
+            return real(batch, archs, lr)
+
+        rm.trainer.train_step = step
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        loss, top1 = rm.train_one_epoch(0)
+        val = rm.validate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        expect = steps * cls_bn_count(net, net.max_arch())
+        check_cls_cli(label, counts, expect, expect)
+        if not all(np.isfinite([loss, top1] + list(val))):
+            fail("%s: non-finite epoch metrics %s %s" % (label, (loss, top1), val))
+        if label != "cifar10" and sorted(set(seen)) != list(ELASTIC_SIZES):
+            fail("the folder epoch ran sizes %s, not %s" % (seen, ELASTIC_SIZES))
+        print("  %s: %d steps at sizes %s, loss %.4f, valid %s, %.1f s"
+              % (label, steps, seen, loss, [round(v, 3) for v in val], wall), flush=True)
+        out[label] = {"steps": steps, "sizes": seen, "loss": loss, "valid": val,
+                      "launches": counts, "wall_s": wall}
+        del net, rm
+    return out
+
+
+def phase11(g, dev):
+    t0 = time.perf_counter()
+    out = {}
+    out["trainer"], profiles, launches = cls_trainer_phase(g, dev)
+    with tempfile.TemporaryDirectory(prefix="ofa_sr_p11_") as tmp:
+        out["clis"] = cls_cli_phase(tmp)
+        out["real_data"] = real_data_phase(tmp)
+    out["trainer_launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    print("  phase 11 took %.1f s" % out["wall_s"], flush=True)
+    return out, profiles
+
+
 # -- phase 6: per-kernel numbers at the path's shapes ------------------------
 
 def steady_ms(fn, repeats=3):
@@ -2940,6 +3537,10 @@ def main():
           "tutorial", flush=True)
     p10 = phase10(dev)
 
+    print("phase 11: classification training: the trainer at full width, the five CLIs, the "
+          "real data paths", flush=True)
+    p11, cls_profiles = phase11(g, dev)
+
     print("phase 6: per-kernel numbers", flush=True)
     bn_rows = bn_kernel_numbers(g, path_counts, errs)
     bn_rows_bf16 = bn_kernel_numbers(g, path_counts, errs, BF16)
@@ -3035,6 +3636,31 @@ def main():
         r["launches_phase10"] = {"export frames": e10.get(key, 0),
                                  "classification": p10["cls_launches"].get(key, 0),
                                  "tutorial": t10.get(key, 0)}
+    # phase 11's counted runs: the classification trainer's kernel-path steps
+    # (both families, both envelopes, float32 and bf16), the CLI runs, the
+    # real-data epochs
+    c11, d11, t11 = {}, {}, dict(p11["trainer_launches"])
+    for src, dst in ((p11["clis"], c11), (p11["real_data"], d11)):
+        for run in src.values():
+            for k, v in (run.get("launches") or {}).items() if isinstance(run, dict) else ():
+                dst[k] = dst.get(k, 0) + v
+    for d in (t11, c11, d11):  # a wrapper's count holds its bf16 launches too
+        for k in [k for k in d if k + "_bf16" in d]:
+            d[k] -= d[k + "_bf16"]
+    for r in rows:
+        key = ROW_WRAPPER.get(r["name"], r["name"].split()[0])
+        key += "_bf16" if r.get("dtype") == "bfloat16" and key not in ("mbconv",
+                                                                      "shuffle_tail") else ""
+        r["launches_phase11"] = {"trainer": t11.get(key, 0),
+                                 "clis": c11.get(key, 0), "real data": d11.get(key, 0)}
+    # the BN kernels at the classification step's extreme shapes (phase 11)
+    for rows_, dname in ((bn_rows, "f32"), (bn_rows_bf16, "bf16")):
+        for r, kname in ((rows_[0], "bn_forward"), (rows_[2], "bn_backward")):
+            r["cls_shapes_phase11"] = {
+                fam: [dict({"shape": s["shape"]}, **{k: s[kname][k] for k in (
+                    "ms_per_launch", "plain_ms_per_launch", "library_ms_per_launch",
+                    "bound_ms_per_launch")}) for s in rec["bn_shapes"][dname]]
+                for fam, rec in p11["trainer"].items()}
     rows[2]["route_note"] = ("takes every channel count; JAX switches its Pallas BN in only "
                              "for C % 64 == 0 (ofa_sr_tpu/ops/norm.py:76); the classification "
                              "nets' C 16-1280 run through it here")
@@ -3044,6 +3670,7 @@ def main():
     print("phase 6: device profiles", flush=True)
     profiles = [device_profile(*p, "frame") for p in profiles + x4_profiles]
     train_profiles = [device_profile(*p, "step") for p in train_runs_to_profile]
+    p11["step_profiles"] = [device_profile(*p, "step") for p in cls_profiles]
     by_path = {p["path"]: p for p in train_profiles}
     # the kernels' own device time in the kernel path's step of their type
     for rows_, path in ((bn_rows, "train kernels"), (bn_rows_bf16, "train bf16 kernels")):
@@ -3067,7 +3694,7 @@ def main():
                       "entry_ms": entry_ms, "train_runs": train_runs,
                       "train_runs_bf16": train_runs_bf16, "step_ms": step_ms,
                       "step_profile": train_profiles, "cli": cli, "x4": x4, "phase8": p8,
-                      "search": p9, "phase10": p10,
+                      "search": p9, "phase10": p10, "phase11": p11,
                       "build_s": build_s,
                       "mbconv_smem_bytes": mb_smem, "gpu": smi_line}))
     print(smi_line)

@@ -29,8 +29,7 @@ def add_common_args(parser: argparse.ArgumentParser, *, path, n_epochs,
     parser.add_argument("--data_root", type=str, default=None)
     parser.add_argument("--synthetic", action="store_true",
                         help="use the synthetic dataset (no image tree needed)")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to run on: the card by default, or 'cpu'")
+    add_device_arg(parser)
     parser.add_argument("--n_epochs", type=int, default=n_epochs)
     parser.add_argument("--base_lr", type=float, default=base_lr)
     parser.add_argument("--warmup_epochs", type=int, default=warmup_epochs)
@@ -56,10 +55,27 @@ def add_common_args(parser: argparse.ArgumentParser, *, path, n_epochs,
                              "has)")
     parser.add_argument("--kd_ratio", type=float, default=0.0)
     parser.add_argument("--dynamic_batch_size", type=int, default=dynamic_batch_size)
+    add_compute_dtype_arg(parser)
+    return parser
+
+
+def add_device_arg(parser: argparse.ArgumentParser):
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to run on: the card by default, or 'cpu'")
+    return parser
+
+
+def add_compute_dtype_arg(parser: argparse.ArgumentParser):
     parser.add_argument("--compute_dtype", type=str, default=None, choices=["f32", "bf16"],
                         help="bf16: mixed precision (float32 master params, BN statistics, "
                              "transform matrices)")
     return parser
+
+
+def seeded(args):
+    """The generator a CLI's net draws its weights from: --manual_seed's,
+    as the JAX package's run managers init from PRNGKey(manual_seed)."""
+    return torch.Generator().manual_seed(args.manual_seed)
 
 
 def set_seeds(seed: int):
@@ -79,8 +95,7 @@ def init_mesh(args):
 def make_net(net_cls, space, args):
     """`net_cls(space)` on args.device, weights from args.manual_seed, every
     BN with --bn_momentum and --bn_eps."""
-    net = net_cls(space, device=args.device,
-                  generator=torch.Generator().manual_seed(args.manual_seed))
+    net = net_cls(space, device=args.device, generator=seeded(args))
     for m in net.modules():
         if isinstance(m, nn.BatchNorm2d):
             m.momentum, m.eps = args.bn_momentum, args.bn_eps

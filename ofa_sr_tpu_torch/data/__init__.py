@@ -1,3 +1,11 @@
+from .cls_providers import (
+    Cifar10Dataset,
+    Cifar10Provider,
+    ImageFolderDataset,
+    ImagenetProvider,
+    SyntheticClsDataset,
+    SyntheticClsProvider,
+)
 from .datasets import PairedImageDataset, SRImageDataset, SyntheticSRDataset, list_images
 from .providers import (
     CodecDecoderProvider,
@@ -23,6 +31,8 @@ from .transforms import (
 )
 
 __all__ = [
+    "Cifar10Dataset", "Cifar10Provider", "ImageFolderDataset", "ImagenetProvider",
+    "SyntheticClsDataset", "SyntheticClsProvider",
     "CenterCrop", "Compose", "EntropyCrop", "ModCrop", "NineRandomCrop",
     "RandomCrop", "RandomHorizontalFlip", "RandomRotation", "Scale",
     "bicubic_downscale_pil", "to_numpy",

@@ -65,6 +65,15 @@ def cast(w, compute_dtype):
     return w if compute_dtype is None else w.to(compute_dtype)
 
 
+def linear(x, w, b, compute_dtype=None):
+    """x @ w.T + b. In float32 one call; under `compute_dtype` the product
+    and the bias add round to that type one after the other, where the JAX
+    package's `x @ w + b` rounds them."""
+    if compute_dtype is None:
+        return F.linear(x, w, b)
+    return F.linear(x, cast(w, compute_dtype)) + cast(b, compute_dtype)
+
+
 def bn_apply(y, bn: nn.BatchNorm2d, n=None, *, bn_training=False, use_kernels=False,
              bn_group=None):
     """BN with the first `n` channels of `bn` (all if None): train mode
@@ -137,7 +146,8 @@ class SEModule(nn.Module):
     DynamicSE): global average pool -> 1x1 reduce (+bias) -> ReLU -> 1x1
     expand (+bias) -> h_sigmoid gate on the input. Bottleneck
     make_divisible(mid // 4, 8), both at max width and at the active
-    `mid` (JAX's `se_mid`)."""
+    `mid` (JAX's `se_mid`). Under `compute_dtype` both convs' weights and
+    biases are cast, as `cast_params_for_compute` casts them."""
 
     def __init__(self, mid, *, generator):
         super().__init__()
@@ -151,9 +161,9 @@ class SEModule(nn.Module):
         se_mid = make_divisible(mid // 4, 8)
         r, e = self.fc.reduce, self.fc.expand
         g = y.mean(dim=(1, 2))
-        g = F.linear(g, cast(r.weight[:se_mid, :mid, 0, 0], compute_dtype), r.bias[:se_mid])
+        g = linear(g, r.weight[:se_mid, :mid, 0, 0], r.bias[:se_mid], compute_dtype)
         g = torch.clamp(g, min=0.0)
-        g = F.linear(g, cast(e.weight[:mid, :se_mid, 0, 0], compute_dtype), e.bias[:mid])
+        g = linear(g, e.weight[:mid, :se_mid, 0, 0], e.bias[:mid], compute_dtype)
         return y * h_sigmoid(g)[:, None, None, :]
 
 

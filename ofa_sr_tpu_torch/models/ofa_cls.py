@@ -38,7 +38,6 @@ import random
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.activations import apply_act
@@ -46,7 +45,15 @@ from ..ops.conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init
 from ..utils.common import make_divisible
 from ..utils.device import resolve_device
 from .arch import SearchSpace
-from .layers import ConvBN, ConvWeight, DynamicMBConvLayer, MobileInvertedResidualBlock, bn_apply
+from .layers import (
+    ConvBN,
+    ConvWeight,
+    DynamicMBConvLayer,
+    MobileInvertedResidualBlock,
+    bn_apply,
+    cast,
+    linear,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,29 +257,41 @@ class ElasticClassifierNet(nn.Module):
     # -- forward ----------------------------------------------------------------
 
     def forward(self, x, arch: ClsArch, *, training=False, bn_training=None, use_kernels=None,
-                dropout_generator: Optional[torch.Generator] = None):
+                dropout_generator: Optional[torch.Generator] = None,
+                compute_dtype: Optional[torch.dtype] = None, bn_group=None):
         """Logits of subnet `arch` on NHWC images `x`. BN runs in train mode
         (batch moments, the active channels' running statistics updated in
         place) when `bn_training`, which defaults to `training`;
         `use_kernels` (default: on for a CUDA net) takes train-mode BN
         through the BN-forward kernel. Dropout before the classifier runs
         only in training with a `dropout_generator`, as JAX's runs only with
-        a `dropout_rng`."""
+        a `dropout_rng`.
+
+        `compute_dtype` (bf16) is the JAX package's mixed precision
+        (`cast_params_for_compute`): the input and every weight but the BN
+        parameters and the kernel-transform matrices (the convs, the SE
+        convs' weights and biases, the classifier's weight and bias) are
+        cast at use, and the logits come back float32. `bn_group`: under
+        data parallelism, the mesh's process group, over whose rows every
+        train-mode BN takes its moments."""
         bnt = bool(training if bn_training is None else bn_training)
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
+        cd = compute_dtype
+        if cd is not None:
+            x = x.to(cd)
         a = self.arch_to_device(arch)
-        bn = dict(bn_training=bnt, use_kernels=use_kernels)
+        bn = dict(bn_training=bnt, use_kernels=use_kernels, bn_group=bn_group)
         fw, fbo = a["first_w"], a["fb_out"]
 
         fc = self.first_conv
-        y = apply_act(bn_apply(conv2d(x, fc.conv.weight[:fw], stride=2), fc.bn, fw, **bn),
-                      self.first_conv_act)
+        y = apply_act(bn_apply(conv2d(x, cast(fc.conv.weight[:fw], cd), stride=2), fc.bn, fw,
+                               **bn), self.first_conv_act)
         fb = self.blocks[0].mobile_inverted_conv
-        h = depthwise_conv2d(y, fb.depth_conv.conv.weight[:fw])
+        h = depthwise_conv2d(y, cast(fb.depth_conv.conv.weight[:fw], cd))
         h = apply_act(bn_apply(h, fb.depth_conv.bn, fw, **bn), self.first_block_act)
-        h = bn_apply(conv2d(h, fb.point_linear.conv.weight[:fbo, :fw]), fb.point_linear.bn, fbo,
-                     **bn)
+        h = bn_apply(conv2d(h, cast(fb.point_linear.conv.weight[:fbo, :fw], cd)),
+                     fb.point_linear.bn, fbo, **bn)
         # identity shortcut where the block keeps the width (MBV3)
         y = y + h if self.first_block_out == self.first_conv_width else h
 
@@ -284,19 +303,19 @@ class ElasticClassifierNet(nn.Module):
                 if i == 0 or i < a["depth"][si]:
                     y = self.blocks[1 + bi](y, ks_set[a["ks_idx"][bi]], a["mid"][bi],
                                             act=spec.act, stride=spec.stride if i == 0 else 1,
-                                            out_ch=a["out_ch"][bi], **bn)
+                                            out_ch=a["out_ch"][bi], compute_dtype=cd, **bn)
                 bi += 1
 
         if self.final_expand_width:
             fe = self.final_expand_layer
-            y = conv2d(y, fe.conv.weight[:, :y.shape[-1]])
+            y = conv2d(y, cast(fe.conv.weight[:, :y.shape[-1]], cd))
             y = apply_act(bn_apply(y, fe.bn, **bn), self.head_act)
             y = y.mean(dim=(1, 2), keepdim=True)
-            y = apply_act(conv2d(y, self.feature_mix_layer.conv.weight), self.head_act)
+            y = apply_act(conv2d(y, cast(self.feature_mix_layer.conv.weight, cd)), self.head_act)
             y = y[:, 0, 0, :]
         else:
             fm, fm_w = self.feature_mix_layer, a["fm_w"]
-            y = conv2d(y, fm.conv.weight[:fm_w, :y.shape[-1]])
+            y = conv2d(y, cast(fm.conv.weight[:fm_w, :y.shape[-1]], cd))
             y = apply_act(bn_apply(y, fm.bn, fm_w, **bn), self.head_act)
             y = y.mean(dim=(1, 2))
 
@@ -306,7 +325,8 @@ class ElasticClassifierNet(nn.Module):
                               device=dropout_generator.device) < keep
             y = torch.where(mask.to(y.device), y / keep, torch.zeros_like(y))
         lin = self.classifier.linear
-        return F.linear(y, lin.weight[:, :y.shape[-1]], lin.bias)
+        logits = linear(y, lin.weight[:, :y.shape[-1]], lin.bias, cd)
+        return logits if cd is None else logits.float()
 
 
 def OFAMobileNetV3(n_classes=1000, ks_list=(3, 5, 7), expand_list=(3, 4, 6),

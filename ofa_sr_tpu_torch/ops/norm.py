@@ -1,7 +1,8 @@
 """BatchNorm on NHWC tensors (counterpart of ofa_sr_tpu/ops/norm.py).
 
 - `batch_norm`: eval mode (and the SR trainer's frozen BN): normalizes with
-  the running statistics, in float32, with 1/sqrt(var + eps).
+  the running statistics, in float32 (float64 for a float64 x, the
+  reference runs of `chip_smoke.py`), with 1/sqrt(var + eps).
 - `batch_norm_train`: train mode: normalizes with the batch moments (biased
   variance) and updates the running statistics in place with the torch
   momentum EMA `r = (1 - m) * r + m * batch_stat`, from the unbiased batch
@@ -22,12 +23,17 @@ from ..parallel.mesh import all_reduce_sum_autograd, world_size
 from .kernels.bn import bn_train_fused
 
 
+def _acc_dtype(x):
+    """The statistics' type: float32, or float64 for a float64 x."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def batch_norm(x, scale, bias, mean, var, *, eps=1e-5):
     """(x - mean) / sqrt(var + eps) * scale + bias over the last (channel) axis."""
-    in_dtype = x.dtype
-    x = x.float()
-    inv = torch.reciprocal(torch.sqrt(var.float() + eps))
-    y = (x - mean.float()) * inv * scale.float() + bias.float()
+    in_dtype, acc = x.dtype, _acc_dtype(x)
+    x = x.to(acc)
+    inv = torch.reciprocal(torch.sqrt(var.to(acc) + eps))
+    y = (x - mean.to(acc)) * inv * scale.to(acc) + bias.to(acc)
     return y.to(in_dtype)
 
 
@@ -59,7 +65,8 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *, momentum=0.1,
     if use_kernels:
         return bn_train_fused(x, scale, bias, eps, running_mean, running_var,
                               momentum=momentum, update_var=update_var, group=group)[0]
-    xf = x.float()
+    acc = _acc_dtype(x)
+    xf = x.to(acc)
     n = x.numel() // x.shape[-1]
     if group is None:
         mean, var = batch_moments(xf)
@@ -70,7 +77,7 @@ def batch_norm_train(x, scale, bias, running_mean, running_var, *, momentum=0.1,
         mean = sums[0] / n
         var = sums[1] / n - torch.square(mean)
     inv = torch.reciprocal(torch.sqrt(var + eps))
-    y = ((xf - mean) * inv * scale.float() + bias.float()).to(x.dtype)
+    y = ((xf - mean) * inv * scale.to(acc) + bias.to(acc)).to(x.dtype)
     with torch.no_grad():
         var_for_update = var * (n / max(n - 1, 1)) if update_var == "unbiased" else var
         running_mean.copy_((1 - momentum) * running_mean + momentum * mean)

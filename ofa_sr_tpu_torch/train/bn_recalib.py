@@ -15,7 +15,9 @@ and an untouched one the sentinel; the weighted sums then keep the original
 wherever the sentinel survived. The reference calibrates on the HR image
 ("image") even for SR nets; pass `input_key` "x2" / "x4" for the input
 resolution. `mode` is the net's forward's ("autoencoder": an X4 net's
-encoder and decoder).
+encoder and decoder). A classification net (`ElasticClassifierNet`) is
+recalibrated for its `ClsArch` with `pixel_d` None, as the JAX package's
+classification run manager calls it; `mode` does not apply there.
 
 Under a mesh each rank passes the same global batches and runs its rows of
 each (`parallel.shard_batch`) with the moments taken over every rank's rows,
@@ -38,8 +40,9 @@ _SENTINEL = 1e30
 def bn_recalibrate(net, cfg, pixel_d, batches, *, input_key="image", use_kernels=None,
                    mode="sr", mesh=None):
     """Recalibrate `net`'s running statistics in place for subnet `cfg` at
-    `pixel_d` over `batches` (dicts of numpy arrays or tensors), with the
-    global batches' moments under `mesh`."""
+    `pixel_d` (None for a classification net and its ClsArch) over
+    `batches` (dicts of numpy arrays or tensors), with the global batches'
+    moments under `mesh`."""
     bns = [m for m in net.modules() if isinstance(m, nn.BatchNorm2d)]
     saved = [(m.momentum, m.running_mean.clone(), m.running_var.clone()) for m in bns]
     total, n = None, 0
@@ -56,8 +59,11 @@ def bn_recalibrate(net, cfg, pixel_d, batches, *, input_key="image", use_kernels
                 for m in bns:
                     m.running_mean.fill_(_SENTINEL)
                     m.running_var.fill_(_SENTINEL)
-                net(x, cfg, pixel_d, bn_training=True, use_kernels=use_kernels, mode=mode,
-                    bn_group=group)
+                if pixel_d is None:  # a classification net: no pixel_d, no mode
+                    net(x, cfg, bn_training=True, use_kernels=use_kernels, bn_group=group)
+                else:
+                    net(x, cfg, pixel_d, bn_training=True, use_kernels=use_kernels, mode=mode,
+                        bn_group=group)
                 st = [t * w for m in bns for t in (m.running_mean, m.running_var)]
                 total = st if total is None else [a + b for a, b in zip(total, st)]
                 n += w

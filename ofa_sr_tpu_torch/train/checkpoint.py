@@ -86,6 +86,13 @@ def checkpoint_state_dict(ckpt):
     return _strip_prefixes(ckpt)
 
 
+def load_weights_strict(path_or_dir, net):
+    """Load a checkpoint's weights (`checkpoint_state_dict`) into `net`,
+    every key and shape matching; returns the net."""
+    net.load_state_dict(checkpoint_state_dict(load_checkpoint(path_or_dir)))
+    return net
+
+
 def load_weights_lenient(path_or_dir, net):
     """Warm-start `net` in place with the reference's strict=False load:
     tensors whose key and shape match are taken from the checkpoint; the

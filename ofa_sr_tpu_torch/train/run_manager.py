@@ -87,6 +87,9 @@ class RunConfig:
 
     dynamic_batch_size: int = 1
     kd_ratio: float = 0.0
+    # the classification trainer's KD loss: "ce" (soft-target cross-entropy)
+    # or "mse" against the teacher's softmax; None means "ce"
+    kd_type: Optional[str] = None
     # sandwich rule: subnet k=0 of every step is the max corner within the
     # constraints (needs dynamic_batch_size >= 2); draws k >= 1 keep the
     # reference seed contract

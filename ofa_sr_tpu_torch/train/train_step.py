@@ -57,6 +57,19 @@ from ..utils.metrics import psnr_from_mse, psnr_y_device, y_squared_error_sum
 from .optim import build_optimizer
 
 
+def average_gradients(opt, mesh):
+    """Every present gradient of `opt`'s parameters, flattened into one
+    buffer, summed over the mesh's ranks and divided by the world size: the
+    global batch's mean gradient, the same bits on every rank."""
+    params = [p for g in opt.param_groups for p in g["params"] if p.grad is not None]
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    all_reduce_sum(flat, mesh.group).div_(mesh.world)
+    # each gradient becomes its view of the reduced buffer (zero_grad drops
+    # them before the next step)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = g.view_as(p)
+
+
 class SRTrainer:
     """Train / eval steps for an OFAMobileNetS4 or OFAMobileNetX4 supernet.
 
@@ -140,7 +153,7 @@ class SRTrainer:
             losses.append(loss.detach())
             psnrs.append(psnr)
         if self._group is not None:
-            self._average_gradients()
+            average_gradients(self.opt, self.mesh)
         if self.clip_grad_norm:
             torch.nn.utils.clip_grad_norm_(
                 [p for g in self.opt.param_groups for p in g["params"]],
@@ -151,18 +164,6 @@ class SRTrainer:
         if self._group is not None:
             return self._global_metrics(losses, psnrs)
         return {"loss": torch.stack(losses).mean(), "psnr": torch.stack(psnrs).mean()}
-
-    def _average_gradients(self):
-        """Every present gradient, flattened into one buffer, summed over the
-        ranks and divided by the world size: the global batch's mean
-        gradient, the same bits on every rank."""
-        params = [p for g in self.opt.param_groups for p in g["params"] if p.grad is not None]
-        flat = torch.cat([p.grad.reshape(-1) for p in params])
-        all_reduce_sum(flat, self._group).div_(self.mesh.world)
-        # each gradient becomes its view of the reduced buffer (zero_grad
-        # drops them before the next step)
-        for p, g in zip(params, flat.split([p.numel() for p in params])):
-            p.grad = g.view_as(p)
 
     def _global_metrics(self, losses, sq_errors):
         """The global batch's mean loss and PSNR-Y over the subnets, from

@@ -32,7 +32,10 @@ def test_importing_the_port_loads_no_jax():
               "search.latency", "data.bicubic", "data.native",
               "cli.train_teacher_net_sr_oracle_video", "cli.train_ofa_net_sr_oracle_video",
               "models.export", "models.ofa_cls", "models.materialize_cls", "models.net_config",
-              "utils.profile", "tools.media", "tutorial"):
+              "utils.profile", "tools.media", "tutorial", "train.cls_trainer",
+              "train.cls_run_manager", "data.cls_providers", "model_zoo", "cli.eval_ofa_net",
+              "cli.eval_specialized_net", "cli.train_ofa_net", "cli.train_ofa_net_cifar10_simple",
+              "cli.train_teacher_net_cifar10_simple"):
         assert "ofa_sr_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
