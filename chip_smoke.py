@@ -204,6 +204,30 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    ImagenetProvider with ElasticResolution(128-224) on a seeded PNG tree,
    one epoch each through ClsRunManager (the folder epoch at all four
    sizes), BN launches counted.
+12. (run after phase 11, before phase 6's timings and profiles) The SR
+   curriculum and the search-and-deploy demo (`ofa_sr_tpu_torch.exp`), in
+   a temporary directory. First one SGD step of the expand space's X4 on a
+   curriculum batch (batch 4 of 32 and of 48 px crops from a generated
+   tree, an expand-phase subnet) with the kernels and on the plain path:
+   loss, parameters and running statistics at STEP_TOL, BN launches
+   counted (phase 2 also holds both BN kernels at these steps' shapes).
+   Then `exp.curriculum` at its small defaults (32
+   generated 'sharp' PNGs of 64 px, 32 px crops, batch 4, the teacher 12
+   epochs, max-net pretraining and each shrink phase 4 epochs) through the
+   port's two training CLIs, each CLI run's launches and trained subnets
+   recorded: the frozen-BN teacher launches no BN kernel, each X4 phase
+   `bn_forward` and `bn_backward` once per executed train-mode BN
+   (3*sum(d_dec) + pixel_d + 4 a subnet, as phase 7 holds it) and nothing
+   else, the grid evaluations nothing; every phase scored finite with its
+   PHASE_DONE.json; the rerun with `--resume_report` trains nothing,
+   launches nothing and reports the same numbers. Then
+   `exp.search_deploy_demo --quality macs` on the expand checkpoint: each
+   timed call's MBConv launches (one a block entry's call, sum(d_dec) a
+   whole subnet's), `bn_forward` once per BN of the three deployments'
+   recalibration, nothing else; the winner within its budget, its kernel
+   frame against its plain frame (FRAME_TOL). Wall seconds, the headline
+   (margins over bicubic), the winner's PSNR-Y, table ms and measured ms
+   printed.
 
 Float32 with TF32 off for cuDNN and matmuls, so the card's numbers compare
 with the CPU's, apart from the bf16 training runs; the shuffle-tail and
@@ -257,11 +281,13 @@ from ofa_sr_tpu_torch.cli import (  # noqa: E402
 from ofa_sr_tpu_torch.cli.common import make_net, make_sr_provider  # noqa: E402
 from ofa_sr_tpu_torch.data import (  # noqa: E402
     Cifar10Provider,
+    Div2KSetXXProvider,
     ElasticResolution,
     ImagenetProvider,
     SyntheticClsProvider,
     SyntheticSRProvider,
 )
+from ofa_sr_tpu_torch.exp import curriculum, search_deploy_demo  # noqa: E402
 from ofa_sr_tpu_torch.model_zoo import ofa_net  # noqa: E402
 from ofa_sr_tpu_torch.data.bicubic import resize_bicubic  # noqa: E402
 from ofa_sr_tpu_torch.models import (  # noqa: E402
@@ -277,7 +303,12 @@ from ofa_sr_tpu_torch.models import (  # noqa: E402
     OFAProxylessNASNets,
     get_active_cls_subnet,
 )
-from ofa_sr_tpu_torch.models.arch import sample_subnet, subnet_seed, uniform_subnet  # noqa: E402
+from ofa_sr_tpu_torch.models.arch import (  # noqa: E402
+    reference_quirk_arch_x4,
+    sample_subnet,
+    subnet_seed,
+    uniform_subnet,
+)
 from ofa_sr_tpu_torch.models.export import (  # noqa: E402
     export_cls_subnet,
     export_subnet,
@@ -405,6 +436,9 @@ RM_ROUNDS = 3                         # rounds of (entry.train, train_one_epoch)
 X4_STEPS = 4                          # one-subnet steps a (mode, type) run
 X4_ROUNDS = 2                         # rounds of (plain, kernels, kernels, plain) step timing
 X4_MODES = ("sr", "autoencoder")
+# phase 12: the curriculum's batch and crops (its default, and the long
+# run's CURRICULUM_r04 config)
+CURRICULUM_BS, CURRICULUM_CROPS = 4, (32, 48)
 # the X4 autoencoder's frames (random BN statistics over two trunks: |y| up
 # to ~1.3e3) are held against float64: every float32 path, the plain cuDNN
 # one included, misses the elementwise FRAME_TOL there on a few of its
@@ -600,12 +634,18 @@ def path_bn_shapes():
     """The training paths' distinct BN shapes: the S4's 1-subnet steps' and
     the X4's steps of phase 7 in both modes (the unshuffle convs' C 16 at
     147,456 and 36,864 rows, the encoder output's C 3 at 9,216 and
-    36,864)."""
+    36,864), and the curriculum's X4 sr steps (phase 12 and the long run:
+    batch 4 of 32 and 48 px crops, every expand ratio, pixel_d 1 and 2:
+    the decoder's C 64-384 at 256 to 2,304 rows)."""
     space = SearchSpace()
     cfgs = [step_subnets(space, i, 1)[0] for i in range(TRAIN_STEPS)]
     shapes = {s for c in cfgs for s in bn_train_shapes(space, c, BS, HR)}
     shapes |= {s for c in x4_step_cfgs() for mode in X4_MODES
                for s in x4_bn_train_shapes(space, c, mode)}
+    shapes |= {s for hr in CURRICULUM_CROPS for e in space.expand_list
+               for pd in space.pixel_d_list
+               for s in x4_bn_train_shapes(space, uniform_subnet(space, 7, e, 2, pd, n_trunks=2),
+                                           "sr", bs=CURRICULUM_BS, hr=hr)}
     return sorted(shapes)
 
 
@@ -1351,12 +1391,12 @@ def decoder_cfg(space, cfg):
     return SubnetConfig(ks=cfg.ks[nb:], e=cfg.e[nb:], d=cfg.d[ns:], pixel_d=cfg.pixel_d)
 
 
-def x4_bn_train_shapes(space, cfg, mode):
+def x4_bn_train_shapes(space, cfg, mode, bs=BS, hr=HR):
     """NHWC shapes of every train-mode BN of an X4 subnet's forward at
-    batch BS of HR x HR frames, in order: in autoencoder mode the
+    batch `bs` of hr x hr frames, in order: in autoencoder mode the
     unshuffle convs (before their unshuffle), the encoder trunk and its
     three final convs, then the decoder (the S4 topology on trunk 1)."""
-    bs, hr, pd = BS, HR, cfg.pixel_d
+    pd = cfg.pixel_d
     lr = hr // 2 ** pd
     shapes = []
     if mode == "autoencoder":
@@ -2194,13 +2234,15 @@ class TimedCalls:
     the calls captured into the CUDA graphs: the wrappers count launches
     there; the graphs' replays re-run those launches without them) and the
     MBConv and tail launches counted meanwhile. Whole subnets (3-channel
-    inputs) get WHOLE_WINDOWS."""
+    inputs) get the windows `whole` (WHOLE_WINDOWS by default)."""
 
-    def __init__(self):
+    def __init__(self, whole=WHOLE_WINDOWS):
         self.records = []
+        self.whole = whole
 
     def __enter__(self):
         self.real = real = search_latency.measure_latency_device
+        whole = self.whole
 
         def timed(fn, x, **kw):
             n = [0]
@@ -2211,7 +2253,7 @@ class TimedCalls:
 
             before = fused_mbconv_infer.launches, fused_shuffle_tail.launches
             if x.shape[-1] == 3:
-                kw = dict(WHOLE_WINDOWS, **kw)
+                kw = dict(whole, **kw)
             ms = real(counted, x, **kw)
             self.records.append({"shape": list(x.shape), "ms": ms, "calls": n[0],
                                  "mbconv": fused_mbconv_infer.launches - before[0],
@@ -3250,6 +3292,257 @@ def phase11(g, dev):
     return out, profiles
 
 
+# -- phase 12: the SR curriculum and the search-and-deploy demo ---------------
+
+# the curriculum at the script's small defaults (32 training images of 64 px,
+# 32 px crops, batch 4, the teacher 12 epochs, 4 epochs a phase), 'sharp'
+# images and 4 epochs of max-net pretraining; then the demo on its expand
+# checkpoint, searching by decoder MACs
+CURRICULUM_ARGS = ["--style", "sharp", "--pretrain_epochs", "4"]
+DEMO_ARGS = ["--quality", "macs"]
+
+
+class CurriculumRuns:
+    """While active, each CLI run of the curriculum is recorded: its task,
+    its wall seconds, every kernel's launches in it (read before and after
+    the run) and the
+    subnets of each training step it took (`SRTrainer.train_step`'s), with
+    whether BN was frozen."""
+
+    def __init__(self):
+        self.runs = []
+
+    def __enter__(self):
+        self.real = {m: m.main for m in (train_teacher_net_sr_simple, train_ofa_net_sr_simple)}
+        self.real_step = real_step = SRTrainer.train_step
+        steps = self.steps = []
+
+        def step(trainer, batch, cfgs, lr):
+            steps.append((list(cfgs), trainer.bn_frozen))
+            return real_step(trainer, batch, cfgs, lr)
+
+        def wrap(module, real):
+            def main(argv):
+                before, n0 = kernel_counts(), len(steps)
+                t0 = time.perf_counter()
+                out = real(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                after = kernel_counts()
+                task = argv[argv.index("--task") + 1] if "--task" in argv else "teacher"
+                self.runs.append({"task": task, "best": out, "wall_s": wall,
+                                  "launches": {k: after[k] - before[k] for k in after},
+                                  "steps": steps[n0:]})
+                return out
+            return main
+
+        for m, real in self.real.items():
+            m.main = wrap(m, real)
+        SRTrainer.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        for m, real in self.real.items():
+            m.main = real
+        SRTrainer.train_step = self.real_step
+
+
+def curriculum_steps(tmp):
+    """One SGD step of the expand space's X4 on a curriculum batch (batch
+    CURRICULUM_BS of each of CURRICULUM_CROPS from a generated 'sharp'
+    tree), over an expand-phase subnet as the curriculum trains it
+    (`reference_quirk_arch_x4`), kernels against the plain path from the
+    same weights: the loss, every parameter and every running statistic
+    after the step at STEP_TOL (SGD at the curriculum's max-net learning
+    rate, its --pretrain_lr, so an update is that multiple of the
+    gradient); the kernel step's BN launches counted, the plain step's
+    none."""
+    root = os.path.join(tmp, "step_data")
+    curriculum.gen_tree(root, n_train=2 * CURRICULUM_BS, n_val=1, size=64,
+                        seed=curriculum.SEED, style="sharp")
+    space = search_deploy_demo.expand_space()
+    lr = curriculum.build_parser().get_default("pretrain_lr")
+    out = {}
+    for crop in CURRICULUM_CROPS:
+        provider = Div2KSetXXProvider(root=root, image_size=crop,
+                                      train_batch_size=CURRICULUM_BS)
+        batch = {k: torch.as_tensor(np.asarray(v)).to(DEVICE)
+                 for k, v in next(iter(provider.train)).items() if k in ("image", "x2", "x4")}
+        cfg = reference_quirk_arch_x4(sample_subnet(space, seed=crop, n_trunks=2))
+        runs = {}
+        for uk in (True, False):
+            net = OFAMobileNetX4(space, device=DEVICE,
+                                 generator=torch.Generator().manual_seed(crop))
+            tr = SRTrainer(net, opt_type="sgd", weight_decay=3e-5, use_kernels=uk)
+            zero_bn_counts()
+            loss = float(tr.train_step(batch, [cfg], lr)["loss"])
+            torch.cuda.synchronize()
+            runs[uk] = (loss, {k: v.detach().clone() for k, v in net.state_dict().items()
+                               if v.is_floating_point()}, bn_counts())
+        expect = x4_bn_launches_expected([cfg], "sr")
+        label = "curriculum step, bs %d at %d px, lr %g, %s" % (CURRICULUM_BS, crop, lr,
+                                                                 cfg.describe())
+        wrong = bn_launches_wrong(runs[True][2], expect, False)
+        if wrong or any(runs[False][2].values()):
+            fail("%s: kernel path %s; plain path launched %s" % (label, wrong, runs[False][2]))
+        check_close("%s: loss, kernels vs plain" % label, torch.tensor([runs[True][0]]),
+                    torch.tensor([runs[False][0]]), STEP_TOL)
+        pk, pp = runs[True][1], runs[False][1]
+        for n in pk:
+            if not bool(torch.isclose(pk[n], pp[n], **STEP_TOL).all()):
+                check_close("%s: %s after the step" % (label, n), pk[n], pp[n], STEP_TOL)
+        err = {kind: max(float((pk[n] - pp[n]).abs().max()) for n in pk
+                         if ("running" in n) == (kind == "running stats"))
+               for kind in ("params", "running stats")}
+        print("  %s: loss %.6f; BN launches %d each (expected %d); after the step, kernels vs "
+              "plain: params max_abs_err %.3e, running stats %.3e  ok"
+              % (label, runs[True][0], runs[True][2]["bn_forward"], expect, err["params"],
+                 err["running stats"]), flush=True)
+        out[crop] = {"cfg": cfg.describe(), "loss": runs[True][0], "plain_loss": runs[False][0],
+                     "bn_launches": expect, "max_abs_err": err}
+    return out
+
+
+def curriculum_run(tmp):
+    """The curriculum through the port's CLIs, every phase's BN-kernel
+    launches held to its executed train-mode BNs (the frozen-BN teacher's
+    to 0), nothing else launched; then its rerun from the report, which
+    trains and launches nothing and reports the same numbers."""
+    out_dir = os.path.join(tmp, "curriculum")
+    argv = ["--out", out_dir, "--device", DEVICE] + CURRICULUM_ARGS
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    with CurriculumRuns() as runs:
+        rep = curriculum.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = kernel_counts()
+    phases = {}
+    for run in runs.runs:
+        frozen = {f for _, f in run["steps"]}
+        cfgs = [c for cs, _ in run["steps"] for c in cs]
+        expect = 0 if frozen == {True} else x4_bn_launches_expected(cfgs, "sr")
+        got = run["launches"]
+        print("  %-20s %4d steps, %4d subnets, %.1f s, BN %s: bn_forward %d, bn_backward %d "
+              "launches (expected %d each)" % (
+                  run["task"], len(run["steps"]), len(cfgs), run["wall_s"],
+                  "frozen" if frozen == {True} else "train", got["bn_forward"],
+                  got["bn_backward"], expect), flush=True)
+        if run["task"] == "teacher" and frozen != {True}:
+            fail("the curriculum's teacher trained with BN in train mode")
+        if run["task"] != "teacher" and frozen != {False}:
+            fail("the curriculum's %s phase trained with BN frozen" % run["task"])
+        if bn_launches_wrong(got, expect, False) or any(
+                v for k, v in got.items() if k not in ("bn_forward", "bn_backward")):
+            fail("the curriculum's %s phase launched %s, expected bn_forward and bn_backward "
+                 "%d times each and nothing else" % (run["task"], got, expect))
+        phases[run["task"]] = {"steps": len(run["steps"]), "subnets": len(cfgs),
+                               "wall_s": run["wall_s"], "launches": got, "expected": expect}
+    tasks = ["teacher", "pretrain"] + [t for t, _ in curriculum.phase_table(
+        curriculum.build_parser().parse_args(argv))]
+    if list(phases) != tasks:
+        fail("the curriculum ran %s, not %s" % (list(phases), tasks))
+    # the grid evaluations and the bicubic floor (outside the CLI runs)
+    # launched nothing
+    if any(total[k] != sum(p["launches"][k] for p in phases.values()) for k in total):
+        fail("the curriculum launched kernels outside its CLI runs: %s" % total)
+    for task, corners in rep["port"].items():
+        if not corners or not all(np.isfinite(v) for v in corners.values()):
+            fail("the curriculum's %s phase scored %s" % (task, corners))
+        if not os.path.isfile(os.path.join(out_dir, "port", task, "PHASE_DONE.json")):
+            fail("the curriculum's %s phase wrote no PHASE_DONE.json" % task)
+    h = rep["headline"]
+    print("  curriculum: %.1f s; bicubic x2 %.3f, x4 %.3f; teacher %.3f (margin %+.3f dB); "
+          "best x4 corner %s of %s %.3f (margin %+.3f dB)"
+          % (wall, h["bicubic_x2"], h["bicubic_x4"], h["teacher_psnr_x2"],
+             h["teacher_margin_db"], h["best_corner"], h["best_corner_phase"],
+             h["best_corner_psnr_x4"], h["corner_margin_db"]), flush=True)
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    with CurriculumRuns() as reruns:
+        again = curriculum.main(argv + ["--resume_report",
+                                        os.path.join(out_dir, "report.json")])
+    torch.cuda.synchronize()
+    rerun_wall = time.perf_counter() - t0
+    rerun = kernel_counts()
+    print("  rerun from the report: %.1f s, %d CLI runs, launches %s" % (
+        rerun_wall, len(reruns.runs), {k: v for k, v in rerun.items() if v}), flush=True)
+    if reruns.runs or any(rerun.values()) or again["port"] != rep["port"]:
+        fail("the curriculum's rerun from its report trained, launched or scored otherwise")
+    return out_dir, {"wall_s": wall, "report": rep, "phases": phases, "launches": total,
+                     "rerun": {"wall_s": rerun_wall, "launches": rerun}}
+
+
+def demo_run(out_dir):
+    """The search-and-deploy demo on the curriculum's expand checkpoint,
+    counted: every timed call's MBConv launches (one a block entry's call,
+    sum(d) of the decoder a whole subnet's), bn_forward once per train-mode
+    BN of the three deployments' recalibration, nothing else; then the
+    winner's kernel frame against its plain frame."""
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    with TimedCalls(whole={}) as timed:
+        rep = search_deploy_demo.main(["--curriculum", out_dir, "--device", DEVICE] + DEMO_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    space = search_deploy_demo.expand_space()
+    ns = space.n_stages
+    winner = SubnetConfig.from_dict(rep["winner"])
+    deployed = [uniform_subnet(space, 3, 3, 2, 2, n_trunks=2),
+                uniform_subnet(space, 7, 6, 4, 2, n_trunks=2), winner]
+    n_blocks = len(space.ks_list) * len(space.expand_list)
+    per_call = [1] * n_blocks + [sum(c.d[ns:]) for c in deployed[:1] + deployed]
+    if len(timed.records) != len(per_call):
+        fail("the demo timed %d calls, expected %d" % (len(timed.records), len(per_call)))
+    for rec, n in zip(timed.records, per_call):
+        hold_timed_launches("demo timed call %s" % rec["shape"], rec,
+                            {"mbconv": n, "shuffle_tail": 0})
+    n_batches = len(Div2KSetXXProvider(root=os.path.join(out_dir, "data"), image_size=32,
+                                       train_batch_size=4).train)
+    expect = n_batches * x4_bn_launches_expected(deployed, "sr")
+    if counts["mbconv"] != sum(r["mbconv"] for r in timed.records) or \
+            counts["bn_forward"] != expect or any(
+                v for k, v in counts.items() if k not in ("bn_forward", "mbconv")):
+        fail("the demo launched %s; expected MBConv only in its timed calls and bn_forward %d "
+             "times (%d batches of recalibration over 3 subnets), nothing else"
+             % (counts, expect, n_batches))
+    cands = rep["candidates"]
+    if not cands["searched"]["lut_ms"] <= rep["constraint_ms"] or not all(
+            np.isfinite(c["psnr_db"]) and c["true_ms"] > 0 for c in cands.values()):
+        fail("the demo's deployments: %s (constraint %.4f ms)" % (cands, rep["constraint_ms"]))
+    for name, c in cands.items():
+        print("  %-12s table %.4f ms, measured %.4f, decoder %.4f GMAC, PSNR-Y %.4f dB after "
+              "recalibration" % (name, c["lut_ms"], c["true_ms"], c["dec_gmacs"], c["psnr_db"]),
+              flush=True)
+    print("  demo: %.1f s; winner %s under %.4f ms; launches %s (bn_forward expected %d)"
+          % (wall, winner.describe(), rep["constraint_ms"], counts, expect), flush=True)
+    net = OFAMobileNetX4(space, device=DEVICE)
+    load_weights_lenient(os.path.join(out_dir, "port", "expand", "checkpoint"), net)
+    lr = rep["hr"] // 4
+    x = torch.from_numpy(np.random.RandomState(5).rand(1, lr, lr, 3).astype(np.float32)).to(
+        DEVICE)
+    with torch.inference_mode():
+        y = get_active_subnet(net, winner)(x)
+        err = check_close("demo winner frame: kernels vs plain path", y,
+                          get_active_subnet(net, winner, use_kernels=False)(x), FRAME_TOL)
+    return {"wall_s": wall, "report": rep, "launches": counts, "bn_forward_expected": expect,
+            "recalib_batches": n_batches, "timed_calls": timed.records,
+            "winner_frame_max_abs_err": err}
+
+
+def phase12(dev):
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ofa_sr_p12_") as tmp:
+        steps = curriculum_steps(tmp)
+        out_dir, cur = curriculum_run(tmp)
+        demo = demo_run(out_dir)
+    out = {"steps": steps, "curriculum": cur, "demo": demo,
+           "wall_s": time.perf_counter() - t0}
+    print("  phase 12 took %.1f s" % out["wall_s"], flush=True)
+    return out
+
+
 # -- phase 6: per-kernel numbers at the path's shapes ------------------------
 
 def steady_ms(fn, repeats=3):
@@ -3541,6 +3834,10 @@ def main():
           "real data paths", flush=True)
     p11, cls_profiles = phase11(g, dev)
 
+    print("phase 12: the SR curriculum through the CLIs, its resume, and the search-and-deploy "
+          "demo on its expand checkpoint", flush=True)
+    p12 = phase12(dev)
+
     print("phase 6: per-kernel numbers", flush=True)
     bn_rows = bn_kernel_numbers(g, path_counts, errs)
     bn_rows_bf16 = bn_kernel_numbers(g, path_counts, errs, BF16)
@@ -3653,6 +3950,15 @@ def main():
                                                                       "shuffle_tail") else ""
         r["launches_phase11"] = {"trainer": t11.get(key, 0),
                                  "clis": c11.get(key, 0), "real data": d11.get(key, 0)}
+    # phase 12's counted runs: the curriculum's CLI runs (training only: its
+    # evaluations launch nothing), the demo's (its table and deployments'
+    # timed calls, counted at capture, and its recalibration)
+    c12, d12 = p12["curriculum"]["launches"], p12["demo"]["launches"]
+    for r in rows:
+        key = ROW_WRAPPER.get(r["name"], r["name"].split()[0])
+        key += "_bf16" if r.get("dtype") == "bfloat16" and key not in ("mbconv",
+                                                                      "shuffle_tail") else ""
+        r["launches_phase12"] = {"curriculum": c12.get(key, 0), "demo": d12.get(key, 0)}
     # the BN kernels at the classification step's extreme shapes (phase 11)
     for rows_, dname in ((bn_rows, "f32"), (bn_rows_bf16, "bf16")):
         for r, kname in ((rows_[0], "bn_forward"), (rows_[2], "bn_backward")):
@@ -3694,7 +4000,7 @@ def main():
                       "entry_ms": entry_ms, "train_runs": train_runs,
                       "train_runs_bf16": train_runs_bf16, "step_ms": step_ms,
                       "step_profile": train_profiles, "cli": cli, "x4": x4, "phase8": p8,
-                      "search": p9, "phase10": p10, "phase11": p11,
+                      "search": p9, "phase10": p10, "phase11": p11, "phase12": p12,
                       "build_s": build_s,
                       "mbconv_smem_bytes": mb_smem, "gpu": smi_line}))
     print(smi_line)

@@ -53,7 +53,7 @@ from .models.materialize import get_active_subnet
 from .models.ofa_s4 import OFAMobileNetS4
 from .models.ofa_x4 import OFAMobileNetX4
 from .parallel.mesh import shard_batch, shard_params
-from .search.evolution import EvolutionFinder
+from .search.evolution import EvolutionFinder, require_constraint_share
 from .search.flops import mbconv_macs
 from .search.latency import build_block_latency_table, lut_efficiency_fn, measure_latency_device
 from .train.run_manager import RunConfig, SRRunManager
@@ -61,9 +61,6 @@ from .train.train_step import SRTrainer
 from .utils.device import resolve_device
 
 N_BATCH = 50  # steps per epoch in the subnet seeds: DIV2K's 800 images / 16
-# search: the random draws that estimate how often the finder's draws meet
-# its constraint, and the least share it needs
-PROBE_DRAWS, MIN_ACCEPT = 1000, 0.01
 
 
 def entry(device="cuda"):
@@ -228,13 +225,8 @@ def search(net=None, provider=None, *, hr_size: int = 720, constraint_frac: floa
     # the finder draws random subnets until one meets the constraint (as in
     # the JAX package): refuse a constraint so tight that it would draw
     # for ever, with another random stream than the finder's
-    probe = EvolutionFinder(space, eff, None, n_trunks=n_trunks, seed=1)
-    n_ok = sum(eff(probe._random()) <= constraint for _ in range(PROBE_DRAWS))
-    if n_ok < MIN_ACCEPT * PROBE_DRAWS:
-        raise ValueError(
-            "too few random subnets meet the constraint: %d of %d under %.4f ms (%.3g of the "
-            "largest's %.4f; the smallest uniform subnet takes %.4f); raise constraint_frac"
-            % (n_ok, PROBE_DRAWS, constraint, constraint_frac, eff(big), eff(small)))
+    require_constraint_share(space, eff, constraint, largest=big, smallest=small,
+                             n_trunks=n_trunks)
 
     with tempfile.TemporaryDirectory(prefix="ofa_search_") as tmp:
         rm = None

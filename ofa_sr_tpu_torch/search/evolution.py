@@ -119,3 +119,26 @@ class EvolutionFinder:
                 scores.setdefault(child, self.quality_fn(child))
 
         return best, scores[best], history
+
+
+# the least share of random subnets a search's constraint must admit, and
+# the random draws (another stream than the finder's) that estimate it
+MIN_CONSTRAINT_SHARE, SHARE_DRAWS = 0.01, 1000
+
+
+def require_constraint_share(space: SearchSpace, efficiency_fn: Callable, constraint, *,
+                             largest: SubnetConfig, smallest: SubnetConfig, n_trunks=1):
+    """The share of SHARE_DRAWS random subnets that meet `constraint`.
+    The finder draws random subnets until one does, so at a share near 0 it
+    would draw for ever: below MIN_CONSTRAINT_SHARE this raises ValueError,
+    with the largest and smallest uniform subnets' efficiencies."""
+    probe = EvolutionFinder(space, efficiency_fn, None, n_trunks=n_trunks, seed=1)
+    share = sum(efficiency_fn(probe._random()) <= constraint
+                for _ in range(SHARE_DRAWS)) / SHARE_DRAWS
+    if share < MIN_CONSTRAINT_SHARE:
+        big, small = efficiency_fn(largest), efficiency_fn(smallest)
+        raise ValueError(
+            "too few random subnets meet the constraint: a share of %.3g under %.4f ms (%.3g "
+            "of the largest uniform subnet's %.4f; the smallest takes %.4f); raise the "
+            "constraint's fraction" % (share, constraint, constraint / big, big, small))
+    return share

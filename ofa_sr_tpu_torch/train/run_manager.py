@@ -276,12 +276,14 @@ class SRRunManager:
 
     def load_weights(self, path):
         """Warm-start weights only, lenient across elastic spaces (the
-        reference's strict=False load)."""
+        reference's strict=False load). Returns `load_weights_lenient`'s
+        {"kept_template", "dropped"} counts."""
         stats = load_weights_lenient(path, self.net)
         if stats["kept_template"] or stats["dropped"]:
             self.write_log("load_weights(%s): %d net entries kept fresh init, %d checkpoint "
                            "entries unused" % (path, stats["kept_template"], stats["dropped"]),
                            "valid")
+        return stats
 
     # -- subnet sampling (host, reference seed contract) ----------------------
 

@@ -40,7 +40,9 @@ def _grid(run_manager, *, ks_list=None, expand_list=None, depth_list=None, pixel
             for k in ks_list or _min_max(sp.ks_list)]
 
 
-def _corner_name(pd, d, e, k):
+def corner_name(pd, d, e, k):
+    """A grid corner's name, as validation logs and per-corner gating
+    name it."""
     return "K%d-E%d-D%d-PD%d" % (k, e, d, pd)
 
 
@@ -56,7 +58,7 @@ def validate_grid(run_manager: SRRunManager, *, ks_list=None, expand_list=None,
         loss, psnr = run_manager.validate(run_manager._quirk_cfg(cfg), loader=loader)
         losses.append(loss)
         psnrs.append(psnr)
-        gated.append((_corner_name(*corner), psnr))
+        gated.append((corner_name(*corner), psnr))
         log += "PD%s-D%s-E%s-K%s (%.3f), " % (corner + (psnr,))
     if gate_where is not None:
         run_manager.gate_corners(gated, where=gate_where)
@@ -66,7 +68,7 @@ def validate_grid(run_manager: SRRunManager, *, ks_list=None, expand_list=None,
 def _named_grid_cfgs(run_manager, vl):
     """The corners `validate_grid` walks for validate lists `vl`, named as
     the per-corner gating names them."""
-    return [(_corner_name(*corner), cfg) for corner, cfg in _grid(
+    return [(corner_name(*corner), cfg) for corner, cfg in _grid(
         run_manager, **{k: vl.get(k) for k in ("ks_list", "expand_list", "depth_list",
                                                "pixel_d_list")})]
 

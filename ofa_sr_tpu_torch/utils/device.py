@@ -22,3 +22,10 @@ def resolve_device(device="cuda") -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_name(device="cuda") -> str:
+    """The card's name (`torch.cuda.get_device_name`), or "cpu"; raises
+    as `resolve_device` does."""
+    dev = resolve_device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
