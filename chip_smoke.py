@@ -21,7 +21,15 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    bf16 tensors, at every BN shape of the training path plus C = 3, ragged
    C and misaligned rows (sums and moments at the float32 rows' tolerance,
    dx within one bf16 ulp), and float16 or a bf16 dy with a float32 x
-   refused on the card.
+   refused on the card. And, f32 and bf16, `bn_forward` and `bn_backward`
+   with the masked step's active-width operand (a device int32 width) at
+   its shapes (C 384 at 36,864 and 9,216 rows, each middle width 192, 256,
+   384) and two ragged ones: inv, y and the running statistics bit for bit
+   against the plain ops on the kernel's moments with the operand, y 0 and
+   the running statistics unchanged from the width on, an active width of
+   C the bits of the call without it; dx, dscale, dbias against the plain
+   backward with it, 0 from the width on; train-mode BN through the kernels
+   with it against the plain autograd branch.
 3. Serving: a full-width OFAMobileNetS4 (seeded he_fout weights, random BN
    statistics) materialized as the ks7/e6/d2/pixel_d 2 subnet serves 8 LR
    180x320 frames (720p out) through `entry.serve`, with every kernel's
@@ -228,6 +236,32 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    frame against its plain frame (FRAME_TOL). Wall seconds, the headline
    (margins over bicubic), the winner's PSNR-Y, table ms and measured ms
    printed.
+13. (run after phase 12, before phase 6's timings and profiles) Multi-step
+   dispatch: the masked training step as CUDA-graph replays
+   (`SRTrainer.make_scan_train_step`, `train/graphs.py`). (a) The main
+   path: `entry.train` with `steps_per_dispatch` at bench.py's envelopes
+   (16 one-subnet steps in one window; 8 steps of 4 subnets + KD in one),
+   float32 and bf16, the BN wrappers counted: each distinct pass (depths,
+   pixel_d) launches bn_forward and bn_backward once per train-mode BN at
+   its eager first run and once at its capture, the replays without the
+   wrappers; nothing else. (b) Parity, TF32 off: the graphed windows
+   against the same steps run eagerly in the masked form (the cache's
+   graphs off) and against the eager sliced steps (`train_step`), per-step
+   losses at STEP_TOL (bf16: BF16_STEP_TOL), in float32 the parameters at
+   STEP_TOL (a tensor past it within CLS_UPDATE_RTOL of a float64 sliced
+   step's update) and the running statistics at CLS_STATE_TOL: the S4 at
+   the bench's 8 subnets (16 one-subnet steps; 8 steps of 4 + KD), f32 and
+   bf16; the X4 in sr mode (4 windows of 4) and autoencoder mode (one of
+   4); captures held to the distinct passes + the update (+ the teacher).
+   Graphs of one pool replayed out of capture order (A, B, A, B | B, A)
+   against eager. (c) SRRunManager at steps_per_dispatch 4 (one window of
+   4 steps, bs16 96 px synthetic) against the same epoch at 1, its log
+   lines, and its checkpoint resumed at 1. (d) ms a step and host enqueue
+   ms, eager sliced against graphed, f32 and bf16, 1 subnet and 4 + KD,
+   alternating rounds; replays a step, captures and capture seconds, peak
+   max_memory_allocated; the one-subnet paths profiled with phase 6's. (e)
+   bn_forward / bn_backward ms a launch at C 384 with the active width and
+   without. A failed capture or replay ends the run non-zero.
 
 Float32 with TF32 off for cuDNN and matmuls, so the card's numbers compare
 with the CPU's, apart from the bf16 training runs; the shuffle-tail and
@@ -866,6 +900,115 @@ def bn_grad_check(g, dtype=torch.float32):
         check_sums(name + " dbias", db, db_p, wf.reshape(-1, c))
         check_close(name + " running_mean", rm, rm_p, MOMENT_TOL)
         check_close(name + " running_var", rv, rv_p, MOMENT_TOL)
+
+
+def masked_bn_shapes():
+    """The masked training step's BN shapes with an active width: the S4's
+    (and the X4 sr decoder's) expand and depthwise BNs at the max middle
+    width, C 384 whatever the subnet, for bs16 at 96 px, pixel_d 1 and 2
+    (36,864 and 9,216 rows), with each middle-width candidate as the
+    width."""
+    space = SearchSpace()
+    c = max(space.mid_candidates())
+    return [((BS, HR // 2 ** pd, HR // 2 ** pd, c), m) for pd in space.pixel_d_list
+            for m in space.mid_candidates()]
+
+
+def bn_active_parity(g, dtype=torch.float32):
+    """`bn_forward` and `bn_backward` with the active-width operand (the
+    masked step's) against their plain versions with it, at the masked
+    path's shapes and two ragged ones: the forward's inv, y and running
+    statistics bit for bit against the plain ops on the kernel's own
+    moments with the same operand, y 0 and the running statistics unchanged
+    from the width on, y against the whole plain version (TOL; a bf16 y
+    within one ulp); an active width of C gives the bits of the call
+    without the operand; the backward's dx (TOL / one bf16 ulp), dscale and
+    dbias (column sums), each exactly 0 from the width on; and train-mode
+    BN through the kernels with the operand against the plain autograd
+    branch with it (y, dx, dscale, dbias, running statistics). Returns
+    {"bn_forward_active"[_bf16], "bn_backward_active"[_bf16]: max abs err
+    at the path's shapes}."""
+    bf16 = dtype is BF16
+    tag, key = (" bf16", "_bf16") if bf16 else ("", "")
+    errs = {"bn_forward_active" + key: 0.0, "bn_backward_active" + key: 0.0}
+    tol = BF16_DX_TOL if bf16 else TOL
+    kw = dict(momentum=0.1, eps=BN_EPS, update_var="unbiased")
+    cases = [(shape, m, True) for shape, m in masked_bn_shapes()]
+    cases += [((37, 1, 1, 17), 5, False), ((1000, 1, 1, 100), 64, False)]
+    for shape, m, on_path in cases:
+        n, c = int(np.prod(shape[:3])), shape[3]
+        name = "bn_forward%s %s active %d" % (tag, shape, m)
+        x = (1.5 * randn(g, *shape) + 0.3).to(dtype).contiguous()
+        scale, bias = (0.5 + torch.rand(c, generator=g)).to(DEVICE), randn(g, c, scale=0.2)
+        rm0, rv0 = randn(g, c, scale=0.2), (0.5 + torch.rand(c, generator=g)).to(DEVICE)
+        active = torch.tensor(m, dtype=torch.int32, device=DEVICE)
+        rm, rv = rm0.clone(), rv0.clone()
+        y, mean, var, inv = launched(
+            bn_forward, lambda: bn_forward(x, scale, bias, rm, rv, active=active, **kw), bf16)
+        full = [rm0.clone(), rv0.clone()]
+        y_full = launched(bn_forward, lambda: bn_forward(
+            x, scale, bias, *full, active=torch.tensor(c, dtype=torch.int32, device=DEVICE),
+            **kw), bf16)[0]
+        bare = [rm0.clone(), rv0.clone()]
+        y_bare = launched(bn_forward, lambda: bn_forward(x, scale, bias, *bare, **kw), bf16)[0]
+        torch.cuda.synchronize()
+        rm_p, rv_p = rm0.clone(), rv0.clone()
+        y_m, _, _, inv_m = bn_forward_from_moments(x, scale, bias, rm_p, rv_p, mean, var,
+                                                   active=active, **kw)
+        for part, u, v in (("inv", inv, inv_m), ("y", y, y_m), ("running_mean", rm, rm_p),
+                           ("running_var", rv, rv_p), ("y at active C", y_full, y_bare),
+                           ("running_mean at active C", full[0], bare[0]),
+                           ("running_var at active C", full[1], bare[1])):
+            check_bits("%s %s" % (name, part), u, v)
+        if (y[..., m:].any() or not torch.equal(rm[m:], rm0[m:])
+                or not torch.equal(rv[m:], rv0[m:])):
+            fail("%s: y is not 0, or a running statistic changed, past the width" % name)
+        y_p = bn_forward_reference(x, scale, bias, rm0.clone(), rv0.clone(), active=active,
+                                   **kw)[0]
+        err = check_close(name + " y vs plain", y.float(), y_p.float(), tol)
+        dy = randn(g, *shape).to(dtype)
+        dx, ds, db = launched(bn_backward, lambda: bn_backward(dy, x, scale, mean, inv,
+                                                               active=active), bf16)
+        torch.cuda.synchronize()
+        dx_p, ds_p, db_p = bn_backward_reference(dy, x, scale, mean, inv, active=active)
+        bname = "bn_backward%s %s active %d" % (tag, shape, m)
+        err_b = check_close(bname + " dx", dx.float(), dx_p.float(), tol)
+        live = (torch.arange(c, device=DEVICE) < m).float()
+        dyf = dy.view(n, c).float() * live
+        xhat = (x.view(n, c).float() - mean) * inv
+        check_sums(bname + " dscale", ds, ds_p, dyf * xhat)
+        check_sums(bname + " dbias", db, db_p, dyf)
+        if dx[..., m:].any() or ds[m:].any() or db[m:].any():
+            fail("%s: dx, dscale or dbias is not 0 past the width" % bname)
+        if on_path:
+            errs["bn_forward_active" + key] = max(errs["bn_forward_active" + key], err)
+            errs["bn_backward_active" + key] = max(errs["bn_backward_active" + key], err_b)
+    shape, m = masked_bn_shapes()[0]
+    c = shape[3]
+    x0, w = (1.5 * randn(g, *shape) + 0.3).to(dtype), randn(g, *shape).to(dtype)
+    scale0, bias0 = 0.5 + torch.rand(c, generator=g), 0.2 * torch.randn(c, generator=g)
+    rm0, rv0 = 0.2 * torch.randn(c, generator=g), 0.5 + torch.rand(c, generator=g)
+    active = torch.tensor(m, dtype=torch.int32, device=DEVICE)
+    out = {}
+    for uk in (True, False):
+        x = x0.clone().requires_grad_()
+        scale, bias = (t.to(DEVICE).requires_grad_() for t in (scale0, bias0))
+        rm, rv = rm0.to(DEVICE), rv0.to(DEVICE)
+        y = batch_norm_train(x, scale, bias, rm, rv, use_kernels=uk, active=active)
+        y.backward(w)
+        out[uk] = (y.detach(), x.grad, scale.grad, bias.grad, rm, rv)
+    torch.cuda.synchronize()
+    (y, dx, ds, db, rm, rv), (y_p, dx_p, ds_p, db_p, rm_p, rv_p) = out[True], out[False]
+    name = "bn_train_fused%s %s active %d" % (tag, shape, m)
+    check_close(name + " y", y.float(), y_p.float(), tol)
+    check_close(name + " dx", dx.float(), dx_p.float(), tol)
+    xf, wf = x0.float(), w.float() * (torch.arange(c, device=DEVICE) < m)
+    xhat = ((xf - xf.mean((0, 1, 2))) * torch.rsqrt(xf.var((0, 1, 2), correction=0) + 1e-5))
+    check_sums(name + " dscale", ds, ds_p, (wf * xhat).reshape(-1, c))
+    check_sums(name + " dbias", db, db_p, wf.reshape(-1, c))
+    check_close(name + " running_mean", rm, rm_p, MOMENT_TOL)
+    check_close(name + " running_var", rv, rv_p, MOMENT_TOL)
+    return errs
 
 
 # -- phase 3: serving --------------------------------------------------------
@@ -3543,6 +3686,435 @@ def phase12(dev):
     return out
 
 
+# -- phase 13: multi-step dispatch, CUDA-graph replays of the masked step ----
+
+SPD, SPD_KD = 16, 8          # steps a window: bench.py:201-215 (1 subnet), :261-272 (4 + KD)
+BENCH_LR = 1e-4              # bench.py's Adam lr
+# parity runs: SGD (Nesterov momentum 0.9, weight decay 3e-5), whose update
+# is linear in the gradient; 16 of bench.py's Adam steps at 1e-4 move a
+# weight by ~lr * g / (|g| + eps), so float32 noise in a gradient near 0
+# moved the update of a whole tensor (the first conv) by 7% against a
+# float64 step on an H100 (PERF.md), on either masked path alike
+PARITY_OPT, PARITY_LR = "sgd", 0.01
+X4_SPD, X4_SR_WINDOWS = 4, 4  # the X4: 4 windows of 4 sr steps, one of 4 autoencoder steps
+GRAPH_ROUNDS = 2             # rounds of (sliced, graphed, graphed, sliced) step timing
+RM_TRAIN = 64                # run manager: synthetic images, bs16: 4 steps an epoch
+
+
+def bench_cfgs(space, n_steps, k, n_trunks=1):
+    """bench.py's subnets (:199-200): the 8 of subnet_seed(0, 50, i, 0),
+    step i's subnet j the ((i * k + j) % 8)-th (bench.py's cycling)."""
+    eight = [sample_subnet(space, seed=subnet_seed(0, 50, i, 0), n_trunks=n_trunks)
+             for i in range(8)]
+    return [[eight[(i * k + j) % 8] for j in range(k)] for i in range(n_steps)]
+
+
+def pass_keys(cfg_steps):
+    """The distinct graph keys of the subnet passes: (depths, pixel_d)."""
+    return {(tuple(c.d), c.pixel_d) for step in cfg_steps for c in step}
+
+
+def graph_main_path(compute_dtype=None):
+    """The graphed path through `entry.train(..., steps_per_dispatch=n)` at
+    the bench's envelopes (16 one-subnet steps, one window; 8 steps of 4
+    subnets with KD, one window), counted: each distinct pass launches
+    bn_forward and bn_backward once per train-mode BN at its eager first run
+    and once at its capture, its replays none, so 2 * (3*sum(d) + pixel_d +
+    4) for each distinct (depths, pixel_d); nothing else."""
+    space = SearchSpace()
+    bf16 = compute_dtype is BF16
+    runs = {}
+    for label, steps, kw in (("1 subnet", SPD, {}),
+                             ("4 subnets + KD", SPD_KD, dict(n_subnets=4, kd_ratio=1.0))):
+        cfg_steps = [step_subnets(space, i, kw.get("n_subnets", 1)) for i in range(steps)]
+        zero_bn_counts()
+        metrics = train(steps, device=DEVICE, compute_dtype=compute_dtype,
+                        steps_per_dispatch=steps, **kw)
+        torch.cuda.synchronize()
+        counts = bn_counts()
+        keys = pass_keys(cfg_steps)
+        expect = 2 * sum(3 * sum(d) + pd + 4 for d, pd in keys)
+        print("  entry.train(%d steps, %s%s, steps_per_dispatch=%d): BN-kernel launches %s "
+              "(expected %d each: %d distinct passes, counted at their eager first run and "
+              "capture), losses %s" % (steps, label, ", bf16" if bf16 else "", steps,
+                                       counts, expect, len(keys),
+                                       [round(m["loss"], 5) for m in metrics]), flush=True)
+        wrong = bn_launches_wrong(counts, expect, bf16)
+        if wrong:
+            fail("the graphed %s training path %s" % ("bf16" if bf16 else "float32", wrong))
+        if not all(np.isfinite(m["loss"]) and np.isfinite(m["psnr"]) for m in metrics):
+            fail("non-finite graphed training metrics: %s" % metrics)
+        runs[label] = {"steps": steps, "launches": counts, "expected": expect,
+                       "distinct_passes": len(keys), "metrics": metrics}
+    return runs
+
+
+def graph_net(kind="s4", seed=0, dtype=None):
+    """A full-width seeded S4 or X4 on the card (the same weights on every
+    call); in float64 for `dtype`."""
+    net = (OFAMobileNetX4 if kind == "x4" else OFAMobileNetS4)(
+        SearchSpace(), device=DEVICE, generator=torch.Generator().manual_seed(seed))
+    return net.double() if dtype is torch.float64 else net
+
+
+def window_run(path, cfg_steps, batch, *, kind="s4", mode="sr", n_subnets=1, kd=False,
+               compute_dtype=None, spd=None):
+    """Run `cfg_steps` (PARITY_OPT at PARITY_LR, weight decay 3e-5) from
+    the seeded weights on one path: "graphed" (make_scan_train_step's windows of
+    `spd`, CUDA graphs), "eager masked" (the same windows with the cache's
+    graphs off: every part run eagerly), "eager sliced" (train_step) or
+    "float64" (train_step on the plain path in float64). Returns per-step
+    losses, the parameters and running statistics after, the first
+    weights, and the graph cache's counts."""
+    dtype = torch.float64 if path == "float64" else None
+    net = graph_net(kind, dtype=dtype)
+    w0 = {k: p.detach().clone() for k, p in net.named_parameters()}
+    s0 = {k: v.clone() for k, v in net.state_dict().items() if "running" in k}
+    teacher = None
+    if kd:
+        t_net, t_cfg, t_pd = kd_teacher(net.space, DEVICE)
+        teacher = (t_net.double() if dtype else t_net, t_cfg, t_pd)
+    tr = SRTrainer(net, opt_type=PARITY_OPT, weight_decay=3e-5, kd_ratio=1.0 if kd else 0.0,
+                   teacher=teacher, compute_dtype=compute_dtype, mode=mode,
+                   use_kernels=False if dtype else None)
+    b = {k: v.to(torch.float64) for k, v in batch.items()} if dtype else batch
+    losses, cache = [], None
+    if path in ("graphed", "eager masked"):
+        step = tr.make_scan_train_step(n_subnets)
+        cache = step.cache
+        if path == "eager masked":
+            cache.cuda = False  # the same window code, each part run eagerly
+        spd = spd or len(cfg_steps)
+        for i in range(0, len(cfg_steps), spd):
+            w = cfg_steps[i:i + spd]
+            losses += step([b] * len(w), w, [PARITY_LR] * len(w))["losses"].tolist()
+    else:
+        losses = [float(tr.train_step(b, c, PARITY_LR)["loss"]) for c in cfg_steps]
+    torch.cuda.synchronize()
+    out = {"losses": torch.tensor(losses, dtype=torch.float64),
+           "params": {k: p.detach().clone() for k, p in net.named_parameters()},
+           "stats": {k: v.clone() for k, v in net.state_dict().items() if "running" in k},
+           "w0": w0, "s0": s0}
+    if cache is not None:
+        out["cache"] = {"captures": cache.captures, "replays": cache.replays,
+                        "capture_s": cache.capture_s}
+    del net, tr
+    return out
+
+
+def hold_to(label, got, ref, f64, bf16=False):
+    """`got` against `ref` (window_run results): the per-step losses at
+    STEP_TOL (bf16: BF16_STEP_TOL); in float32 each parameter tensor at
+    STEP_TOL and each running statistic at CLS_STATE_TOL, and a tensor past
+    its tolerance (float32 is ill-conditioned at full width, as phase 11
+    finds; over a window the drift compounds) with its change over the
+    window within CLS_UPDATE_RTOL of the float64 sliced steps' (relative L2;
+    `f64()` runs them, once), `ref`'s measured beside it."""
+    out = {"loss": check_close("%s: per-step losses" % label, got["losses"], ref["losses"],
+                               BF16_STEP_TOL if bf16 else STEP_TOL)}
+    if bf16:
+        return out
+    past = {}
+    for part, start, tol in (("params", "w0", STEP_TOL), ("stats", "s0", CLS_STATE_TOL)):
+        out[part] = max(float((got[part][n] - ref[part][n]).abs().max()) for n in got[part])
+        for n, t in got[part].items():
+            if bool(torch.isclose(t, ref[part][n], **tol).all()):
+                continue
+            r64 = f64()[part][n]
+            size = float((r64 - got[start][n].double()).norm())
+            rel = {k: float((o[part][n].double() - r64).norm()) / max(size, 1e-30)
+                   for k, o in (("got", got), ("ref", ref))}
+            past[n] = rel
+            if not rel["got"] <= CLS_UPDATE_RTOL:
+                fail("%s: %s's change over the window is %.3e of its size from the float64 "
+                     "steps' (the reference path's %.3e; bound %.0e)"
+                     % (label, n, rel["got"], rel["ref"], CLS_UPDATE_RTOL))
+    out["past_tol"] = past
+    worst = max([r["got"] for r in past.values()] or [0.0])
+    print("  %s: params max_abs_err %.3e, running statistics %.3e; %d tensors past their "
+          "tolerance, their change at most %.3e of the float64 steps' (bound %.0e)  ok"
+          % (label, out["params"], out["stats"], len(past), worst, CLS_UPDATE_RTOL),
+          flush=True)
+    return out
+
+
+def graph_parity():
+    """The graphed windows against the same steps run eagerly in the masked
+    form, and against the eager sliced steps (train_step), float32 (TF32
+    off) and bf16: the S4 at bench.py's envelopes (16 one-subnet steps in
+    one window; 8 steps of 4 subnets + KD in one window), the X4 in sr
+    mode (4 windows of 4 steps) and in autoencoder mode (one window of 4);
+    float32 tensors past STEP_TOL held against a float64 sliced step."""
+    space = SearchSpace()
+    batch = synthetic_batch(BS, HR, DEVICE)
+    cases = [("S4 1 subnet", dict(n_subnets=1), bench_cfgs(space, SPD, 1), SPD),
+             ("S4 4 subnets + KD", dict(n_subnets=4, kd=True), bench_cfgs(space, SPD_KD, 4),
+              SPD_KD),
+             ("X4 sr", dict(kind="x4"), bench_cfgs(space, X4_SPD * X4_SR_WINDOWS, 1, 2), X4_SPD),
+             ("X4 autoencoder", dict(kind="x4", mode="autoencoder"),
+              bench_cfgs(space, X4_SPD, 1, 2), X4_SPD)]
+    out = {}
+    for label, kw, cfg_steps, spd in cases:
+        for cd in (None, BF16):
+            if cd is BF16 and label.startswith("X4"):
+                continue  # the X4's bf16 step is held in phase 7; its graphs here in f32
+            name = label + (" bf16" if cd else "")
+            t0 = time.perf_counter()
+            runs = {p: window_run(p, cfg_steps, batch, compute_dtype=cd, spd=spd, **kw)
+                    for p in ("graphed", "eager masked", "eager sliced")}
+            noise = None
+            if cd is None:
+                # the run-to-run noise of the float32 eager masked steps
+                # (cuDNN's backward convolutions sum in no fixed order): the
+                # floor under graphed against eager masked
+                again = window_run("eager masked", cfg_steps, batch, spd=spd, **kw)
+                noise = {"loss": float((again["losses"] - runs["eager masked"]["losses"])
+                                       .abs().max()),
+                         "params": max(float((again["params"][n] - t).abs().max())
+                                       for n, t in runs["eager masked"]["params"].items())}
+                print("  %s: eager masked run twice: losses %.3e, params %.3e apart"
+                      % (name, noise["loss"], noise["params"]), flush=True)
+                del again
+            f64_box = []
+
+            def f64(cfg_steps=cfg_steps, kw=kw):
+                if not f64_box:
+                    f64_box.append(window_run("float64", cfg_steps, batch, **kw))
+                return f64_box[0]
+
+            rec = {"steps": len(cfg_steps), "window": spd, "cache": runs["graphed"]["cache"],
+                   "losses": runs["graphed"]["losses"].tolist(),
+                   "vs eager masked": hold_to(name + ", graphed vs eager masked",
+                                              runs["graphed"], runs["eager masked"], f64,
+                                              bool(cd)),
+                   "vs eager sliced": hold_to(name + ", graphed vs eager sliced",
+                                              runs["graphed"], runs["eager sliced"], f64,
+                                              bool(cd)),
+                   "eager_masked_run_to_run": noise, "float64_run": bool(f64_box),
+                   "wall_s": time.perf_counter() - t0}
+            keys = len(pass_keys(cfg_steps)) + 1 + bool(kw.get("kd"))
+            if rec["cache"]["captures"] != keys:
+                fail("%s: %d captures, expected %d (the distinct passes, the update%s)"
+                     % (name, rec["cache"]["captures"], keys, ", the teacher" if
+                        kw.get("kd") else ""))
+            print("  %s: %d steps in windows of %d, %d captures (%.2f s), %d replays; %.1f s"
+                  % (name, len(cfg_steps), spd, rec["cache"]["captures"],
+                     rec["cache"]["capture_s"], rec["cache"]["replays"], rec["wall_s"]),
+                  flush=True)
+            out[name] = rec
+            del runs, f64_box
+            torch.cuda.empty_cache()
+    return out
+
+
+def replay_order_check():
+    """Graphs sharing one pool, replayed out of their capture order: a
+    window whose passes run keys A, B, A, B (each captured at its first
+    use), and then B, A in a second window, against the same steps run
+    eagerly, per-step losses at STEP_TOL."""
+    space = SearchSpace()
+    eight = bench_cfgs(space, 8, 1)
+    a = eight[0]
+    b = next(c for c in eight if pass_keys([c]) != pass_keys([a]))
+    order = [a, b, a, b, b, a]
+    batch = synthetic_batch(BS, HR, DEVICE)
+    g = window_run("graphed", order, batch, spd=4)
+    e = window_run("eager masked", order, batch, spd=4)
+    check_close("A, B, A, B | B, A replays vs eager masked: per-step losses", g["losses"],
+                e["losses"], STEP_TOL)
+    return {"order": ["A", "B", "A", "B", "B", "A"], "losses": g["losses"].tolist()}
+
+
+def graph_run_manager(tmp):
+    """SRRunManager (bs16 96 px synthetic, PARITY_OPT at PARITY_LR) for
+    one epoch of 4 steps at steps_per_dispatch 4 (one window) against the
+    same epoch at 1: the epoch's loss (STEP_TOL) and the parameters (STEP_TOL; a tensor
+    past it with its update within CLS_UPDATE_RTOL of the eager epoch's);
+    the log lines; then its checkpoint resumed at steps_per_dispatch 1 for
+    a second epoch, the optimizer state read in torch's layout."""
+    out = {}
+    for spd in (1, 4):
+        net = graph_net()
+        w0 = {k: p.detach().clone() for k, p in net.named_parameters()}
+        rc = RunConfig(n_epochs=1, base_lr=PARITY_LR, opt_type=PARITY_OPT, image_size=HR,
+                       print_frequency=2, steps_per_dispatch=spd, manual_seed=0)
+        provider = SyntheticSRProvider(n_train=RM_TRAIN, n_valid=2, hr_size=HR,
+                                       train_batch_size=BS)
+        path = os.path.join(tmp, "rm%d" % spd)
+        rm = SRRunManager(path, net, rc, provider)
+        zero_bn_counts()
+        t0 = time.perf_counter()
+        loss, psnr = rm.train_one_epoch(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rm.save_model(epoch=0)
+        with open(os.path.join(rm.logs_path, "train_console.txt")) as f:
+            lines = [ln.split("\t")[0] for ln in f if ln.startswith("Train")]
+        out[spd] = {"loss": loss, "psnr": psnr, "wall_s": wall, "log": lines,
+                    "launches": {k: v for k, v in bn_counts().items() if v},
+                    "params": {k: p.detach().clone() for k, p in net.named_parameters()},
+                    "w0": w0, "path": path,
+                    "opt_entries": len(rm.trainer.opt.state_dict()["state"])}
+        del rm, net
+    a, b = out[1], out[4]
+    check_close("run manager epoch loss: steps_per_dispatch 4 vs 1", torch.tensor([b["loss"]]),
+                torch.tensor([a["loss"]]), STEP_TOL)
+    past = 0
+    for n, p in b["params"].items():
+        if bool(torch.isclose(p, a["params"][n], **STEP_TOL).all()):
+            continue
+        past += 1
+        size = float((a["params"][n] - a["w0"][n]).norm())
+        rel = float((p - a["params"][n]).norm()) / max(size, 1e-30)
+        if not rel <= CLS_UPDATE_RTOL:
+            fail("run manager: %s's update at steps_per_dispatch 4 is %.3e of its size from "
+                 "the eager epoch's" % (n, rel))
+    if a["log"] != ["Train [1][2/4]", "Train [1][4/4]"] or b["log"] != ["Train [1][4/4]"]:
+        fail("run manager log lines: %s (1) and %s (4)" % (a["log"], b["log"]))
+    net = graph_net()
+    rc = RunConfig(n_epochs=2, base_lr=PARITY_LR, opt_type=PARITY_OPT, image_size=HR,
+                   steps_per_dispatch=1, manual_seed=0)
+    provider = SyntheticSRProvider(n_train=RM_TRAIN, n_valid=2, hr_size=HR, train_batch_size=BS)
+    rm = SRRunManager(b["path"], net, rc, provider)
+    rm.load_model()
+    if rm.start_epoch != 1 or len(rm.trainer.opt.state_dict()["state"]) != b["opt_entries"]:
+        fail("resume at steps_per_dispatch 1: start epoch %d, %d optimizer entries (saved %d)"
+             % (rm.start_epoch, len(rm.trainer.opt.state_dict()["state"]), b["opt_entries"]))
+    loss2, _ = rm.train_one_epoch(1)
+    if not np.isfinite(loss2):
+        fail("resumed epoch loss %r" % loss2)
+    print("  run manager: epoch loss %.6f (1) / %.6f (4), %d tensors past STEP_TOL, logs %s / "
+          "%s; resumed at 1: epoch 2 loss %.6f, %d optimizer entries  ok"
+          % (a["loss"], b["loss"], past, a["log"], b["log"], loss2, b["opt_entries"]),
+          flush=True)
+    return {str(k): {kk: v[kk] for kk in ("loss", "psnr", "wall_s", "log", "launches")}
+            for k, v in out.items()} | {"past_step_tol": past, "resumed_loss": loss2}
+
+
+def graph_step_times():
+    """ms a step (CUDA events) and host enqueue ms a step, eager sliced
+    (train_step) against graphed (windows of make_scan_train_step), float32
+    and bf16, one subnet (windows of 16) and 4 + KD (windows of 8), in
+    GRAPH_ROUNDS rounds of (sliced, graphed, graphed, sliced); graph
+    replays a step, captures and capture seconds; each path's peak
+    max_memory_allocated (the graphed one with its cache full); and the
+    runs to profile with phase 6's."""
+    space = SearchSpace()
+    batch = synthetic_batch(BS, HR, DEVICE)
+    teacher = kd_teacher(space, DEVICE)
+    out, profiles = {}, []
+    for env, k, n in (("1 subnet", 1, SPD), ("4 subnets + KD", 4, SPD_KD)):
+        cfg_steps = bench_cfgs(space, n, k)
+        kd = k > 1
+        for cd in (None, BF16):
+            name = env + (" bf16" if cd else "")
+            rec, runs = {}, {}
+            for path in ("sliced", "graphed"):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                tr = SRTrainer(graph_net(), opt_type="adam", weight_decay=3e-5, compute_dtype=cd,
+                               kd_ratio=1.0 if kd else 0.0, teacher=teacher if kd else None)
+                # bound now: the one-subnet runs are profiled after the loop
+                if path == "graphed":
+                    step = tr.make_scan_train_step(k)
+
+                    def run(step=step, n=n, cfg_steps=cfg_steps):
+                        step([batch] * n, cfg_steps, [BENCH_LR] * n)
+                else:
+                    def run(tr=tr, cfg_steps=cfg_steps):
+                        for c in cfg_steps:
+                            tr.train_step(batch, c, BENCH_LR)
+                t0 = time.perf_counter()
+                run()  # warm: the graphs' captures, cuDNN, the allocator
+                torch.cuda.synchronize()
+                rec[path] = {"warm_s": time.perf_counter() - t0,
+                             "max_memory_allocated_MiB":
+                                 torch.cuda.max_memory_allocated() / 2 ** 20}
+                if path == "graphed":
+                    rec[path].update(captures=step.cache.captures,
+                                     capture_s=step.cache.capture_s)
+                    replays0 = step.cache.replays
+                runs[path] = run
+            times = {p: [] for p in runs}
+            for p in (("sliced", "graphed", "graphed", "sliced") * GRAPH_ROUNDS):
+                times[p].append(timed_steps(runs[p], n))
+            rec["graphed"]["replays_per_step"] = (step.cache.replays - replays0) / (
+                n * 2 * GRAPH_ROUNDS)
+            for p in runs:
+                ev, host = zip(*times[p])
+                rec[p].update(ms=list(ev), host_enqueue_ms=list(host),
+                              median_ms=float(np.median(ev)),
+                              median_host_enqueue_ms=float(np.median(host)),
+                              spread_ms=float(max(ev) - min(ev)))
+                print("  %s, %s: ms per step %s, median %.4f; host enqueue median %.4f; peak "
+                      "%.0f MiB%s" % (name, p, [round(t, 3) for t in ev], np.median(ev),
+                                      np.median(host), rec[p]["max_memory_allocated_MiB"],
+                                      "; %d captures in %.2f s, %.1f replays a step" % (
+                                          rec[p]["captures"], rec[p]["capture_s"],
+                                          rec[p]["replays_per_step"]) if p == "graphed" else ""),
+                      flush=True)
+            out[name] = rec
+            if k == 1:
+                profiles += [("%s %s" % (p, name), runs[p], n, rec[p]["median_ms"])
+                             for p in ("graphed", "sliced")]
+            else:
+                del runs, step, tr
+                torch.cuda.empty_cache()
+    return out, profiles
+
+
+def masked_bn_numbers(g):
+    """ms a launch of bn_forward and bn_backward at the masked step's C 384
+    shapes with the active width (the middle candidates' mean 256) against
+    the same call without it, f32 and bf16 (CUDA events, 20 calls, median of
+    3)."""
+    out = []
+    for dtype in (torch.float32, BF16):
+        for shape, m in masked_bn_shapes():
+            if m != 256:
+                continue
+            c = shape[3]
+            x = (1.5 * randn(g, *shape) + 0.3).to(dtype).contiguous()
+            dy = randn(g, *shape).to(dtype)
+            scale, bias = (0.5 + torch.rand(c, generator=g)).to(DEVICE), randn(g, c, scale=0.2)
+            rm, rv = randn(g, c, scale=0.2), (0.5 + torch.rand(c, generator=g)).to(DEVICE)
+            active = torch.tensor(m, dtype=torch.int32, device=DEVICE)
+            kw = dict(momentum=0.1, eps=BN_EPS)
+            _, mean, _, inv = bn_forward(x, scale, bias, None, None, **kw)
+            row = {"shape": list(shape), "active": m, "dtype": str(dtype).replace("torch.", ""),
+                   "bn_forward_ms": steady_ms(lambda: bn_forward(x, scale, bias, rm, rv,
+                                                                 active=active, **kw)),
+                   "bn_forward_no_operand_ms": steady_ms(lambda: bn_forward(x, scale, bias, rm,
+                                                                            rv, **kw)),
+                   "bn_backward_ms": steady_ms(lambda: bn_backward(dy, x, scale, mean, inv,
+                                                                   active=active)),
+                   "bn_backward_no_operand_ms": steady_ms(lambda: bn_backward(dy, x, scale,
+                                                                              mean, inv))}
+            print("  masked BN %s: %s" % (row["dtype"], {k: (round(v, 4) if isinstance(
+                v, float) else v) for k, v in row.items()}), flush=True)
+            out.append(row)
+    return out
+
+
+def phase13(g, tmp):
+    t0 = time.perf_counter()
+    out, walls = {}, {}
+    for key, fn in (("main_path", graph_main_path),
+                    ("main_path_bf16", lambda: graph_main_path(BF16)),
+                    ("parity", graph_parity), ("replay_order", replay_order_check),
+                    ("run_manager", lambda: graph_run_manager(tmp)),
+                    ("step_times", graph_step_times), ("masked_bn", lambda: masked_bn_numbers(g))):
+        t1 = time.perf_counter()
+        out[key] = fn()
+        walls[key] = time.perf_counter() - t1
+    out["step_times"], profiles = out["step_times"]
+    out.update(wall_s=time.perf_counter() - t0, part_wall_s=walls)
+    print("  phase 13 took %.1f s (%s)" % (out["wall_s"], ", ".join(
+        "%s %.1f" % kv for kv in walls.items())), flush=True)
+    return out, profiles
+
+
 # -- phase 6: per-kernel numbers at the path's shapes ------------------------
 
 def steady_ms(fn, repeats=3):
@@ -3775,10 +4347,13 @@ def main():
     errs.update(bn_forward_parity(g))
     errs.update(bn_parity(g))
     bn_grad_check(g)
+    print("phase 2: the BN kernels with the masked step's active width", flush=True)
+    errs.update(bn_active_parity(g))
     print("phase 2: the BN kernels' bf16 forms", flush=True)
     errs.update(bn_forward_parity(g, BF16))
     errs.update(bn_parity(g, BF16))
     bn_grad_check(g, BF16)
+    errs.update(bn_active_parity(g, BF16))
     bn_dtype_rule()
 
     print("phase 3: serving %d frames of %dx%d LR" % ((N_FRAMES,) + LR_HW), flush=True)
@@ -3837,6 +4412,11 @@ def main():
     print("phase 12: the SR curriculum through the CLIs, its resume, and the search-and-deploy "
           "demo on its expand checkpoint", flush=True)
     p12 = phase12(dev)
+
+    print("phase 13: multi-step dispatch: the masked step as CUDA-graph replays (entry.train "
+          "with steps_per_dispatch, parity, the run manager, step times)", flush=True)
+    with tempfile.TemporaryDirectory(prefix="ofa_sr_p13_") as tmp:
+        p13, graph_profiles = phase13(g, tmp)
 
     print("phase 6: per-kernel numbers", flush=True)
     bn_rows = bn_kernel_numbers(g, path_counts, errs)
@@ -3967,6 +4547,22 @@ def main():
                     "ms_per_launch", "plain_ms_per_launch", "library_ms_per_launch",
                     "bound_ms_per_launch")}) for s in rec["bn_shapes"][dname]]
                 for fam, rec in p11["trainer"].items()}
+    # phase 13's counted runs: the graphed path through entry.train (each
+    # distinct pass counted at its eager first run and at its capture; the
+    # replays launch without the wrappers), and the masked-operand errors
+    # of phase 2
+    for r, name in zip(rows[2:8], ("bn_forward", "col_sums2", "bn_backward") * 2):
+        bf16 = r["dtype"] == "bfloat16"
+        key = name + ("_bf16" if bf16 else "")
+        main13 = p13["main_path_bf16" if bf16 else "main_path"]
+        r["launches_phase13"] = {"graphed, counted at first run and capture": sum(
+            run["launches"][key] for run in main13.values())}
+        if name != "col_sums2":
+            r["max_abs_err_active"] = errs[name + "_active" + ("_bf16" if bf16 else "")]
+    for r in rows[8:]:
+        r["launches_phase13"] = {"graphed, counted at first run and capture": 0}
+    for r in rows[:2]:
+        r["launches_phase13"] = {"graphed (training: the serving kernels are off it)": 0}
     rows[2]["route_note"] = ("takes every channel count; JAX switches its Pallas BN in only "
                              "for C % 64 == 0 (ofa_sr_tpu/ops/norm.py:76); the classification "
                              "nets' C 16-1280 run through it here")
@@ -3976,6 +4572,7 @@ def main():
     print("phase 6: device profiles", flush=True)
     profiles = [device_profile(*p, "frame") for p in profiles + x4_profiles]
     train_profiles = [device_profile(*p, "step") for p in train_runs_to_profile]
+    p13["step_profiles"] = [device_profile(*p, "step") for p in graph_profiles]
     p11["step_profiles"] = [device_profile(*p, "step") for p in cls_profiles]
     by_path = {p["path"]: p for p in train_profiles}
     # the kernels' own device time in the kernel path's step of their type
@@ -4001,6 +4598,7 @@ def main():
                       "train_runs_bf16": train_runs_bf16, "step_ms": step_ms,
                       "step_profile": train_profiles, "cli": cli, "x4": x4, "phase8": p8,
                       "search": p9, "phase10": p10, "phase11": p11, "phase12": p12,
+                      "phase13": p13,
                       "build_s": build_s,
                       "mbconv_smem_bytes": mb_smem, "gpu": smi_line}))
     print(smi_line)

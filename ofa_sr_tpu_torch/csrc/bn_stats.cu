@@ -96,6 +96,16 @@
 // and the global row count, then the normalize) or
 // `ofa_bn_backward_from_sums_*` (the dx coefficients, then dx). The totals
 // are summed in the fused call's order, so at one rank they are its bits.
+// The masked forward (one captured program for every middle width) passes
+// `active`, a device pointer to the active width (JAX's channel mask, a
+// prefix), to the fused forward and backward; null means every column. The
+// forward's finish updates the running statistics only for c < active and
+// its normalize writes y = 0 from there on (JAX's `jnp.where(mask, new,
+// old)` and `y * mask`); the backward's finish writes zero sums and dx
+// coefficients there, so dx, dscale and dbias are 0: the gradient of the
+// re-masked y. The width is read on the device, never by the host, so a
+// CUDA graph replays the same launches for any width; a null pointer
+// leaves every bit as it was without the operand.
 // The scratch `partial` (2*C*G floats), `out` (2*C), `coef` (3*C) and
 // `stats` (4*C) are allocated by the caller.
 
@@ -245,7 +255,8 @@ template <int MODE>
 __global__ void __launch_bounds__(WARPS2 * 32)
 finish_kernel(const float* __restrict__ partial, float* __restrict__ out,
               const float* __restrict__ scale, const float* __restrict__ inv,
-              float* __restrict__ coef, int N, int C, int G) {
+              float* __restrict__ coef, int N, int C, int G,
+              const int* __restrict__ active) {
   const int c = blockIdx.x * WARPS2 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (c >= C) return;  // the whole warp leaves together
@@ -263,13 +274,16 @@ finish_kernel(const float* __restrict__ partial, float* __restrict__ out,
   }
   if (lane != 0) return;
   const float n = (float)N;
+  // a column past the active width: zero sums and coefficients (BWD only)
+  const bool live = active == nullptr || c < *active;
+  if (!live) s1 = s2 = 0.f;
   if (MODE == MOMENTS) {
     const float mean = s1 / n;
     s1 = mean;
     s2 = s2 / n - mean * mean;
   }
   if (MODE == BWD && coef != nullptr) {
-    coef[c] = inv[c] * scale[c];
+    coef[c] = live ? inv[c] * scale[c] : 0.f;
     coef[C + c] = s1 / n;
     coef[2 * C + c] = s2 / n;
   }
@@ -324,7 +338,7 @@ __device__ __forceinline__ void bn_fwd_finalize(int c, float s1, float s2, int N
                                                 float rv_c, float* __restrict__ stats,
                                                 float one_minus_m, float m,
                                                 int unbiased, float unbias,
-                                                float eps) {
+                                                float eps, bool live = true) {
   // mean = s1/n, var = s2/n - mean^2 (no clamp), inv = rsqrt(var + eps):
   // rsqrtf is what torch.rsqrt runs on the card
   const float n = (float)N;
@@ -335,7 +349,7 @@ __device__ __forceinline__ void bn_fwd_finalize(int c, float s1, float s2, int N
   stats[C + c] = var;
   stats[2 * C + c] = inv;
   stats[3 * C + c] = __fmul_rn(inv, scale);
-  if (rm != nullptr) {
+  if (rm != nullptr && live) {
     // r = (1 - m)*r + m*stat, from the unbiased var*(n/(n-1)) or the
     // biased var
     const float v = unbiased ? __fmul_rn(var, unbias) : var;
@@ -351,7 +365,7 @@ bn_fwd_finish_kernel(const float* __restrict__ partial,
                      const float* __restrict__ scale, float* __restrict__ rm,
                      float* __restrict__ rv, float* __restrict__ stats, int N,
                      int C, int G, float one_minus_m, float m, int unbiased,
-                     float unbias, float eps) {
+                     float unbias, float eps, const int* __restrict__ active) {
   const int c = blockIdx.x * WARPS2 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (c >= C) return;  // the whole warp leaves together
@@ -373,31 +387,36 @@ bn_fwd_finish_kernel(const float* __restrict__ partial,
   }
   if (lane == 0)
     bn_fwd_finalize(c, s1, s2, N, C, sc, rm, rv, rm_c, rv_c, stats, one_minus_m,
-                    m, unbiased, unbias, eps);
+                    m, unbiased, unbias, eps, active == nullptr || c < *active);
 }
 
 // the forward's pass 3: y = (x - mean)*k + bias in float32, each operation
-// rounded on its own as the plain version's PyTorch ops; grid as
-// bn_dx_kernel's, so a thread's coefficients load once
+// rounded on its own as the plain version's PyTorch ops, and 0 from column
+// *active on where `active` is given; grid as bn_dx_kernel's, so a
+// thread's coefficients load once
 template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
 bn_norm_kernel(const T* __restrict__ x, const float* __restrict__ stats,
                const float* __restrict__ bias, T* __restrict__ y,
-               long long units, int C) {
+               long long units, int C, const int* __restrict__ active) {
   const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
   const long long stride = (long long)gridDim.x * THREADS;
   if (t >= units) return;
   const int c0 = (int)(t % (C / V)) * V;
+  const int width = active == nullptr ? C : *active;
   float m[V], k[V], b[V];
+  bool live[V];
 #pragma unroll
-  for (int e = 0; e < V; ++e)
+  for (int e = 0; e < V; ++e) {
     m[e] = stats[c0 + e], k[e] = stats[3 * C + c0 + e], b[e] = bias[c0 + e];
+    live[e] = c0 + e < width;
+  }
   for (long long u = t; u < units; u += stride) {
     float xv[V], r[V];
     load_vec<V>(x + u * V, xv);
 #pragma unroll
     for (int e = 0; e < V; ++e)
-      r[e] = __fadd_rn(__fmul_rn(__fsub_rn(xv[e], m[e]), k[e]), b[e]);
+      r[e] = live[e] ? __fadd_rn(__fmul_rn(__fsub_rn(xv[e], m[e]), k[e]), b[e]) : 0.f;
     store_vec<V>(y + u * V, r);
   }
 }
@@ -453,11 +472,11 @@ template <int MODE, typename T>
 cudaError_t launch(const T* a, const T* b, const float* mean,
                    const float* inv, const float* scale, float* partial,
                    float* out, float* coef, int N, int C, int G,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const int* active = nullptr) {
   cudaError_t e = launch_pass1<MODE, T>(a, b, mean, inv, partial, N, C, G, stream);
   if (e != cudaSuccess) return e;
   finish_kernel<MODE><<<(C + WARPS2 - 1) / WARPS2, WARPS2 * 32, 0, stream>>>(
-      partial, out, scale, inv, coef, N, C, G);
+      partial, out, scale, inv, coef, N, C, G, active);
   return cudaGetLastError();
 }
 
@@ -499,12 +518,12 @@ cudaError_t launch_dx(const T* dy, const T* x, const float* mean,
 
 template <typename T, int V>
 cudaError_t launch_norm(const T* x, const float* stats, const float* bias,
-                        T* y, int N, int C, cudaStream_t stream) {
+                        T* y, int N, int C, const int* active, cudaStream_t stream) {
   const long long units = (long long)N * (C / V);
   const long long blocks = elementwise_blocks(units, C / V);
   if (blocks < 0) return cudaErrorInvalidValue;
   bn_norm_kernel<T, V><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      x, stats, bias, y, units, C);
+      x, stats, bias, y, units, C, active);
   return cudaGetLastError();
 }
 
@@ -526,14 +545,14 @@ cudaError_t launch_dx_widest(const T* dy, const T* x, const float* mean,
 template <typename T>
 cudaError_t launch_norm_widest(const T* x, const float* stats,
                                const float* bias, T* y, int N, int C,
-                               cudaStream_t s) {
+                               cudaStream_t s, const int* active = nullptr) {
   constexpr int wide = 16 / sizeof(T);
   const int v = vec_width<T>(C, x, y);
-  if (v == wide) return launch_norm<T, wide>(x, stats, bias, y, N, C, s);
+  if (v == wide) return launch_norm<T, wide>(x, stats, bias, y, N, C, active, s);
   if constexpr (sizeof(T) == 2) {
-    if (v == 2) return launch_norm<T, 2>(x, stats, bias, y, N, C, s);
+    if (v == 2) return launch_norm<T, 2>(x, stats, bias, y, N, C, active, s);
   }
-  return launch_norm<T, 1>(x, stats, bias, y, N, C, s);
+  return launch_norm<T, 1>(x, stats, bias, y, N, C, active, s);
 }
 
 // mode 0: col_sums2(a, b); 1: the moments (mean, biased var) of a's
@@ -569,13 +588,13 @@ template <typename T>
 int bn_backward(const T* dy, const T* x, const float* scale,
                 const float* mean, const float* inv, float* partial,
                 float* coef, float* out, T* dx, int N, int C, int G,
-                void* stream) {
+                const int* active, void* stream) {
   if (bad_shape(N, C, G) || !dy || !x || !scale || !mean || !inv || !coef ||
       !dx)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = launch<BWD, T>(dy, x, mean, inv, scale, partial, out, coef,
-                                 N, C, G, s);
+                                 N, C, G, s, active);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_dx_widest<T>(dy, x, mean, inv, coef, dx, N, C, s);
 }
@@ -585,7 +604,8 @@ int bn_backward(const T* dy, const T* x, const float* scale,
 template <typename T>
 int bn_forward(const T* x, const float* scale, const float* bias, float* rm,
                float* rv, float* stats, float* partial, T* y, int N, int C,
-               int G, double momentum, double eps, int unbiased, void* stream) {
+               int G, double momentum, double eps, int unbiased,
+               const int* active, void* stream) {
   if (bad_shape(N, C, G) || !x || !scale || !bias || !stats || !partial ||
       !y || (rm == nullptr) != (rv == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -597,10 +617,10 @@ int bn_forward(const T* x, const float* scale, const float* bias, float* rm,
   bn_fwd_finish_kernel<<<(C + WARPS2 - 1) / WARPS2, WARPS2 * 32, 0, s>>>(
       partial, scale, rm, rv, stats, N, C, G, (float)(1.0 - momentum),
       (float)momentum, unbiased,
-      (float)((double)N / (double)(N > 1 ? N - 1 : 1)), (float)eps);
+      (float)((double)N / (double)(N > 1 ? N - 1 : 1)), (float)eps, active);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_norm_widest<T>(x, stats, bias, y, N, C, s);
+  return (int)launch_norm_widest<T>(x, stats, bias, y, N, C, s, active);
 }
 
 // Under a mesh the moments' and the backward's sums are taken over every
@@ -696,14 +716,15 @@ extern "C" int ofa_col_sums2_bf16(const __nv_bfloat16* a,
 
 // The train-mode BN backward: out = (s1 = dbias, s2 = dscale) as in mode 2,
 // and dx (N, C) in the operands' type. `partial` holds 2*C*G floats, `coef`
-// 3*C.
+// 3*C. `active`: null, or the device address of the active width (columns
+// from it on: out and dx 0).
 extern "C" int ofa_bn_backward_f32(const float* dy, const float* x,
                                    const float* scale, const float* mean,
                                    const float* inv, float* partial,
                                    float* coef, float* out, float* dx, int N,
-                                   int C, int G, void* stream) {
+                                   int C, int G, const int* active, void* stream) {
   return bn_backward<float>(dy, x, scale, mean, inv, partial, coef, out, dx,
-                            N, C, G, stream);
+                            N, C, G, active, stream);
 }
 
 extern "C" int ofa_bn_backward_bf16(const __nv_bfloat16* dy,
@@ -712,25 +733,26 @@ extern "C" int ofa_bn_backward_bf16(const __nv_bfloat16* dy,
                                     const float* inv, float* partial,
                                     float* coef, float* out,
                                     __nv_bfloat16* dx, int N, int C, int G,
-                                    void* stream) {
+                                    const int* active, void* stream) {
   return bn_backward<__nv_bfloat16>(dy, x, scale, mean, inv, partial, coef,
-                                    out, dx, N, C, G, stream);
+                                    out, dx, N, C, G, active, stream);
 }
 
 // The train-mode BN forward: y (N, C) in x's type; stats = [mean | biased
 // var | inv = rsqrt(var + eps) | inv*scale], 4*C floats; running_mean and
 // running_var (C floats each, both or neither) take the momentum EMA in
 // place, from the unbiased var (unbiased != 0) or the biased one. `partial`
-// holds 2*C*G floats.
+// holds 2*C*G floats. `active`: null, or the device address of the active
+// width (columns from it on: running statistics kept, y 0).
 extern "C" int ofa_bn_forward_f32(const float* x, const float* scale,
                                   const float* bias, float* running_mean,
                                   float* running_var, float* stats,
                                   float* partial, float* y, int N, int C,
                                   int G, double momentum, double eps,
-                                  int unbiased, void* stream) {
+                                  int unbiased, const int* active, void* stream) {
   return bn_forward<float>(x, scale, bias, running_mean, running_var, stats,
                            partial, y, N, C, G, momentum, eps, unbiased,
-                           stream);
+                           active, stream);
 }
 
 extern "C" int ofa_bn_forward_bf16(const __nv_bfloat16* x, const float* scale,
@@ -738,10 +760,10 @@ extern "C" int ofa_bn_forward_bf16(const __nv_bfloat16* x, const float* scale,
                                    float* running_var, float* stats,
                                    float* partial, __nv_bfloat16* y, int N,
                                    int C, int G, double momentum, double eps,
-                                   int unbiased, void* stream) {
+                                   int unbiased, const int* active, void* stream) {
   return bn_forward<__nv_bfloat16>(x, scale, bias, running_mean, running_var,
                                    stats, partial, y, N, C, G, momentum, eps,
-                                   unbiased, stream);
+                                   unbiased, active, stream);
 }
 
 // The apply part of the forward under a mesh: from sums = [sum x | sum x*x]

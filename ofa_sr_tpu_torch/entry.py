@@ -147,7 +147,7 @@ def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda
           net=None, batch_size: int = 16, hr_size: int = 96,
           lr: float = 1e-4, use_kernels: Optional[bool] = None,
           compute_dtype: Optional[torch.dtype] = None, mode: str = "sr",
-          mesh=None) -> List[dict]:
+          mesh=None, steps_per_dispatch: int = 1) -> List[dict]:
     """Train `net` (default: a seed-0 full-width OFAMobileNetS4, or
     OFAMobileNetX4 for the autoencoder, on `device`) for `steps` optimizer
     steps of `n_subnets` subnets each, on one synthetic batch, in `mode`.
@@ -156,6 +156,10 @@ def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda
     mixed precision, float32 masters) as `SRTrainer`'s. `mesh` (a
     `parallel.Mesh`): data-parallel training, `batch_size` the global batch
     of which each rank trains its rows, from rank 0's weights.
+    `steps_per_dispatch` > 1: windows of that many steps through
+    `SRTrainer.make_scan_train_step` (the masked step, as CUDA-graph
+    replays on a CUDA net), the last window shorter where `steps` is not a
+    multiple; not with a mesh.
     Returns each step's {"loss", "psnr"} (the global batch's) as floats."""
     dev = resolve_device(device)
     net = _default_net(net, mode, dev, "train")
@@ -167,8 +171,17 @@ def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda
     if mesh is not None:
         shard_params(net, mesh)
         batch = shard_batch(batch, mesh)
-    metrics = [trainer.train_step(batch, step_subnets(net.space, i, n_subnets, net.n_trunks), lr)
-               for i in range(steps)]
+    cfgs = [step_subnets(net.space, i, n_subnets, net.n_trunks) for i in range(steps)]
+    if steps_per_dispatch > 1:
+        scan = trainer.make_scan_train_step(n_subnets)
+        out = []
+        for i in range(0, steps, steps_per_dispatch):
+            window = cfgs[i:i + steps_per_dispatch]
+            m = scan([batch] * len(window), window, [lr] * len(window))
+            out += [{"loss": a, "psnr": b}
+                    for a, b in zip(m["losses"].tolist(), m["psnrs"].tolist())]
+        return out
+    metrics = [trainer.train_step(batch, c, lr) for c in cfgs]
     return [{k: float(v) for k, v in m.items()} for m in metrics]
 
 

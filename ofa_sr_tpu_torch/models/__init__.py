@@ -1,4 +1,5 @@
 from .arch import (
+    MaskedArch,
     SearchSpace,
     SubnetConfig,
     max_subnet,
@@ -16,6 +17,7 @@ from .ofa_x4 import OFAMobileNetX4
 
 __all__ = [
     "ClsArch",
+    "MaskedArch",
     "ElasticClassifierNet",
     "OFAMobileNetS4",
     "OFAMobileNetV3",

@@ -1,9 +1,12 @@
 """Architecture (subnet) configuration and sampling.
 
 Counterpart of ofa_sr_tpu/models/arch.py. A subnet is an immutable host-side
-`SubnetConfig`; the port's eager forward slices weights by it directly, so
-there is no device-side encoding (`to_device` in the JAX package). Its
-`to_dict` / `from_dict` are the JAX package's JSON schema.
+`SubnetConfig`; the port's sliced forward slices weights by it directly.
+`SubnetConfig.to_device` is its device-side encoding (the JAX package's), and
+`MaskedArch` the subnet in the masked execution form the graphed training
+step runs: kernel-size indices and middle widths as device tensors, depths
+and pixel_d on the host. Its `to_dict` / `from_dict` are the JAX package's
+JSON schema.
 
 Sampling keeps the reference's exact draw order: `random.seed(subnet_seed)`,
 then per-block `random.choice(ks)`, per-block choice(e), per-stage choice(d)
@@ -18,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 import random
 from typing import List, Optional, Sequence
+
+import torch
 
 from ..utils.common import int2list, make_divisible
 
@@ -73,6 +78,20 @@ class SubnetConfig:
     d: tuple
     pixel_d: int
 
+    def to_device(self, space: SearchSpace, device=None):
+        """{"ks_idx", "mid", "depth", "pixel_d"}: int32 tensors on `device`
+        (the JAX package's `to_device`): ks as an index into the space's
+        ks_list (sorted, so also into `kernel_candidates`' order), e as the
+        middle width, make_divisible applied here on the host."""
+        ks_set = list(space.ks_list)
+
+        def t(v):
+            return torch.tensor(v, dtype=torch.int32, device=device)
+
+        return {"ks_idx": t([ks_set.index(k) for k in self.ks]),
+                "mid": t([space.mid_channels(e) for e in self.e]),
+                "depth": t(list(self.d)), "pixel_d": t(self.pixel_d)}
+
     def describe(self) -> str:
         return "ks%s_e%s_d%s_pd%d" % (list(self.ks), list(self.e), list(self.d), self.pixel_d)
 
@@ -89,15 +108,32 @@ class SubnetConfig:
                             pixel_d=int(d["pixel_d"]))
 
 
-def check_n_trunks(space: SearchSpace, cfg: SubnetConfig, n_trunks: int):
-    """Raise unless `cfg` has the lengths of a net of `n_trunks` trunks: a
-    subnet sampled for another trunk count would index out of range, or feed
-    one trunk's choices to the other."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class MaskedArch:
+    """A subnet in the masked execution form (the JAX package's device arch
+    with its depths and pixel_d static): `ks_idx` and `mid`, int32 device
+    tensors of one entry a block (`SubnetConfig.to_device`'s), are read on
+    the device only, so one captured forward serves every kernel size and
+    middle width; the depths `d` and `pixel_d` stay host ints, the program
+    branches they are in JAX. A net's forward takes it in place of a
+    SubnetConfig."""
+
+    ks_idx: torch.Tensor
+    mid: torch.Tensor
+    d: tuple
+    pixel_d: int
+
+
+def check_n_trunks(space: SearchSpace, cfg, n_trunks: int):
+    """Raise unless `cfg` (a SubnetConfig or a MaskedArch) has the lengths of
+    a net of `n_trunks` trunks: a subnet sampled for another trunk count
+    would index out of range, or feed one trunk's choices to the other."""
     n_blocks, n_stages = space.blocks_per_trunk * n_trunks, space.n_stages * n_trunks
-    if (len(cfg.ks), len(cfg.e), len(cfg.d)) != (n_blocks, n_blocks, n_stages):
+    ks, e = (cfg.ks_idx, cfg.mid) if isinstance(cfg, MaskedArch) else (cfg.ks, cfg.e)
+    if (len(ks), len(e), len(cfg.d)) != (n_blocks, n_blocks, n_stages):
         raise ValueError(
             "subnet with %d/%d/%d ks/e/d entries for a net of %d trunk(s), which takes %d/%d/%d:"
-            " sample it with n_trunks=%d" % (len(cfg.ks), len(cfg.e), len(cfg.d), n_trunks,
+            " sample it with n_trunks=%d" % (len(ks), len(e), len(cfg.d), n_trunks,
                                              n_blocks, n_blocks, n_stages, n_trunks))
 
 

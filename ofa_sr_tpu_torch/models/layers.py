@@ -1,10 +1,14 @@
 """Layer modules: the static ConvLayer and the elastic MBConv block.
 
-Counterpart of ofa_sr_tpu/models/layers.py. The JAX package runs every
-subnet at max shape with masks so that one jit program serves them all; its
-tests prove that equal to slicing. PyTorch runs eagerly, so the port's
-forward slices the weight banks the way the reference did
-(`_sliced_mbconv_branch` in the JAX package is the statement of it).
+Counterpart of ofa_sr_tpu/models/layers.py. The MBConv has two forms. Its
+`forward` slices the weight banks per subnet, the way the reference did
+(`_sliced_mbconv_branch` in the JAX package is the statement of it): the
+eager path's form. Its `forward_masked` is the JAX package's masked
+execution (`_masked_mbconv_apply`): every bank at max shape, the depthwise
+conv at the max kernel size through `select_kernel`, and the middle width
+a channel mask, with the kernel-size index and the width read from device
+tensors, so that one captured CUDA graph serves every (ks, e) of a block;
+the graphed training step runs it (`train/graphs.py`).
 
 Module and parameter names give the reference state_dict layout:
 `conv.weight` (OIHW), `bn.{weight,bias,running_mean,running_var}` and, for
@@ -38,7 +42,12 @@ from torch import nn
 
 from ..ops.activations import apply_act, h_sigmoid
 from ..ops.conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init, icnr_conv_init
-from ..ops.elastic import transform_kernel_chain, transform_matrices_init
+from ..ops.elastic import (
+    kernel_candidates,
+    select_kernel,
+    transform_kernel_chain,
+    transform_matrices_init,
+)
 from ..ops.norm import batch_norm, batch_norm_train
 from ..ops.pixelshuffle import pixel_shuffle, pixel_unshuffle
 from ..utils.common import make_divisible
@@ -75,20 +84,22 @@ def linear(x, w, b, compute_dtype=None):
 
 
 def bn_apply(y, bn: nn.BatchNorm2d, n=None, *, bn_training=False, use_kernels=False,
-             bn_group=None):
+             bn_group=None, active=None):
     """BN with the first `n` channels of `bn` (all if None): train mode
     (updating that prefix of the running statistics) when `bn_training`,
     with the moments of every rank's rows given `bn_group`, else normalized
     with the running statistics. A module's `update_var` attribute, where
     set ("biased" during BN recalibration), picks the variance the running
-    statistics take."""
+    statistics take. `active` (the masked form's width, a device int32
+    tensor): y is 0 from that channel on, and train mode updates the running
+    statistics below it only."""
     if bn_training:
         return batch_norm_train(y, bn.weight[:n], bn.bias[:n], bn.running_mean[:n],
                                 bn.running_var[:n], momentum=bn.momentum, eps=bn.eps,
                                 update_var=getattr(bn, "update_var", "unbiased"),
-                                use_kernels=use_kernels, group=bn_group)
+                                use_kernels=use_kernels, group=bn_group, active=active)
     return batch_norm(y, bn.weight[:n], bn.bias[:n], bn.running_mean[:n],
-                      bn.running_var[:n], eps=bn.eps)
+                      bn.running_var[:n], eps=bn.eps, active=active)
 
 
 class ConvBN(nn.Module):
@@ -221,6 +232,33 @@ class DynamicMBConvLayer(nn.Module):
         y = conv2d(y, cast(pl.conv.weight[:out_ch, :mid], compute_dtype))
         return bn_apply(y, pl.bn, out_ch, **bn)
 
+    def forward_masked(self, x, ks_idx, mid, *, act="relu6", bn_training=False,
+                       use_kernels=False, compute_dtype=None, spatial_mask=None,
+                       bn_group=None):
+        """The masked form of `forward` (the JAX package's
+        `_masked_mbconv_apply`, stride 1, no SE, the bank's output width):
+        `ks_idx` (an index into the sorted kernel sizes) and `mid` (the
+        active middle width) are 0-d int32 device tensors, never read by the
+        host. The expand conv runs over all max-mid rows, both BNs take the
+        moments at full width and mask y beyond `mid` (`active`), the
+        depthwise conv runs at the max kernel size with the selected
+        candidate, and the project conv contracts all max-mid channels, of
+        which the inactive ones are 0: the sliced forward's values."""
+        ib, dw, pl = self.inverted_bottleneck, self.depth_conv, self.point_linear
+        bn = dict(bn_training=bn_training, use_kernels=use_kernels, bn_group=bn_group,
+                  active=mid)
+        y = apply_act(bn_apply(conv2d(x, cast(ib.conv.weight, compute_dtype)), ib.bn, **bn),
+                      act)
+        if spatial_mask is not None:
+            y = y * spatial_mask
+        mats = dw.conv.matrices()
+        cands = kernel_candidates(cast(dw.conv.weight, compute_dtype), mats, self.ks_list,
+                                  use_transform=bool(mats))
+        y = depthwise_conv2d(y, select_kernel(cands, ks_idx))
+        y = apply_act(bn_apply(y, dw.bn, **bn), act)
+        y = conv2d(y, cast(pl.conv.weight, compute_dtype))
+        return bn_apply(y, pl.bn, **dict(bn, active=None))
+
 
 class MobileInvertedResidualBlock(nn.Module):
     """MBConv with the identity shortcut (`shortcut=False`: without, the
@@ -233,4 +271,8 @@ class MobileInvertedResidualBlock(nn.Module):
 
     def forward(self, x, ks, mid, **kw):
         y = self.mobile_inverted_conv(x, ks, mid, **kw)
+        return y + x if self.shortcut else y
+
+    def forward_masked(self, x, ks_idx, mid, **kw):
+        y = self.mobile_inverted_conv.forward_masked(x, ks_idx, mid, **kw)
         return y + x if self.shortcut else y

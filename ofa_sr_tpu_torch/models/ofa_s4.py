@@ -16,6 +16,12 @@ and `dec_final_output_conv_block`.
 `forward(..., compute_dtype=torch.bfloat16)` is the mixed-precision forward
 of the JAX trainer's `compute_dtype`, and `forward(..., valid_hw=(h, w))` the
 shape-bucketed eval of a frame zero-padded into a larger input.
+
+`forward` takes a SubnetConfig (the sliced form) or a `MaskedArch` (the
+masked form, whose kernel sizes and widths are device tensors);
+`forward_masked(x, arch, depths, pixel_d)` is the masked form's entry: the
+JAX package's `net.apply(..., arch=cfg.to_device(space))`, with the depths
+and pixel_d on the host.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from torch import nn
 
 from ..ops.elastic import spatial_valid_mask
 from ..utils.device import resolve_device
-from .arch import SearchSpace, SubnetConfig, check_n_trunks
+from .arch import MaskedArch, SearchSpace, SubnetConfig, check_n_trunks
 from .layers import ConvLayer, DynamicMBConvLayer, MobileInvertedResidualBlock
 
 
@@ -112,6 +118,15 @@ class OFAMobileNetS4(nn.Module):
                              bn_group)
         return sr_decode(self, x, cfg, pixel_d, trunk=0, valid_hw=valid_hw, **kw)
 
+    def forward_masked(self, x, arch, depths, pixel_d: int, **kw):
+        """`forward` in the masked form: `arch` holds the device tensors
+        "ks_idx" and "mid" (`SubnetConfig.to_device`), `depths` the host
+        depths a stage (only the first d blocks of a stage run, the JAX
+        package's switch over depth options), `pixel_d` the host pixel depth.
+        The other arguments are `forward`'s."""
+        return self(x, MaskedArch(arch["ks_idx"], arch["mid"], tuple(depths), pixel_d),
+                    pixel_d, **kw)
+
 
 def forward_args(net, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw,
                  bn_group=None):
@@ -137,13 +152,19 @@ def run_trunk(blocks, x, cfg, space, trunk, *, spatial_mask=None, **kw):
     """The elastic stages of trunk `trunk` (its MBConv `blocks`): the first
     `d` blocks of each stage run, with ks and e read from the trunk's slice
     of `cfg` (block entries from trunk * blocks_per_trunk, depths from
-    trunk * n_stages, as the JAX package's `_trunk`)."""
+    trunk * n_stages, as the JAX package's `_trunk`): sliced for a
+    SubnetConfig, masked for a MaskedArch (its device ks_idx and mid)."""
     base_b, base_s = trunk * space.blocks_per_trunk, trunk * space.n_stages
+    masked = isinstance(cfg, MaskedArch)
     for stage in range(space.n_stages):
         for i in range(cfg.d[base_s + stage]):
             bi = stage * space.max_depth + i
-            x = blocks[bi](x, cfg.ks[base_b + bi], space.mid_channels(cfg.e[base_b + bi]),
-                           spatial_mask=spatial_mask, **kw)
+            if masked:
+                x = blocks[bi].forward_masked(x, cfg.ks_idx[base_b + bi], cfg.mid[base_b + bi],
+                                              spatial_mask=spatial_mask, **kw)
+            else:
+                x = blocks[bi](x, cfg.ks[base_b + bi], space.mid_channels(cfg.e[base_b + bi]),
+                               spatial_mask=spatial_mask, **kw)
     return x
 
 

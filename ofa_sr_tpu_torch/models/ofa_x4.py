@@ -35,7 +35,7 @@ from torch import nn
 
 from ..ops.elastic import spatial_valid_mask
 from ..utils.device import resolve_device
-from .arch import SearchSpace, SubnetConfig
+from .arch import MaskedArch, SearchSpace, SubnetConfig
 from .layers import ConvLayer, DynamicMBConvLayer, MobileInvertedResidualBlock
 from .ofa_s4 import forward_args, run_trunk, sr_decode
 
@@ -156,3 +156,10 @@ class OFAMobileNetX4(nn.Module):
             if valid_hw is not None:
                 valid_hw = (valid_hw[0] // 2 ** pixel_d, valid_hw[1] // 2 ** pixel_d)
         return sr_decode(self, x, cfg, pixel_d, trunk=1, valid_hw=valid_hw, **kw)
+
+    def forward_masked(self, x, arch, depths, pixel_d: int, **kw):
+        """`forward` in the masked form (`OFAMobileNetS4.forward_masked`):
+        `arch` the device "ks_idx" and "mid" of both trunks, `depths` the host
+        depths of both trunks' stages; `mode` and the rest as `forward`'s."""
+        return self(x, MaskedArch(arch["ks_idx"], arch["mid"], tuple(depths), pixel_d),
+                    pixel_d, **kw)

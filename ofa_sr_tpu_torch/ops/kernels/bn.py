@@ -22,6 +22,11 @@ float32. Where the moments have cotangents of their own (never in the
 trainer) their terms are added to the kernel's dx after it, so a bf16 dx is
 then rounded twice.
 
+`active` (a 0-d int32 device tensor, the masked forward's active width):
+the running statistics change only below it, y is 0 from it on, and the
+backward zeroes what the forward zeroed (dx, dscale and dbias are 0 there),
+inside the kernels (`bn_forward` / `bn_backward`'s operand).
+
 The kernels take row-contiguous (N, C) views, so x and dy are made
 contiguous with `.contiguous()`: free for an NHWC-contiguous tensor, a copy
 otherwise (an `aten::copy_` elementwise kernel in a profile).
@@ -47,13 +52,13 @@ def _row_contiguous(t):
 class _BNTrainFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps, running_mean, running_var, momentum, update_var,
-                group):
+                group, active):
         x = _row_contiguous(x)
         y, mean, var, inv = bn_forward(x, scale, bias, running_mean, running_var,
                                        momentum=momentum, eps=eps, update_var=update_var,
-                                       group=group)
+                                       group=group, active=active)
         ctx.save_for_backward(x, scale, mean, inv)
-        ctx.group = group
+        ctx.group, ctx.active = group, active
         ctx.set_materialize_grads(False)
         return y, mean, var
 
@@ -63,7 +68,7 @@ class _BNTrainFused(torch.autograd.Function):
         group = ctx.group
         if dy is not None:
             dx, dscale, dbias = bn_backward(_row_contiguous(dy), x, scale, mean, inv,
-                                            group=group)
+                                            group=group, active=ctx.active)
             dscale, dbias = dscale.to(scale.dtype), dbias.to(scale.dtype)
         else:
             dx = torch.zeros_like(x, dtype=torch.float32)
@@ -75,20 +80,21 @@ class _BNTrainFused(torch.autograd.Function):
             dx = dx + all_reduce_sum(dmean.clone(), group) / n
         if dvar is not None:
             dx = dx + all_reduce_sum(dvar.clone(), group) * 2.0 * (x.float() - mean) / n
-        return dx.to(x.dtype), dscale, dbias, None, None, None, None, None, None
+        return dx.to(x.dtype), dscale, dbias, None, None, None, None, None, None, None
 
 
 def bn_train_fused(x, scale, bias, eps=1e-5, running_mean=None, running_var=None, *,
-                   momentum=0.1, update_var="unbiased", group=None):
+                   momentum=0.1, update_var="unbiased", group=None, active=None):
     """Train-mode BN over NHWC `x` with the statistics kernels; returns
     (y, mean, var): y in x.dtype, the batch moments (biased var) in float32.
     Differentiable in x, scale and bias. Given `running_mean` and
     `running_var`, the same call updates them in place with the momentum
     EMA, from the unbiased or (`update_var="biased"`) the biased var.
     `group`: the moments are over every rank's rows, forward and backward
-    (`bn_forward`, `bn_backward`)."""
+    (`bn_forward`, `bn_backward`). `active`: the masked form's active
+    width (see the module docstring)."""
     return _BNTrainFused.apply(x, scale, bias, eps, running_mean, running_var, momentum,
-                               update_var, group)
+                               update_var, group, active)
 
 
 bn_train_fused.layout_copies = 0

@@ -60,6 +60,17 @@ the totals and the global row count (`bn_forward_from_sums`,
 the same bits. The plain versions take the same group and all-reduce the
 same totals.
 
+`bn_forward` and `bn_backward` take an optional `active`, a 0-d int32
+tensor on x's device holding the active width of the masked forward (the
+JAX package's channel mask, a prefix): the forward's finish launch updates
+the running statistics only for c < active and its normalize writes y = 0
+from there on; the backward's finish zeroes the sums and dx coefficients
+of those columns, so dx, dscale and dbias are 0 there, the gradient of the
+re-masked y. The width is read on the device, so a captured CUDA graph
+replays the same launches for any width. Without it the launches and bits
+are those of the call without the operand. The plain versions take the
+same operand. Not under a mesh.
+
 A wrapper call is host work the training step waits on (~90 calls a step):
 the pass-1 grid is cached per (N, C, device), and each call allocates one
 buffer for its results and scratch (and its output, for the forward and
@@ -112,64 +123,88 @@ def bn_bwd_sums_reference(dy, x, mean, inv):
     return dy.sum(0), (dy * xhat).sum(0)
 
 
-def bn_backward_reference(dy, x, scale, mean, inv, *, group=None):
+def _live(c, active, device):
+    """(C,) bool: the columns below `active` (all of them if None)."""
+    return None if active is None else torch.arange(c, device=device) < active
+
+
+def bn_backward_reference(dy, x, scale, mean, inv, *, group=None, active=None):
     """(dx, dscale, dbias) of train-mode BN, written as the JAX package's VJP
     (ofa_sr_tpu/ops/pallas/bn.py `_bwd`, zero moment cotangents); dy, x with
     channels last, dx in x's shape and dy's type (one rounding from float32,
     as the JAX VJP's `dx.astype(x.dtype)`), dscale and dbias float32.
     `group`: the sums of dx's coefficients are taken over the ranks' rows
-    (`bn_backward`'s contract)."""
+    (`bn_backward`'s contract). `active`: the columns from it on take zero
+    sums and coefficients, as the kernel's finish writes them."""
     c = x.shape[-1]
     n = x.numel() // c
     s1, s2 = bn_bwd_sums_reference(dy.reshape(n, c), x.reshape(n, c), mean, inv)
+    live = _live(c, active, x.device)
+    if live is not None:
+        s1, s2 = torch.where(live, s1, 0.0), torch.where(live, s2, 0.0)
     dx = bn_backward_from_sums_reference(dy, x, all_reduce_sum(torch.cat([s1, s2]), group),
-                                         scale, mean, inv, n_total=n * world_size(group))
+                                         scale, mean, inv, n_total=n * world_size(group),
+                                         live=live)
     return dx, s2, s1
 
 
-def bn_backward_from_sums_reference(dy, x, sums, scale, mean, inv, *, n_total):
+def bn_backward_from_sums_reference(dy, x, sums, scale, mean, inv, *, n_total, live=None):
     """dx of train-mode BN from the totals sums = [sum dy | sum dy*xhat]
-    over `n_total` rows (every rank's), for this rank's dy and x."""
+    over `n_total` rows (every rank's), for this rank's dy and x; `live`
+    (C,) bool: the other columns' coefficient inv*scale is 0."""
     c = x.shape[-1]
     xhat = (x.float() - mean) * inv
-    dx = (inv * scale.float()) * (dy.float() - sums[:c] / n_total - xhat * sums[c:] / n_total)
+    k = inv * scale.float()
+    if live is not None:
+        k = torch.where(live, k, 0.0)
+    dx = k * (dy.float() - sums[:c] / n_total - xhat * sums[c:] / n_total)
     return dx.to(dy.dtype)
 
 
 def bn_forward_from_moments(x, scale, bias, running_mean, running_var, mean, var, *,
-                            momentum, eps, update_var, n_total=None):
+                            momentum, eps, update_var, n_total=None, active=None):
     """The forward's arithmetic after the moments, as PyTorch ops in the
     kernel's association: inv, y (x's type) and the running statistics'
     update in place (skipped where they are None), whose unbiased var
-    takes the moments' row count `n_total` (by default x's rows). Returns
-    (y, mean, var, inv)."""
+    takes the moments' row count `n_total` (by default x's rows).
+    `active`: y is 0 and the running statistics unchanged from that column
+    on. Returns (y, mean, var, inv)."""
     inv = torch.rsqrt(var + eps)
-    y = ((x.float() - mean) * (inv * scale.float()) + bias.float()).to(x.dtype)
+    y = (x.float() - mean) * (inv * scale.float()) + bias.float()
+    live = _live(x.shape[-1], active, x.device)
+    if live is not None:
+        y = torch.where(live, y, 0.0)
+    y = y.to(x.dtype)
     if running_mean is not None:
         with torch.no_grad():
             n = x.numel() // x.shape[-1] if n_total is None else n_total
             var_for_update = var * (n / max(n - 1, 1)) if update_var == "unbiased" else var
-            running_mean.copy_((1 - momentum) * running_mean + momentum * mean)
-            running_var.copy_((1 - momentum) * running_var + momentum * var_for_update)
+            new_mean = (1 - momentum) * running_mean + momentum * mean
+            new_var = (1 - momentum) * running_var + momentum * var_for_update
+            if live is not None:
+                new_mean = torch.where(live, new_mean, running_mean)
+                new_var = torch.where(live, new_var, running_var)
+            running_mean.copy_(new_mean)
+            running_var.copy_(new_var)
     return y, mean, var, inv
 
 
 def bn_forward_reference(x, scale, bias, running_mean, running_var, *, momentum, eps,
-                         update_var, group=None):
+                         update_var, group=None, active=None):
     """(y, mean, var, inv) of train-mode BN over NHWC x (channels last),
     updating the running statistics in place: the moments' plain version,
     then `bn_forward_from_moments`. `group`: the moments of every rank's
-    rows (`bn_forward`'s contract)."""
+    rows (`bn_forward`'s contract); `active`: the masked form's width."""
     flat = x.reshape(-1, x.shape[-1])
     sums = all_reduce_sum(torch.cat(col_sums2_reference(flat, flat)), group)
     return bn_forward_from_sums_reference(
         x, sums, scale, bias, running_mean, running_var,
         n_total=flat.shape[0] * world_size(group), momentum=momentum, eps=eps,
-        update_var=update_var)
+        update_var=update_var, active=active)
 
 
 def bn_forward_from_sums_reference(x, sums, scale, bias, running_mean, running_var, *,
-                                   n_total, momentum, eps, update_var):
+                                   n_total, momentum, eps, update_var, active=None):
     """(y, mean, var, inv) of train-mode BN from the totals sums = [sum x |
     sum x*x] over `n_total` rows (every rank's), for this rank's x: mean =
     s1/N, var = s2/N - mean^2, as `bn_moments_reference`; the running
@@ -179,7 +214,7 @@ def bn_forward_from_sums_reference(x, sums, scale, bias, running_mean, running_v
     var = sums[c:] / n_total - torch.square(mean)
     return bn_forward_from_moments(x, scale, bias, running_mean, running_var, mean, var,
                                    momentum=momentum, eps=eps, update_var=update_var,
-                                   n_total=n_total)
+                                   n_total=n_total, active=active)
 
 
 @functools.lru_cache(maxsize=None)
@@ -289,8 +324,17 @@ def bn_bwd_sums(dy, x, mean, inv):
     return _pair(_launch(MODE_BWD, dy, x, mean, inv)[0])
 
 
+def _check_active(active, device):
+    """Raise unless `active` is None or a one-element int32 tensor on
+    `device` (the kernels read it through a pointer)."""
+    if active is not None and not (active.numel() == 1 and active.dtype is torch.int32
+                                   and active.device == device):
+        raise ValueError("active must be a one-element int32 tensor on %s; got %s %s %s"
+                         % (device, active.dtype, tuple(active.shape), active.device))
+
+
 def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
-               update_var="unbiased", group=None):
+               update_var="unbiased", group=None, active=None):
     """Train-mode BN of row-contiguous, channels-last x (an NHWC tensor or
     its (N, C) view) in one kernel call: (y, mean, var, inv), y in x's
     type and shape, the batch moments (biased var) and inv = rsqrt(var +
@@ -305,7 +349,10 @@ def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
     var takes their count. On the card that is two calls with an
     all-reduce of the (2, C) totals between them: pass 1 and its sums
     (`col_sums2`'s mode 3), then `bn_forward_from_sums`; at one rank the
-    bits of the call without a group."""
+    bits of the call without a group.
+
+    `active` (a one-element int32 tensor on x's device): the masked form's
+    active width (module docstring); not with a group."""
     if momentum is None:
         raise ValueError("bn_forward takes a float momentum (the EMA), not None")
     if update_var not in UPDATE_VARS:
@@ -313,10 +360,13 @@ def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
     if (running_mean is None) != (running_var is None):
         raise ValueError("bn_forward takes both running statistics or neither")
     device = x.device
+    _check_active(active, device)
+    if active is not None and group is not None:
+        raise ValueError("bn_forward takes no active width under a mesh")
     if device.type == "cpu":
         return bn_forward_reference(x, scale, bias, running_mean, running_var,
                                     momentum=momentum, eps=eps, update_var=update_var,
-                                    group=group)
+                                    group=group, active=active)
     suffix = kernel_suffix(x)
     c = x.shape[-1] if x.ndim else 0
     for name, r in (("running_mean", running_mean), ("running_var", running_var)):
@@ -338,13 +388,13 @@ def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
     p = buf.data_ptr()
     _build.launch("ofa_bn_forward_" + suffix, device, x, scale, bias, running_mean,
                   running_var, p, p + 16 * c, y, n, c, g, momentum, eps,
-                  update_var == "unbiased")
+                  update_var == "unbiased", active)
     _count(bn_forward, suffix)
     mean, var, inv, _ = torch.split_with_sizes(buf, (c, c, c, c * (1 + 2 * g)))
     return y, mean, var, inv
 
 
-def bn_backward(dy, x, scale, mean, inv, *, group=None):
+def bn_backward(dy, x, scale, mean, inv, *, group=None, active=None):
     """(dx, dscale, dbias) of train-mode BN from the saved (x, scale, mean,
     inv) and the output's cotangent dy, in one kernel call: the two column
     sums, then dx with xhat formed in the kernel. dy and x are row-contiguous
@@ -355,10 +405,16 @@ def bn_backward(dy, x, scale, mean, inv, *, group=None):
     all-reduce of the (2, C) totals between this rank's sums, `bn_bwd_sums`,
     and `bn_backward_from_sums`); dscale and dbias stay this rank's sums,
     its share of the parameters' gradient, which the trainer's gradient
-    all-reduce adds up with every other parameter's."""
+    all-reduce adds up with every other parameter's.
+
+    `active` (the forward's): dx, dscale and dbias are 0 from that column
+    on; not with a group."""
     device = dy.device
+    _check_active(active, device)
+    if active is not None and group is not None:
+        raise ValueError("bn_backward takes no active width under a mesh")
     if device.type == "cpu":
-        return bn_backward_reference(dy, x, scale, mean, inv, group=group)
+        return bn_backward_reference(dy, x, scale, mean, inv, group=group, active=active)
     n, c, suffix = _check(dy, x, mean=mean, inv=inv, scale=scale)
     if group is not None:
         local = _launch(MODE_BWD, dy, x, mean, inv)[0]
@@ -372,7 +428,7 @@ def bn_backward(dy, x, scale, mean, inv, *, group=None):
     buf = torch.empty(c * (5 + 2 * g), device=device, dtype=torch.float32)
     p = buf.data_ptr()
     _build.launch("ofa_bn_backward_" + suffix, device, dy, x, scale, mean, inv, p + 20 * c,
-                  p + 8 * c, p, dx, n, c, g)
+                  p + 8 * c, p, dx, n, c, g, active)
     _count(bn_backward, suffix)
     dbias, dscale, _ = buf.split((c, c, c * (3 + 2 * g)))
     return dx, dscale, dbias

@@ -21,10 +21,13 @@ split over the ranks (`parallel.shard_batch`), train-mode BN takes the
 global batch's moments, the gradients are averaged over the ranks once a
 step, validation runs whole on every rank, and rank 0 alone writes files.
 
-Not ported (XLA-only levers, ROADMAP queue 1 item 14): `steps_per_dispatch`
-(the scanned multi-step program), `_apply_dw_live`, `remat`; and
-`cls_touched_mask`, which torch's optimizers make native (a block that no
-subnet ran keeps a None gradient and is skipped).
+Not ported yet: `steps_per_dispatch` (the classification scan step, JAX
+`cls_run_manager.py:97-101` over `cls_trainer.py:154`) and with it
+`cls_touched_mask`: the SR side's graphed masked step and touched mask
+(`train/graphs.py`, `train/touched.py`) are its model, a later slice of
+ROADMAP queue 1 item 14. Here torch's optimizers skip the blocks no subnet
+ran (a None gradient), as `cls_touched_mask` gates JAX's. `_apply_dw_live`
+and `remat` are XLA-only levers, not ported (item 14).
 """
 
 from __future__ import annotations

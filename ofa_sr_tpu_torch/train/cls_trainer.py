@@ -31,9 +31,11 @@ the metrics are the global batch's means.
 
 Blocks past a stage's depth never run, so their gradients stay None and
 the optimizer skips them (no decay, no momentum), which JAX gets through
-`TorchOpt` and `cls_touched_mask`. JAX's XLA-only levers (`remat`,
-`ks_switch`, `dw_switch`, `dw_opts` and the scanned multi-step program)
-have no counterpart (ROADMAP queue 1 item 14).
+`TorchOpt` and `cls_touched_mask`. The scanned multi-step program (JAX
+`make_scan_train_step`, `cls_trainer.py:154`) is not ported yet: the SR
+trainer's graphed masked step (`train/graphs.py`) is its model, a later
+slice of ROADMAP queue 1 item 14. JAX's XLA-only levers (`remat`,
+`ks_switch`, `dw_switch`, `dw_opts`) have no counterpart (item 14).
 """
 
 from __future__ import annotations

@@ -12,9 +12,14 @@ The step's metrics stay 0-d device tensors: the epoch sums them on the
 device and reads them back only where it logs and when the epoch ends, so
 a step adds no host-device synchronisation.
 
-Left out of the JAX package's RunConfig: the XLA-only execution levers
-(`steps_per_dispatch`, `remat`, `ks_switch`, `dw_switch`, `dw_align`,
-`s2d`; ROADMAP queue 1 item 14).
+`RunConfig.steps_per_dispatch` is the JAX package's device-side multi-step
+training: at 1 (the default) every step runs eagerly through
+`SRTrainer.train_step`; above 1 the epoch collects windows of that many
+steps and runs each through `SRTrainer.make_scan_train_step` (CUDA-graph
+replays of the masked step on a GPU), a shorter tail through the same
+step, and records and logs once a window. Left out of the JAX package's
+RunConfig: the other XLA-era levers (`remat`, `ks_switch`, `dw_switch`,
+`dw_align`, `s2d`; ROADMAP queue 1 item 14).
 
 With a `mesh` (data parallelism, one process a device, every rank running
 the same run over the same provider): the parameters are broadcast from
@@ -114,11 +119,17 @@ class RunConfig:
     # 'bf16': mixed precision (conv banks and activations; BN statistics,
     # transform matrices, master params and loss stay float32). None = f32.
     compute_dtype: Optional[str] = None
+    # optimizer steps a window of the graphed masked step
+    # (SRTrainer.make_scan_train_step); 1 = one eager step at a time
+    steps_per_dispatch: int = 1
 
     def __post_init__(self):
         if self.save_frequency < 1:
             raise ValueError("save_frequency must be >= 1 (got %r)"
                              % (self.save_frequency,))
+        if self.steps_per_dispatch < 1:
+            raise ValueError("steps_per_dispatch must be >= 1 (got %r)"
+                             % (self.steps_per_dispatch,))
 
     @property
     def config(self):
@@ -192,7 +203,12 @@ class SRRunManager:
             use_kernels=use_kernels, compute_dtype=_compute_dtype_of(run_config),
             mode=run_config.mode, mesh=mesh, **kd)
         if mesh is not None:
+            if run_config.steps_per_dispatch > 1:
+                raise NotImplementedError(
+                    "steps_per_dispatch > 1 under a mesh is not ported: NCCL inside a CUDA "
+                    "graph, ROADMAP.md queue 1 item 14")
             shard_params(net, mesh)
+        self._scan_step = None
         self._write_net_info()
 
     def _to_device(self, batch, shard=False):
@@ -325,13 +341,40 @@ class SRRunManager:
 
     def train_one_epoch(self, epoch, constraints=None, fixed_cfg=None):
         """One epoch of steps; returns (mean loss, mean PSNR) over every
-        step, weighted by batch size."""
+        step, weighted by batch size (by a window's total under
+        steps_per_dispatch > 1, whose metrics are the window's means)."""
         rc = self.run_config
         loader = self.provider.train
         loader.set_epoch(epoch)
         n_batch = len(loader)
-        sums, n_seen = None, 0
+        acc = {"sums": None, "n": 0}
         t0 = time.time()
+        pending = []
+        if rc.steps_per_dispatch > 1 and self._scan_step is None:
+            self._scan_step = self.trainer.make_scan_train_step(rc.dynamic_batch_size)
+
+        def record(m, n, i, lr, desc, k=1):
+            step = torch.stack([m["loss"], m["psnr"]]) * n
+            acc["sums"] = step if acc["sums"] is None else acc["sums"] + step
+            acc["n"] += n
+            # `k` steps in this record: log where a print boundary falls
+            # inside them (the JAX package's rule)
+            if ((i + 1) // rc.print_frequency > (i + 1 - k) // rc.print_frequency
+                    or i + 1 == n_batch):
+                self.write_log(
+                    "Train [%d][%d/%d]\tloss %.5f\tpsnr %.3f\tlr %.3g\t%s\t%.1fs"
+                    % (epoch + 1, i + 1, n_batch, float(m["loss"]), float(m["psnr"]), lr,
+                       desc[:48], time.time() - t0),
+                    prefix="train", should_print=False)
+
+        def flush():
+            if pending:
+                m = self._scan_step([q[0] for q in pending], [q[1] for q in pending],
+                                    [q[2] for q in pending])
+                record(m, sum(q[3] for q in pending), pending[-1][4], pending[-1][2],
+                       pending[-1][1][0].describe(), k=len(pending))
+                pending.clear()
+
         for i, batch in enumerate(loader):
             if i == 0 and rc.mode != "autoencoder":
                 # a paired dataset emits one xN key: sample only the pixel_d
@@ -347,20 +390,18 @@ class SRRunManager:
                             warmup_epochs=rc.warmup_epochs, warmup_lr=rc.warmup_lr,
                             lr_schedule_type=rc.lr_schedule_type)
             cfgs = self.sample_archs(epoch, n_batch, i, constraints, fixed_cfg)
-            m = self.trainer.train_step(self._to_device(batch, shard=True), cfgs, lr)
             n = batch["image"].shape[0]
-            step = torch.stack([m["loss"], m["psnr"]]) * n
-            sums = step if sums is None else sums + step
-            n_seen += n
-            if (i + 1) % rc.print_frequency == 0 or i + 1 == n_batch:
-                self.write_log(
-                    "Train [%d][%d/%d]\tloss %.5f\tpsnr %.3f\tlr %.3g\t%s\t%.1fs"
-                    % (epoch + 1, i + 1, n_batch, float(m["loss"]), float(m["psnr"]), lr,
-                       cfgs[0].describe()[:48], time.time() - t0),
-                    prefix="train", should_print=False)
-        if sums is None:
+            if self._scan_step is not None:
+                pending.append((self._to_device(batch), cfgs, lr, n, i))
+                if len(pending) == rc.steps_per_dispatch:
+                    flush()
+                continue
+            m = self.trainer.train_step(self._to_device(batch, shard=True), cfgs, lr)
+            record(m, n, i, lr, cfgs[0].describe())
+        flush()
+        if acc["sums"] is None:
             return 0.0, 0.0
-        loss, psnr = (s / n_seen for s in sums.tolist())
+        loss, psnr = (s / acc["n"] for s in acc["sums"].tolist())
         return loss, psnr
 
     def validate(self, cfg: Optional[SubnetConfig] = None, loader=None,

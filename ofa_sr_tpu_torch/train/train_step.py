@@ -41,8 +41,12 @@ jit:
 Every rank then holds the same gradients, so the same update keeps the
 parameters identical bit for bit.
 
-PyTorch runs eagerly, so the JAX step's jit, donation and `lax.switch` over
-pixel_d have no counterpart; a step is plain Python over the subnets.
+`train_step` runs eagerly: a step is plain Python over the subnets, each in
+the sliced form. `make_scan_train_step` is the JAX package's device-side
+multi-step training: a window of steps in the masked form (`MaskedArch`),
+as CUDA-graph replays on a CUDA net (`train/graphs.py`), with the
+optimizer gated by each step's touched mask (`optim.GatedOpt`); on a CPU
+net the same masked steps run eagerly.
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ import torch
 from ..ops.elastic import spatial_valid_mask
 from ..parallel.mesh import all_reduce_sum
 from ..utils.metrics import psnr_from_mse, psnr_y_device, y_squared_error_sum
-from .optim import build_optimizer
+from .graphs import ScanTrainStep
+from .optim import GatedOpt, build_optimizer
 
 
 def average_gradients(opt, mesh):
@@ -164,6 +169,28 @@ class SRTrainer:
         if self._group is not None:
             return self._global_metrics(losses, psnrs)
         return {"loss": torch.stack(losses).mean(), "psnr": torch.stack(psnrs).mean()}
+
+    def make_scan_train_step(self, n_subnets: int = 1, teacher=None):
+        """The window step (JAX `make_scan_train_step`): returns a callable
+        `step(batches, cfgs, lrs, touched=None)` that runs one optimizer step
+        a batch, `n_subnets` subnets each (`graphs.ScanTrainStep.__call__`),
+        with `train_step`'s semantics (KD, `bn_frozen`, `compute_dtype`,
+        `clip_grad_norm`, torch's skip of untouched parameters) in the
+        masked form, and returns the window's mean loss and PSNR-Y as 0-d
+        device tensors. `teacher` (net, its SubnetConfig, its pixel_d)
+        replaces the trainer's own. The trainer's optimizer becomes a
+        `GatedOpt` holding the same state (its `state_dict` keeps torch's
+        layout); `train_step` still runs with it. Not under a mesh."""
+        if self.mesh is not None:
+            raise NotImplementedError("make_scan_train_step (steps_per_dispatch > 1) under a "
+                                      "mesh is not ported: ROADMAP.md queue 1 item 14")
+        if teacher is not None:
+            self.teacher = teacher
+        if self.kd_ratio > 0 and self.teacher is None:
+            raise ValueError("kd_ratio > 0 needs a teacher")
+        if not isinstance(self.opt, GatedOpt):
+            self.opt = GatedOpt(self.opt)
+        return ScanTrainStep(self, n_subnets)
 
     def _global_metrics(self, losses, sq_errors):
         """The global batch's mean loss and PSNR-Y over the subnets, from
