@@ -5,10 +5,11 @@ Counterpart of ofa_sr_tpu/models/layers.py. The MBConv has two forms. Its
 (`_sliced_mbconv_branch` in the JAX package is the statement of it): the
 eager path's form. Its `forward_masked` is the JAX package's masked
 execution (`_masked_mbconv_apply`): every bank at max shape, the depthwise
-conv at the max kernel size through `select_kernel`, and the middle width
-a channel mask, with the kernel-size index and the width read from device
-tensors, so that one captured CUDA graph serves every (ks, e) of a block;
-the graphed training step runs it (`train/graphs.py`).
+conv at the max kernel size through `select_kernel`, and the middle, SE
+and output widths channel masks, with the kernel-size index and the widths
+read from device tensors, so that one captured CUDA graph serves every
+(ks, e, width) of a block; the graphed training steps of the SR and the
+classification nets run it (`train/graphs.py`).
 
 Module and parameter names give the reference state_dict layout:
 `conv.weight` (OIHW), `bn.{weight,bias,running_mean,running_var}` and, for
@@ -30,8 +31,9 @@ The classification nets' features of the MBConv (JAX `mbconv_init` /
 `_masked_mbconv_apply`): input and output widths other than the trunk's,
 a per-block activation, a stride in the depthwise conv (padding k//2 per
 side, the reference's), the squeeze-excite module under `depth_conv.se`,
-and elastic output width, which JAX masks (`channel_mask`) and the port
-slices (the point-linear conv's and its BN's first `out_ch` channels).
+and elastic output width: the sliced `forward` takes the point-linear
+conv's and its BN's first `out_ch` channels, `forward_masked` masks the
+BN from `out_ch` on (`active`), as JAX's `channel_mask` does.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from torch import nn
 from ..ops.activations import apply_act, h_sigmoid
 from ..ops.conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init, icnr_conv_init
 from ..ops.elastic import (
+    channel_mask,
     kernel_candidates,
     select_kernel,
     transform_kernel_chain,
@@ -177,6 +180,19 @@ class SEModule(nn.Module):
         g = linear(g, e.weight[:mid, :se_mid, 0, 0], e.bias[:mid], compute_dtype)
         return y * h_sigmoid(g)[:, None, None, :]
 
+    def forward_masked(self, y, mid, se_mid, compute_dtype=None):
+        """The masked form (JAX `_masked_mbconv_apply`'s SE): both convs at
+        max width, the reduce output masked to `se_mid` before the ReLU,
+        and the gated y masked to `mid` (both device int32 widths), the
+        sliced form's values."""
+        r, e = self.fc.reduce, self.fc.expand
+        g = y.mean(dim=(1, 2))
+        g = linear(g, r.weight[:, :, 0, 0], r.bias, compute_dtype)
+        g = torch.clamp(g * channel_mask(se_mid, g.shape[-1], g.dtype, g.device), min=0.0)
+        g = linear(g, e.weight[:, :, 0, 0], e.bias, compute_dtype)
+        return (y * h_sigmoid(g)[:, None, None, :]
+                * channel_mask(mid, y.shape[-1], y.dtype, y.device))
+
 
 class DynamicMBConvLayer(nn.Module):
     """Elastic MBConv: 1x1 expand -> BN -> act -> k x k depthwise (elastic
@@ -232,18 +248,25 @@ class DynamicMBConvLayer(nn.Module):
         y = conv2d(y, cast(pl.conv.weight[:out_ch, :mid], compute_dtype))
         return bn_apply(y, pl.bn, out_ch, **bn)
 
-    def forward_masked(self, x, ks_idx, mid, *, act="relu6", bn_training=False,
-                       use_kernels=False, compute_dtype=None, spatial_mask=None,
-                       bn_group=None):
+    def forward_masked(self, x, ks_idx, mid, *, act="relu6", stride=1, se_mid=None,
+                       out_ch=None, bn_training=False, use_kernels=False, compute_dtype=None,
+                       spatial_mask=None, bn_group=None):
         """The masked form of `forward` (the JAX package's
-        `_masked_mbconv_apply`, stride 1, no SE, the bank's output width):
-        `ks_idx` (an index into the sorted kernel sizes) and `mid` (the
-        active middle width) are 0-d int32 device tensors, never read by the
-        host. The expand conv runs over all max-mid rows, both BNs take the
-        moments at full width and mask y beyond `mid` (`active`), the
-        depthwise conv runs at the max kernel size with the selected
-        candidate, and the project conv contracts all max-mid channels, of
-        which the inactive ones are 0: the sliced forward's values."""
+        `_masked_mbconv_apply`): `ks_idx` (an index into the sorted kernel
+        sizes), `mid` (the active middle width), `se_mid` (the SE's active
+        bottleneck, for a block with SE) and `out_ch` (the active output
+        width; None: the bank's) are 0-d int32 device tensors, never read
+        by the host. The
+        expand conv runs over all max-mid rows, both BNs take the moments at
+        full width and mask y beyond `mid` (`active`), the depthwise conv
+        runs at the max kernel size with the selected candidate (padding
+        max_ks // 2 at any stride: `embed_center` centres the smaller
+        kernels, so the sliced conv's taps), the SE masks its reduce output
+        to `se_mid` and its gated y to `mid`, the project conv contracts all
+        max-mid channels, of which the inactive ones are 0, and its BN masks
+        y beyond `out_ch`: the sliced forward's values. A width of 0 gives
+        y = 0 and leaves that BN's running statistics unchanged (the
+        classification nets' depth gate)."""
         ib, dw, pl = self.inverted_bottleneck, self.depth_conv, self.point_linear
         bn = dict(bn_training=bn_training, use_kernels=use_kernels, bn_group=bn_group,
                   active=mid)
@@ -254,10 +277,12 @@ class DynamicMBConvLayer(nn.Module):
         mats = dw.conv.matrices()
         cands = kernel_candidates(cast(dw.conv.weight, compute_dtype), mats, self.ks_list,
                                   use_transform=bool(mats))
-        y = depthwise_conv2d(y, select_kernel(cands, ks_idx))
+        y = depthwise_conv2d(y, select_kernel(cands, ks_idx), stride)
         y = apply_act(bn_apply(y, dw.bn, **bn), act)
+        if hasattr(dw, "se"):
+            y = dw.se.forward_masked(y, mid, se_mid, compute_dtype)
         y = conv2d(y, cast(pl.conv.weight, compute_dtype))
-        return bn_apply(y, pl.bn, **dict(bn, active=None))
+        return bn_apply(y, pl.bn, **dict(bn, active=out_ch))
 
 
 class MobileInvertedResidualBlock(nn.Module):

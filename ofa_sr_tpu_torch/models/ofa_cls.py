@@ -15,8 +15,14 @@ classifier.
 
 `width_mult_list` with more than one entry is runtime elastic width: the
 banks live at the widest entry and `arch.wid` picks the active widths.
-JAX masks every subnet at max shape; the port slices each layer to the
-active widths, as the reference did (JAX's tests prove the two equal).
+
+Two forms of the forward. `forward` slices each layer to the subnet's
+widths and runs only the blocks its depths reach, as the reference did:
+the eager step's form. `forward_masked` is JAX's `apply`: every block at
+max shape, the widths channel masks and the depth a device gate, all read
+from the device arch (`arch_vector` / `device_arch`), so one captured CUDA
+graph serves every subnet of a batch shape (the graphed training step,
+`train/graphs.py`). JAX's tests and the port's prove the two equal.
 
 The state_dict has the reference layout (`first_conv`,
 `blocks.0.mobile_inverted_conv.{depth_conv,point_linear}` for the static
@@ -37,11 +43,13 @@ import dataclasses
 import random
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..ops.activations import apply_act
 from ..ops.conv import conv2d, conv_init, depthwise_conv2d, depthwise_conv_init
+from ..ops.elastic import channel_mask
 from ..utils.common import make_divisible
 from ..utils.device import resolve_device
 from .arch import SearchSpace
@@ -237,8 +245,9 @@ class ElasticClassifierNet(nn.Module):
 
     def arch_to_device(self, a: ClsArch):
         """The widths a subnet runs at, under the JAX package's keys, as
-        Python ints and lists: the sliced forward reads them on the host,
-        so nothing goes to the device (JAX's form holds int32 arrays)."""
+        Python ints and lists: the host form, which the sliced forward
+        reads (JAX's form holds int32 arrays; the port's device form is
+        `arch_vector` / `device_arch`)."""
         ks_set = list(self.space.ks_list)
         wid = len(self.width_mult_list) - 1 if a.wid is None else a.wid
         ins, outs = self.active_block_channels(wid)
@@ -253,6 +262,41 @@ class ElasticClassifierNet(nn.Module):
             "fb_out": self.first_block_outs[wid],
             "fm_w": self.feature_mix_widths[wid],
         }
+
+    # the device arch: per block (ks_idx, mid, se_mid, out_ch, gate), per
+    # stage the depth, then (first_w, fb_out, fm_w)
+    BLOCK_FIELDS = ("ks_idx", "mid", "se_mid", "out_ch", "gate")
+
+    @property
+    def arch_len(self):
+        """The int32 entries of an `arch_vector`."""
+        return len(self.BLOCK_FIELDS) * self.n_blocks + len(self.stage_specs) + 3
+
+    def arch_vector(self, a: ClsArch) -> np.ndarray:
+        """The device form of `a` as one int32 vector, JAX `arch_to_device`'s
+        values (`device_arch` names its parts): per block ks_idx, mid,
+        se_mid, out_ch and the depth gate (1 for a stage's first block and
+        for the blocks below its depth, else 0), each stage's depth, then
+        first_w, fb_out and fm_w. Copied into one static device buffer, it
+        gives a captured graph its next subnet."""
+        h = self.arch_to_device(a)
+        gate = [int(i == 0 or i < d) for sp, d in zip(self.stage_specs, a.d)
+                for i in range(sp.n_block)]
+        return np.asarray(h["ks_idx"] + h["mid"] + h["se_mid"] + h["out_ch"] + gate
+                          + h["depth"] + [h["first_w"], h["fb_out"], h["fm_w"]], np.int32)
+
+    def device_arch(self, buf):
+        """{JAX `arch_to_device`'s keys and "gate"}: views of an
+        `arch_vector` in the int32 tensor `buf` (no copy), the widths 0-d."""
+        nb, ns = self.n_blocks, len(self.stage_specs)
+        parts = buf.split([nb] * len(self.BLOCK_FIELDS) + [ns, 1, 1, 1])
+        out = dict(zip(self.BLOCK_FIELDS + ("depth",), parts))
+        out.update(first_w=parts[-3][0], fb_out=parts[-2][0], fm_w=parts[-1][0])
+        return out
+
+    def arch_tensor(self, a: ClsArch, device=None):
+        """`device_arch` of a new device buffer holding `a`."""
+        return self.device_arch(torch.from_numpy(self.arch_vector(a)).to(device or self.device))
 
     # -- forward ----------------------------------------------------------------
 
@@ -319,6 +363,11 @@ class ElasticClassifierNet(nn.Module):
             y = apply_act(bn_apply(y, fm.bn, fm_w, **bn), self.head_act)
             y = y.mean(dim=(1, 2))
 
+        return self._classify(y, training, dropout_generator, cd)
+
+    def _classify(self, y, training, dropout_generator, cd):
+        """Dropout (in training, with a generator) and the classifier on the
+        pooled features y; float32 logits."""
         if training and self.dropout_rate > 0 and dropout_generator is not None:
             keep = 1.0 - self.dropout_rate
             mask = torch.rand(y.shape, generator=dropout_generator,
@@ -327,6 +376,79 @@ class ElasticClassifierNet(nn.Module):
         lin = self.classifier.linear
         logits = linear(y, lin.weight[:, :y.shape[-1]], lin.bias, cd)
         return logits if cd is None else logits.float()
+
+    def forward_masked(self, x, arch, *, training=False, bn_training=None, use_kernels=None,
+                       dropout_generator: Optional[torch.Generator] = None,
+                       compute_dtype: Optional[torch.dtype] = None):
+        """`forward` in the masked form (JAX `apply`): `arch` is the device
+        arch (`device_arch`), read on the device only. Every layer runs at
+        its max shape: the elastic widths are channel masks (the BNs'
+        `active`; Proxyless multiplies the head's output by its width's
+        mask), which JAX applies only where a width list has more than one
+        entry, and so does this. Every block runs; a block after a stage's
+        first is gated, y = where(gate, block(y), y), and its BNs take
+        mid * gate and out_ch * gate as their widths, so a gated-off block
+        writes 0 and keeps its running statistics (JAX's where over its
+        state). Dropout draws the shape of the max-width features, which is
+        the sliced forward's where the widths are not elastic. The other
+        arguments are `forward`'s (no mesh: the masked form's BN widths are
+        not taken under a group)."""
+        bnt = bool(training if bn_training is None else bn_training)
+        if use_kernels is None:
+            use_kernels = self.device.type == "cuda"
+        cd = compute_dtype
+        if cd is not None:
+            x = x.to(cd)
+        bn = dict(bn_training=bnt, use_kernels=use_kernels)
+
+        def elastic(widths, key):
+            return arch[key] if len(set(widths)) > 1 else None
+
+        fw = elastic(self.first_conv_widths, "first_w")
+        fbo = elastic(self.first_block_outs, "fb_out")
+        fc = self.first_conv
+        y = apply_act(bn_apply(conv2d(x, cast(fc.conv.weight, cd), stride=2), fc.bn, active=fw,
+                               **bn), self.first_conv_act)
+        fb = self.blocks[0].mobile_inverted_conv
+        h = depthwise_conv2d(y, cast(fb.depth_conv.conv.weight, cd))
+        h = apply_act(bn_apply(h, fb.depth_conv.bn, active=fw, **bn), self.first_block_act)
+        h = bn_apply(conv2d(h, cast(fb.point_linear.conv.weight, cd)), fb.point_linear.bn,
+                     active=fbo, **bn)
+        y = y + h if self.first_block_out == self.first_conv_width else h
+
+        gate = arch["gate"].bool()
+        mid_g, out_g = arch["mid"] * arch["gate"], arch["out_ch"] * arch["gate"]
+        bi = 0
+        for si, spec in enumerate(self.stage_specs):
+            out_elastic = len(set(self.stage_width_lists[si])) > 1
+            for i in range(spec.n_block):
+                kw = dict(act=spec.act, stride=spec.stride if i == 0 else 1,
+                          se_mid=arch["se_mid"][bi], compute_dtype=cd, **bn)
+                block = self.blocks[1 + bi]
+                if i == 0:  # always runs; no shortcut
+                    y = block.forward_masked(y, arch["ks_idx"][bi], arch["mid"][bi],
+                                             out_ch=arch["out_ch"][bi] if out_elastic else None,
+                                             **kw)
+                else:
+                    y = torch.where(gate[bi], block.forward_masked(
+                        y, arch["ks_idx"][bi], mid_g[bi], out_ch=out_g[bi], **kw), y)
+                bi += 1
+
+        if self.final_expand_width:
+            fe = self.final_expand_layer
+            y = apply_act(bn_apply(conv2d(y, cast(fe.conv.weight, cd)), fe.bn, **bn),
+                          self.head_act)
+            y = y.mean(dim=(1, 2), keepdim=True)
+            y = apply_act(conv2d(y, cast(self.feature_mix_layer.conv.weight, cd)), self.head_act)
+            y = y[:, 0, 0, :]
+        else:
+            fm, fm_w = self.feature_mix_layer, elastic(self.feature_mix_widths, "fm_w")
+            y = apply_act(bn_apply(conv2d(y, cast(fm.conv.weight, cd)), fm.bn, active=fm_w, **bn),
+                          self.head_act)
+            if fm_w is not None:  # the classifier's input: the sliced weight's
+                y = y * channel_mask(fm_w, y.shape[-1], y.dtype, y.device)
+            y = y.mean(dim=(1, 2))
+        return self._classify(y, training, dropout_generator, cd)
 
 
 def OFAMobileNetV3(n_classes=1000, ks_list=(3, 5, 7), expand_list=(3, 4, 6),

@@ -21,13 +21,17 @@ split over the ranks (`parallel.shard_batch`), train-mode BN takes the
 global batch's moments, the gradients are averaged over the ranks once a
 step, validation runs whole on every rank, and rank 0 alone writes files.
 
-Not ported yet: `steps_per_dispatch` (the classification scan step, JAX
-`cls_run_manager.py:97-101` over `cls_trainer.py:154`) and with it
-`cls_touched_mask`: the SR side's graphed masked step and touched mask
-(`train/graphs.py`, `train/touched.py`) are its model, a later slice of
-ROADMAP queue 1 item 14. Here torch's optimizers skip the blocks no subnet
-ran (a None gradient), as `cls_touched_mask` gates JAX's. `_apply_dw_live`
-and `remat` are XLA-only levers, not ported (item 14).
+`RunConfig.steps_per_dispatch` > 1 (JAX `cls_run_manager.py:91-101`,
+`:194-267`) runs the epoch in windows of that many steps through
+`ClsTrainer.make_scan_train_step` (the masked step as CUDA-graph replays
+on a GPU, each step's optimizer gated by `cls_touched_mask`), the tail
+shorter than a window through the same step (JAX runs it eagerly), and
+records once a window: its metrics are the window's means, and it logs
+where a print boundary falls inside the window (JAX's rule). At 1 each
+step runs `train_step` eagerly in the sliced form, where torch's
+optimizers skip the blocks no subnet ran (a None gradient). Not under a
+mesh yet (ROADMAP queue 1 item 14). `_apply_dw_live` and `remat` are
+XLA-only levers, not ported (item 14).
 """
 
 from __future__ import annotations
@@ -80,7 +84,12 @@ class ClsRunManager:
             compute_dtype=_compute_dtype_of(rc), use_kernels=use_kernels, mesh=mesh,
             dropout_seed=rc.manual_seed + 1)
         if mesh is not None:
+            if rc.steps_per_dispatch > 1:
+                raise NotImplementedError(
+                    "steps_per_dispatch > 1 under a mesh is not ported: NCCL inside a CUDA "
+                    "graph, ROADMAP.md queue 1 item 14")
             shard_params(net, mesh)
+        self._scan_step = None
 
     def _to_device(self, batch, shard=False):
         """The batch's tensors on the net's device, copied without blocking
@@ -159,29 +168,54 @@ class ClsRunManager:
 
     def train_one_epoch(self, epoch, constraints=None):
         """One epoch of steps; returns (mean loss, mean top-1) over every
-        step, weighted by batch size."""
+        step, weighted by batch size (by a window's total under
+        steps_per_dispatch > 1, whose metrics are the window's means)."""
         rc = self.run_config
         loader = self.provider.train
         loader.set_epoch(epoch)
         n_batch = len(loader)
-        sums, n_seen = None, 0
+        acc = {"sums": None, "n": 0}
+        pending = []
+        if rc.steps_per_dispatch > 1 and self._scan_step is None:
+            self._scan_step = self.trainer.make_scan_train_step(rc.dynamic_batch_size)
+
+        def record(m, n, i, lr, k=1):
+            step = torch.stack([m["loss"], m["top1"]]) * n
+            acc["sums"] = step if acc["sums"] is None else acc["sums"] + step
+            acc["n"] += n
+            # `k` steps in this record: log where a print boundary falls
+            # inside them (the JAX package's rule)
+            if ((i + 1) // rc.print_frequency > (i + 1 - k) // rc.print_frequency
+                    or i + 1 == n_batch):
+                self.write_log("Train [%d][%d/%d] loss %.4f top1 %.2f lr %.4g"
+                               % (epoch + 1, i + 1, n_batch, float(m["loss"]),
+                                  float(m["top1"]), lr), "train", should_print=False)
+
+        def flush():
+            if pending:
+                m = self._scan_step([q[0] for q in pending], [q[1] for q in pending],
+                                    [q[2] for q in pending])
+                record(m, sum(q[3] for q in pending), pending[-1][4], pending[-1][2],
+                       k=len(pending))
+                pending.clear()
+
         for i, batch in enumerate(loader):
             lr = lr_at_step(rc.base_lr, epoch, i, n_batch, rc.n_epochs,
                             warmup_epochs=rc.warmup_epochs, warmup_lr=rc.warmup_lr,
                             lr_schedule_type=rc.lr_schedule_type)
             archs = self.sample_archs(epoch, n_batch, i, constraints)
-            m = self.trainer.train_step(self._to_device(batch, shard=True), archs, lr)
             n = len(batch["label"])
-            step = torch.stack([m["loss"], m["top1"]]) * n
-            sums = step if sums is None else sums + step
-            n_seen += n
-            if (i + 1) % rc.print_frequency == 0 or i + 1 == n_batch:
-                self.write_log("Train [%d][%d/%d] loss %.4f top1 %.2f lr %.4g"
-                               % (epoch + 1, i + 1, n_batch, float(m["loss"]),
-                                  float(m["top1"]), lr), "train", should_print=False)
-        if sums is None:
+            if self._scan_step is not None:
+                pending.append((self._to_device(batch), archs, lr, n, i))
+                if len(pending) == rc.steps_per_dispatch:
+                    flush()
+                continue
+            m = self.trainer.train_step(self._to_device(batch, shard=True), archs, lr)
+            record(m, n, i, lr)
+        flush()
+        if acc["sums"] is None:
             return 0.0, 0.0
-        loss, top1 = (s / n_seen for s in sums.tolist())
+        loss, top1 = (s / acc["n"] for s in acc["sums"].tolist())
         return loss, top1
 
     def validate(self, arch=None, loader=None):

@@ -29,13 +29,17 @@ train-mode BN takes the global batch's moments, the summed gradients are
 averaged over the ranks once a step (`train_step.average_gradients`), and
 the metrics are the global batch's means.
 
-Blocks past a stage's depth never run, so their gradients stay None and
-the optimizer skips them (no decay, no momentum), which JAX gets through
-`TorchOpt` and `cls_touched_mask`. The scanned multi-step program (JAX
-`make_scan_train_step`, `cls_trainer.py:154`) is not ported yet: the SR
-trainer's graphed masked step (`train/graphs.py`) is its model, a later
-slice of ROADMAP queue 1 item 14. JAX's XLA-only levers (`remat`,
-`ks_switch`, `dw_switch`, `dw_opts`) have no counterpart (item 14).
+`train_step` runs eagerly in the sliced form: blocks past a stage's depth
+never run, so their gradients stay None and the optimizer skips them (no
+decay, no momentum), which JAX gets through `TorchOpt` and
+`cls_touched_mask`. `make_scan_train_step` is JAX's device-side multi-step
+program (`cls_trainer.py:154-219`): a window of steps in the masked form
+(`ElasticClassifierNet.forward_masked`, every block run, depth a device
+gate), as CUDA-graph replays on a CUDA net (`train/graphs.py`), with the
+optimizer gated by each step's `cls_touched_mask` (`optim.GatedOpt`); on a
+CPU net the same masked steps run eagerly. Not under a mesh yet (ROADMAP
+queue 1 item 14). JAX's XLA-only levers (`remat`, `ks_switch`,
+`dw_switch`, `dw_opts`) have no counterpart (item 14).
 """
 
 from __future__ import annotations
@@ -45,18 +49,20 @@ from typing import Optional, Sequence
 import torch
 
 from ..parallel.mesh import all_reduce_sum
-from .optim import build_optimizer
+from .graphs import ClsWindowStep
+from .optim import GatedOpt, build_optimizer
 from .train_step import average_gradients
 
 
 def cross_entropy(logits, labels, label_smoothing=0.0):
     """Mean cross-entropy of `logits` against integer `labels`, with label
     smoothing (the reference's cross_entropy_with_label_smoothing: the
-    one-hot target mixed with the uniform one)."""
+    one-hot target mixed with the uniform one). The one-hot is a scatter,
+    which reads no label on the host (a CUDA graph captures it)."""
     n = logits.shape[-1]
     logp = torch.log_softmax(logits, dim=-1)
     if label_smoothing > 0:
-        onehot = torch.nn.functional.one_hot(labels, n).to(logp.dtype)
+        onehot = torch.zeros_like(logp).scatter_(-1, labels[:, None], 1.0)
         soft = onehot * (1 - label_smoothing) + label_smoothing / n
         return -torch.mean(torch.sum(soft * logp, dim=-1))
     return -torch.mean(torch.gather(logp, -1, labels[:, None]))
@@ -110,12 +116,17 @@ class ClsTrainer:
         with torch.no_grad():
             return torch.softmax(t_net(x, t_arch), dim=-1)
 
-    def _subnet_loss(self, batch, arch, soft):
+    def _subnet_loss(self, batch, arch, soft, masked=False):
+        """(loss, [top-1, top-5]) of one subnet: `arch` a ClsArch (the sliced
+        forward) or, `masked`, the net's device arch (`forward_masked`)."""
         labels = batch["label"]
-        logits = self.net(batch["image"], arch, training=True, bn_training=not self.bn_frozen,
-                          use_kernels=self.use_kernels, dropout_generator=self.dropout_generator,
-                          compute_dtype=self.compute_dtype,
-                          bn_group=None if self.bn_frozen else self._group)
+        kw = dict(training=True, bn_training=not self.bn_frozen, use_kernels=self.use_kernels,
+                  dropout_generator=self.dropout_generator, compute_dtype=self.compute_dtype)
+        if masked:
+            logits = self.net.forward_masked(batch["image"], arch, **kw)
+        else:
+            logits = self.net(batch["image"], arch,
+                              bn_group=None if self.bn_frozen else self._group, **kw)
         ce = cross_entropy(logits, labels, self.label_smoothing)
         if soft is not None:
             kd = (soft_target_ce(logits, soft) if self.kd_type == "ce"
@@ -147,6 +158,28 @@ class ClsTrainer:
         if self._group is not None:
             m = all_reduce_sum(m, self._group) / self.mesh.world
         return {"loss": m[0], "top1": m[1], "top5": m[2]}
+
+    def make_scan_train_step(self, n_subnets: int = 1, teacher=None):
+        """The window step (JAX `make_scan_train_step`): returns a callable
+        `step(batches, archs, lrs, touched=None)` that runs one optimizer step
+        a batch, `n_subnets` ClsArchs each (`graphs.WindowStep.__call__`),
+        with `train_step`'s semantics (label smoothing, KD "ce" and "mse",
+        `bn_frozen`, `compute_dtype`, dropout from the trainer's generator,
+        torch's skip of untouched parameters) in the masked form, and
+        returns {"loss", "top1", "top5"}, the window's means, and "losses",
+        "top1s", "top5s", each step's mean over its subnets, as device
+        tensors. `teacher` (net, its ClsArch) replaces the trainer's own.
+        The trainer's optimizer becomes a `GatedOpt` holding the same state
+        (its `state_dict` keeps torch's layout); `train_step` still runs
+        with it. Not under a mesh."""
+        if self.mesh is not None:
+            raise NotImplementedError("make_scan_train_step (steps_per_dispatch > 1) under a "
+                                      "mesh is not ported: ROADMAP.md queue 1 item 14")
+        if teacher is not None:
+            self.teacher = teacher
+        if not isinstance(self.opt, GatedOpt):
+            self.opt = GatedOpt(self.opt)
+        return ClsWindowStep(self, n_subnets)
 
     def eval_step(self, batch, arch):
         """Cross-entropy (no smoothing), top-1 and top-5 of subnet `arch`

@@ -120,7 +120,7 @@ class RunConfig:
     # transform matrices, master params and loss stay float32). None = f32.
     compute_dtype: Optional[str] = None
     # optimizer steps a window of the graphed masked step
-    # (SRTrainer.make_scan_train_step); 1 = one eager step at a time
+    # (SRTrainer / ClsTrainer.make_scan_train_step); 1 = one eager step at a time
     steps_per_dispatch: int = 1
 
     def __post_init__(self):

@@ -1,5 +1,5 @@
 """Which parameters a training step touches (counterpart of
-ofa_sr_tpu/train/touched.py `sr_touched_mask`).
+ofa_sr_tpu/train/touched.py `sr_touched_mask` and `cls_touched_mask`).
 
 torch's optimizers skip a parameter whose grad is None: a module no sampled
 subnet executed in a step (blocks past a stage's depth, the transform
@@ -25,21 +25,28 @@ def _kt_used(ks_list, ks_used):
     return used
 
 
+def _block_touched(out, key, ks_list, ks_used):
+    """Mark the parameters under `key` (an MBConv block's prefix): touched
+    where some subnet ran the block (`ks_used`, the kernel sizes it ran at,
+    not empty), its transform matrices by `_kt_used`."""
+    used = _kt_used(ks_list, ks_used)
+    for name in out:
+        if name.startswith(key):
+            matrix = name.endswith("_matrix") and name.rsplit(".", 1)[1][:-len("_matrix")]
+            out[name] = bool(ks_used) and (not matrix or matrix in used)
+
+
 def _trunk_touched(out, prefix, block_offset, space, cfgs, trunk):
     """Mark trunk `trunk`'s MBConv blocks, `blocks.<block_offset + bi>`:
     block bi of stage s runs where bi % max_depth < d[s] for some subnet
-    (min'ed with max_depth, JAX's rule); its matrices by `_kt_used`."""
+    (min'ed with max_depth, JAX's rule)."""
     md = space.max_depth
     base_b, base_s = trunk * space.blocks_per_trunk, trunk * space.n_stages
     for bi in range(space.blocks_per_trunk):
         si, pos = bi // md, bi % md
         runs = [c for c in cfgs if pos < min(c.d[base_s + si], md)]
-        used = _kt_used(space.ks_list, {c.ks[base_b + bi] for c in runs})
-        key = "%s%d." % (prefix, block_offset + bi)
-        for name in out:
-            if name.startswith(key):
-                matrix = name.endswith("_matrix") and name.rsplit(".", 1)[1][:-len("_matrix")]
-                out[name] = bool(runs) and (not matrix or matrix in used)
+        _block_touched(out, "%s%d." % (prefix, block_offset + bi), space.ks_list,
+                       {c.ks[base_b + bi] for c in runs})
 
 
 def sr_touched_mask(net, cfgs, mode="sr"):
@@ -78,4 +85,22 @@ def sr_touched_mask(net, cfgs, mode="sr"):
     shuffle0 = dec0 + sp.blocks_per_trunk
     for i in range(n_shuffle):
         fill("blocks.%d." % (shuffle0 + i), i < max_pd)
+    return out
+
+
+def cls_touched_mask(net, archs):
+    """{parameter name: touched} over `net.named_parameters()` for an
+    ElasticClassifierNet given the ClsArchs a step executes: everything
+    outside the elastic blocks always; elastic block i of a stage where
+    i == 0 or i < d for some subnet, its matrices by the kernel sizes drawn.
+    Elastic width never changes touched-ness: torch gives a sliced weight
+    its whole (zero-padded) gradient."""
+    out = {name: True for name, _ in net.named_parameters()}
+    bi = 0
+    for si, spec in enumerate(net.stage_specs):
+        for i in range(spec.n_block):
+            runs = [a for a in archs if i == 0 or i < a.d[si]]
+            _block_touched(out, "blocks.%d." % (1 + bi), net.space.ks_list,
+                           {a.ks[bi] for a in runs})
+            bi += 1
     return out

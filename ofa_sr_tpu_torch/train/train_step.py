@@ -58,7 +58,7 @@ import torch
 from ..ops.elastic import spatial_valid_mask
 from ..parallel.mesh import all_reduce_sum
 from ..utils.metrics import psnr_from_mse, psnr_y_device, y_squared_error_sum
-from .graphs import ScanTrainStep
+from .graphs import SRWindowStep
 from .optim import GatedOpt, build_optimizer
 
 
@@ -173,7 +173,7 @@ class SRTrainer:
     def make_scan_train_step(self, n_subnets: int = 1, teacher=None):
         """The window step (JAX `make_scan_train_step`): returns a callable
         `step(batches, cfgs, lrs, touched=None)` that runs one optimizer step
-        a batch, `n_subnets` subnets each (`graphs.ScanTrainStep.__call__`),
+        a batch, `n_subnets` subnets each (`graphs.WindowStep.__call__`),
         with `train_step`'s semantics (KD, `bn_frozen`, `compute_dtype`,
         `clip_grad_norm`, torch's skip of untouched parameters) in the
         masked form, and returns the window's mean loss and PSNR-Y as 0-d
@@ -190,7 +190,7 @@ class SRTrainer:
             raise ValueError("kd_ratio > 0 needs a teacher")
         if not isinstance(self.opt, GatedOpt):
             self.opt = GatedOpt(self.opt)
-        return ScanTrainStep(self, n_subnets)
+        return SRWindowStep(self, n_subnets)
 
     def _global_metrics(self, losses, sq_errors):
         """The global batch's mean loss and PSNR-Y over the subnets, from
