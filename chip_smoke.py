@@ -132,7 +132,22 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    var, inv, running statistics; dx, dscale, dbias) at every path BN shape
    in float32 and bf16, the apply entry points against their plain
    versions, the all-reduce's ms a BN, and ms a step of the trainer with
-   and without the mesh. The two-rank timings on one card are no measure of
+   and without the mesh; then the window step under that mesh: the apply
+   entry points with the active width at the masked steps' BN shapes (the
+   SR step's C 384 at widths 0 and each middle width, the classification
+   step's with widths 0 and C) giving the fused calls' bits with the same
+   width, f32 and bf16, and against their plain versions; entry.train with
+   steps_per_dispatch 4 on the full-width S4 (bs16, 96 px, 2 windows of 4)
+   under the mesh, f32 and bf16, each distinct pass launching the mesh
+   route's four wrappers once per train-mode BN at its eager first run and
+   at its capture (the all-reduces captured with it) and the fused ones
+   never, its captures and replays counted, held to the same windows in
+   one process (and, in f32, that run to itself again: cuDNN's float32
+   convolutions vary between runs); one MBV3 bf16 window (ClsRunManager,
+   batch 64 at 224 px) the same way; a gloo group on the card refused with
+   ValueError before any launch; ms a step of the graphed one-subnet
+   window (16 steps) with and without the mesh, f32 and bf16. The two-rank
+   timings on one card, and the world-1 mesh's, are no measure of
    multi-GPU speed.
 9. (run after phase 8, before phase 6's timings and profiles) Subnet
    search: (c) `entry.search` on the full-width S4 (seeded weights, random
@@ -312,6 +327,7 @@ accuracy). Exits non-zero when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -415,6 +431,7 @@ from ofa_sr_tpu_torch.ops.kernels.shuffle_tail import (  # noqa: E402
     shuffle_tail_reference,
 )
 from ofa_sr_tpu_torch.ops.norm import batch_norm_train  # noqa: E402
+from ofa_sr_tpu_torch.parallel import Mesh  # noqa: E402
 from ofa_sr_tpu_torch.search import latency as search_latency  # noqa: E402
 from rank_launch import free_port, launch  # noqa: E402
 from ofa_sr_tpu_torch.train import (  # noqa: E402
@@ -424,7 +441,9 @@ from ofa_sr_tpu_torch.train import (  # noqa: E402
     SRRunManager,
     SRTrainer,
 )
+from ofa_sr_tpu_torch.train import graphs as graphs_mod  # noqa: E402
 from ofa_sr_tpu_torch.train.checkpoint import load_weights_lenient  # noqa: E402
+from ofa_sr_tpu_torch.train.optim import GatedOpt  # noqa: E402
 from ofa_sr_tpu_torch.train.tiled_infer import (  # noqa: E402
     receptive_field_radius,
     receptive_field_radius_autoencoder,
@@ -2299,7 +2318,399 @@ def nccl_world_one(g, dev):
     out["step_ms_rounds"] = step_ms
     print("  entry.train's step with and without the mesh (NCCL world 1), ms: %s"
           % {k: round(v, 4) for k, v in out["step_ms"].items()}, flush=True)
+    # the window step under the mesh: the apply kernels with the width, the
+    # graphed S4 window (its all-reduces captured) and an MBV3 bf16 window
+    # against one process, the gloo refusal, the window's step times
+    walls = {}
+    gd = torch.Generator(device=DEVICE).manual_seed(17)
+    for part, fn in (
+            ("apply_active", lambda: [apply_active_parity(gd, group, dt)
+                                      for dt in (torch.float32, BF16)]),
+            ("mesh_window_f32", lambda: mesh_window_main_path(mesh)),
+            ("mesh_window_bf16", lambda: mesh_window_main_path(mesh, BF16)),
+            ("mesh_cls_window_bf16", lambda: mesh_cls_window(mesh, tmp)),
+            ("gloo_refusal", lambda: gloo_refusal(dev)),
+            ("window_step_ms", lambda: mesh_window_times(mesh))):
+        t1 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="ofa_sr_p8_") as tmp:
+            res = fn()
+        walls[part] = time.perf_counter() - t1
+        if part == "apply_active":
+            for r in res:
+                out["errs"].update(r["errs"])
+            out["apply_active_ms"] = [t for r in res for t in r["ms"]]
+        else:
+            out[part] = res
+    out["window_part_wall_s"] = walls
+    print("  the window under the mesh took %s s" % {k: round(v, 1) for k, v in walls.items()},
+          flush=True)
     torch.distributed.destroy_process_group()
+    return out
+
+
+MESH_SPD, MESH_WINDOWS = 4, 2           # the graphed mesh window: bench.py's one-subnet
+                                        # envelope, 2 windows of 4 steps
+MESH_TIME_ROUNDS = 2                    # rounds of (no mesh, mesh, mesh, no mesh) windows
+# the wrappers of the mesh route, and the fused ones it never launches
+MESH_ROUTE_KEYS = ("col_sums2", "bn_bwd_sums", "bn_forward_from_sums", "bn_backward_from_sums")
+FUSED_KEYS = ("bn_forward", "bn_backward")
+
+
+def apply_active_parity(g, group, dtype=torch.float32):
+    """(e) The apply entry points with the active width at the masked steps'
+    BN shapes (the SR step's C 384 at each middle width and at 0; the
+    classification step's, widths 0 and C among them; a ragged one): at
+    NCCL world 1 the mesh route gives the fused calls' bits with the same
+    width (y, mean, var, inv, running statistics; dx, dscale, dbias), y,
+    dx, dscale and dbias 0 and the running statistics unchanged from the
+    width on; each apply entry point against its plain version with the
+    width, from the same totals (y, running statistics, dx); ms a launch
+    of each with the width (the middle candidates' mean, 256) and without
+    it at the SR step's C 384 shapes. `g`: a generator on the card (the
+    classification shapes hold 77M elements). Returns {"errs":
+    {"bn_forward_from_sums_active" [+ "_bf16"], "bn_backward_from_sums_active"
+    [+ "_bf16"]: max abs err at the paths' shapes}, "ms": [a row a shape]}."""
+    bf16 = dtype is BF16
+    key, tag = ("_bf16", " bf16") if bf16 else ("", "")
+    tol = BF16_DX_TOL if bf16 else TOL
+    kw = dict(momentum=0.1, eps=BN_EPS, update_var="unbiased")
+    cases = [(s, m, True) for s, m in masked_bn_shapes()]
+    cases += [(s, 0, True) for s in sorted({s for s, _ in masked_bn_shapes()})]
+    cases += cls_masked_bn_cases()
+    errs = {"bn_forward_from_sums_active" + key: 0.0, "bn_backward_from_sums_active" + key: 0.0}
+    times = []
+    for shape, m, on_path in cases:
+        n, c = int(np.prod(shape[:3])), shape[3]
+        name = "mesh route%s %s active %d" % (tag, shape, m)
+        x = (1.5 * torch.randn(shape, generator=g, device=DEVICE) + 0.3).to(dtype)
+        dy = torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+        scale = 0.5 + torch.rand(c, generator=g, device=DEVICE)
+        bias, rm0 = (0.2 * torch.randn(c, generator=g, device=DEVICE) for _ in range(2))
+        rv0 = 0.5 + torch.rand(c, generator=g, device=DEVICE)
+        st = [t.clone() for t in (rm0, rv0) * 3]
+        active = torch.tensor(m, dtype=torch.int32, device=DEVICE)
+        fused = bn_forward(x, scale, bias, st[0], st[1], active=active, **kw)
+        meshed = launched(bn_forward_from_sums, lambda: bn_forward(
+            x, scale, bias, st[2], st[3], group=group, active=active, **kw), bf16)
+        bwd = bn_backward(dy, x, scale, fused[1], fused[3], active=active)
+        bwd_mesh = launched(bn_backward_from_sums, lambda: bn_backward(
+            dy, x, scale, fused[1], fused[3], group=group, active=active), bf16)
+        torch.cuda.synchronize()
+        pairs = list(zip(("y", "mean", "var", "inv"), fused, meshed)) + [
+            ("running_mean", st[0], st[2]), ("running_var", st[1], st[3])] + \
+            list(zip(("dx", "dscale", "dbias"), bwd, bwd_mesh))
+        bad = [p for p, a, b in pairs if not torch.equal(a, b)]
+        if bad:
+            fail("%s: not the fused call's bits with the width: %s" % (name, bad))
+        if (meshed[0][..., m:].any() or any(t[..., m:].any() for t in bwd_mesh)
+                or not torch.equal(st[2][m:], rm0[m:]) or not torch.equal(st[3][m:], rv0[m:])):
+            fail("%s: y, dx, dscale or dbias is not 0, or a running statistic changed, past "
+                 "the width" % name)
+        flat = x.view(n, c)
+        sums = torch.cat(col_sums2_reference(flat, flat))
+        got = launched(bn_forward_from_sums, lambda: bn_forward_from_sums(
+            x, sums, scale, bias, st[4], st[5], n_total=n, active=active, **kw), bf16)
+        rm_p, rv_p = rm0.clone(), rv0.clone()
+        ref = bn_forward_from_sums_reference(x, sums, scale, bias, rm_p, rv_p, n_total=n,
+                                             active=active, **kw)
+        bsums = torch.cat(bn_bwd_sums_reference(dy.view(n, c), flat, fused[1], fused[3]))
+        got_b = launched(bn_backward_from_sums, lambda: bn_backward_from_sums(
+            dy, x, bsums, scale, fused[1], fused[3], n_total=n, active=active), bf16)
+        ref_b = bn_backward_from_sums_reference(dy, x, bsums, scale, fused[1], fused[3],
+                                                n_total=n,
+                                                live=torch.arange(c, device=DEVICE) < m)
+        torch.cuda.synchronize()
+        e_f = check_close(name + " bn_forward_from_sums y", got[0].float(), ref[0].float(), tol)
+        check_close(name + " bn_forward_from_sums running statistics",
+                    torch.cat(st[4:6]), torch.cat([rm_p, rv_p]), MOMENT_TOL)
+        e_b = check_close(name + " bn_backward_from_sums dx", got_b.float(), ref_b.float(), tol)
+        if got[0][..., m:].any() or got_b[..., m:].any():
+            fail("%s: an apply entry point's y or dx is not 0 past the width" % name)
+        if on_path:
+            errs["bn_forward_from_sums_active" + key] = max(
+                errs["bn_forward_from_sums_active" + key], e_f)
+            errs["bn_backward_from_sums_active" + key] = max(
+                errs["bn_backward_from_sums_active" + key], e_b)
+        if m == 256 and c == 384:
+            times.append({
+                "shape": list(shape), "active": m, "dtype": str(dtype).replace("torch.", ""),
+                "bn_forward_from_sums_ms": steady_ms(lambda: bn_forward_from_sums(
+                    x, sums, scale, bias, st[4], st[5], n_total=n, active=active, **kw)),
+                "bn_forward_from_sums_no_operand_ms": steady_ms(lambda: bn_forward_from_sums(
+                    x, sums, scale, bias, st[4], st[5], n_total=n, **kw)),
+                "bn_backward_from_sums_ms": steady_ms(lambda: bn_backward_from_sums(
+                    dy, x, bsums, scale, fused[1], fused[3], n_total=n, active=active)),
+                "bn_backward_from_sums_no_operand_ms": steady_ms(lambda: bn_backward_from_sums(
+                    dy, x, bsums, scale, fused[1], fused[3], n_total=n))})
+            print("  apply entry points %s ms a launch, with the width and without: %s"
+                  % (times[-1]["dtype"], {k: round(v, 4) for k, v in times[-1].items()
+                                          if k.endswith("_ms")}), flush=True)
+    print("  NCCL world 1, %s: the mesh route with the width gave the fused calls' bits at %d "
+          "masked shapes" % (dtype, len(cases)), flush=True)
+    return {"errs": errs, "ms": times}
+
+
+@contextlib.contextmanager
+def recorded_caches():
+    """The GraphCaches the window steps made meanwhile (entry.train and the
+    run managers make theirs inside)."""
+    made, base = [], graphs_mod.GraphCache
+
+    class Recorded(base):
+        def __init__(self, device):
+            super().__init__(device)
+            made.append(self)
+
+    graphs_mod.GraphCache = Recorded
+    try:
+        yield made
+    finally:
+        graphs_mod.GraphCache = base
+
+
+def mesh_counts_wrong(counts, expect, bf16, mesh):
+    """Why `counts` is not each BN wrapper of the route (the mesh route's
+    four, or the fused two without a mesh) launched `expect` times, all of
+    the run's type, and nothing else; None if it is."""
+    on = MESH_ROUTE_KEYS if mesh else FUSED_KEYS
+    want = {k: expect if k in on else 0 for k in MESH_ROUTE_KEYS + FUSED_KEYS}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        return "launched %s, expected %s" % (got, want)
+    if any(counts.get(k + "_bf16", 0) != (want[k] if bf16 else 0) for k in want):
+        return "launched BN kernels of the other type"
+    others = {k: v for k, v in counts.items() if v and k.replace("_bf16", "") not in want}
+    return "launched %s" % others if others else None
+
+
+def run_state(net):
+    return ({k: p.detach().clone() for k, p in net.named_parameters()},
+            {k: v.clone() for k, v in net.state_dict().items() if "running" in k})
+
+
+def state_diff(a, b):
+    """(max |a - b| over the parameters and the running statistics, bit for
+    bit equal)."""
+    diffs = [float((u[k].float() - v[k].float()).abs().max()) for u, v in zip(a, b) for k in u]
+    return max(diffs), all(torch.equal(u[k], v[k]) for u, v in zip(a, b) for k in u)
+
+
+def mesh_window_main_path(mesh, dtype=None):
+    """(e) The main path of the graphed window under a mesh: entry.train on
+    the full-width S4 at bench.py's one-subnet envelope (bs16, 96 px,
+    MESH_WINDOWS windows of MESH_SPD steps, Adam 1e-4) under the NCCL
+    world-1 mesh, counted: each distinct pass key launches every wrapper of
+    the mesh route once per train-mode BN at its eager first run and once
+    at its capture (its all-reduces captured with it), the fused
+    bn_forward / bn_backward never; captures (the passes and the update)
+    and replays. The same steps in one process launch the fused wrappers
+    as often. Parity: with cuDNN's deterministic algorithms the mesh
+    window's per-step losses, parameters and running statistics are the
+    one-process window's bits (PSNR-Y within 1e-6: the mesh forms it from
+    the summed squared errors); with the default algorithms (float32
+    convolutions vary between runs, and Adam at 1e-4 turns a near-zero
+    gradient's noise into a whole lr step) the per-step losses at STEP_TOL
+    (bf16: BF16_STEP_TOL), and the state's distance beside the one-process
+    window's distance from itself, run again (f32), reported."""
+    bf16 = dtype is BF16
+    space = SearchSpace()
+    steps = MESH_SPD * MESH_WINDOWS
+    keys = pass_keys([step_subnets(space, i, 1) for i in range(steps)])
+    expect = 2 * sum(3 * sum(d) + pd + 4 for d, pd in keys)
+    runs = {}
+    for label, m, det in (("mesh", mesh, False), ("one process", None, False),
+                          ("one process again", None, False),
+                          ("mesh, deterministic cuDNN", mesh, True),
+                          ("one process, deterministic cuDNN", None, True)):
+        if label == "one process again" and bf16:
+            continue
+        net = graph_net()
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        torch.backends.cudnn.deterministic = det
+        try:
+            with recorded_caches() as caches:
+                metrics = train(steps, device=DEVICE, net=net, compute_dtype=dtype, mesh=m,
+                                steps_per_dispatch=MESH_SPD)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in kernel_counts().items() if v}
+        cache = caches[0]
+        name = "entry.train %d steps%s, steps_per_dispatch %d, %s" % (
+            steps, " bf16" if bf16 else "", MESH_SPD,
+            label.replace("mesh", "NCCL world-1 mesh", 1) if m is not None else label)
+        print("  %s: BN launches %s (expected %d each: %d distinct passes at their eager first "
+              "run and capture), %d captures (%.2f s), %d replays, %.1f s"
+              % (name, counts, expect, len(keys), cache.captures, cache.capture_s,
+                 cache.replays, wall), flush=True)
+        wrong = mesh_counts_wrong(counts, expect, bf16, m is not None)
+        if wrong:
+            fail("%s %s" % (name, wrong))
+        if cache.captures != len(keys) + 1 or cache.replays != 2 * steps - cache.captures:
+            fail("%s: %d captures and %d replays, expected %d and %d"
+                 % (name, cache.captures, cache.replays, len(keys) + 1,
+                    2 * steps - len(keys) - 1))
+        if not all(np.isfinite(x["loss"]) and np.isfinite(x["psnr"]) for x in metrics):
+            fail("%s: non-finite metrics %s" % (name, metrics))
+        runs[label] = {"metrics": metrics, "launches": counts, "expected": expect,
+                       "captures": cache.captures, "replays": cache.replays,
+                       "capture_s": cache.capture_s, "wall_s": wall, "state": run_state(net)}
+        del net, cache, caches
+    out = {}
+    for label, ref_label in (("mesh", "one process"), ("one process again", "one process"),
+                             ("mesh, deterministic cuDNN", "one process, deterministic cuDNN")):
+        if label not in runs:
+            continue
+        got, ref = runs[label], runs[ref_label]
+        losses = [torch.tensor([x[k] for x in r["metrics"]], dtype=torch.float64)
+                  for r in (got, ref) for k in ("loss", "psnr")]
+        diff, bits = state_diff(got["state"], ref["state"])
+        rec = {"state_max_abs_diff": diff, "state_bits_equal": bits,
+               "loss_bits_equal": bool(torch.equal(losses[0], losses[2])),
+               "psnr_max_abs_diff": float((losses[1] - losses[3]).abs().max())}
+        print("  %s vs %s%s: state max |diff| %.3e (bits equal %s), losses bits equal %s, "
+              "PSNR-Y max |diff| %.3e" % (label, ref_label, " bf16" if bf16 else "", diff, bits,
+                                          rec["loss_bits_equal"], rec["psnr_max_abs_diff"]),
+              flush=True)
+        if "deterministic" in label:
+            if not (bits and rec["loss_bits_equal"]):
+                fail("%s: the mesh window at NCCL world 1 is not the one-process window's "
+                     "bits with deterministic cuDNN (state max |diff| %.3e)"
+                     % ("bf16" if bf16 else "f32", diff))
+            check_close("%s vs one process, per-step PSNR-Y" % label, losses[1], losses[3],
+                        dict(rtol=1e-6, atol=0))
+        elif label == "mesh":
+            check_close("mesh window vs one process, per-step losses", losses[0], losses[2],
+                        BF16_STEP_TOL if bf16 else STEP_TOL)
+        out["%s vs %s" % (label, ref_label)] = rec
+    for r in runs.values():
+        del r["state"]
+    return dict(runs=runs, comparisons=out)
+
+
+def mesh_cls_window(mesh, tmp):
+    """(e) One MBV3 bf16 window under the NCCL world-1 mesh: ClsRunManager
+    at steps_per_dispatch CLS_SPD, an epoch of one window (batch 64 at
+    224 px, one subnet a step, the kernel phase's draw, dropout 0.1 from the
+    run's seed), against the same epoch in one process: the mesh route's
+    wrappers launched 2 x the masked forward's train-mode BNs each (the one
+    pass key at its eager first run and capture), the fused ones never;
+    captures (the pass, the update) and replays; the epoch's loss at
+    BF16_STEP_TOL."""
+    out = {}
+    for label, m in (("mesh", mesh), ("one process", None)):
+        net = cls_train_net(OFAMobileNetV3, DEVICE, 41)
+        provider = SyntheticClsProvider(n_train=CLS_SPD * CLS_TRAIN_BATCH, n_test=8,
+                                        image_size=CLS_TRAIN_HW, n_classes=1000,
+                                        train_batch_size=CLS_TRAIN_BATCH, test_batch_size=8)
+        rc = RunConfig(n_epochs=1, base_lr=CLS_LR, warmup_epochs=0, opt_type="sgd",
+                       weight_decay=3e-5, momentum=0.9, nesterov=True,
+                       train_batch_size=CLS_TRAIN_BATCH, dynamic_batch_size=1,
+                       print_frequency=2, compute_dtype="bf16", steps_per_dispatch=CLS_SPD,
+                       manual_seed=0)
+        rm = ClsRunManager(os.path.join(tmp, "mesh_cls_" + label.replace(" ", "_")), net, rc,
+                           provider, label_smoothing=0.1, mesh=m)
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        loss, top1 = rm.train_one_epoch(0, dict(expand_candidates=[6], depth_candidates=[4]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in kernel_counts().items() if v}
+        cache = rm._scan_step.cache
+        expect = 2 * cls_masked_bn_count(net)
+        name = "ClsRunManager MBV3 bf16, steps_per_dispatch %d, %s" % (
+            CLS_SPD, "NCCL world-1 mesh" if m is not None else label)
+        print("  %s: BN launches %s (expected %d each), %d captures (%.2f s), %d replays, loss "
+              "%.5f top1 %.3f, %.1f s" % (name, counts, expect, cache.captures,
+                                          cache.capture_s, cache.replays, loss, top1, wall),
+              flush=True)
+        wrong = mesh_counts_wrong(counts, expect, True, m is not None)
+        if wrong:
+            fail("%s %s" % (name, wrong))
+        if cache.captures != 2 or cache.replays != 2 * CLS_SPD - 2:
+            fail("%s: %d captures and %d replays, expected 2 and %d"
+                 % (name, cache.captures, cache.replays, 2 * CLS_SPD - 2))
+        if not np.isfinite([loss, top1]).all():
+            fail("%s: non-finite epoch metrics %s" % (name, (loss, top1)))
+        out[label] = {"launches": counts, "expected": expect, "captures": cache.captures,
+                      "replays": cache.replays, "capture_s": cache.capture_s, "loss": loss,
+                      "top1": top1, "wall_s": wall}
+        del rm, net
+        torch.cuda.empty_cache()
+    check_close("MBV3 bf16 window, mesh vs one process, epoch loss",
+                torch.tensor([out["mesh"]["loss"]]), torch.tensor([out["one process"]["loss"]]),
+                BF16_STEP_TOL)
+    return out
+
+
+def gloo_refusal(dev):
+    """(e) A CUDA net under a gloo group (whose collectives a CUDA graph
+    cannot capture): make_scan_train_step raises ValueError naming the
+    backend, before any kernel launch and before its optimizer is taken
+    over."""
+    mesh = Mesh(torch.distributed.new_group(backend="gloo"), 0, 1, dev)
+    tr = SRTrainer(graph_net(), opt_type="adam", weight_decay=3e-5, mesh=mesh)
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    try:
+        tr.make_scan_train_step(1)
+        fail("make_scan_train_step took a gloo mesh on a CUDA net")
+    except ValueError as e:
+        msg = str(e)
+    counts = {k: v for k, v in kernel_counts().items() if v}
+    if "gloo" not in msg or counts or isinstance(tr.opt, GatedOpt):
+        fail("the gloo refusal did not name the backend, or came after a launch (%s) or after "
+             "taking over the optimizer: %s" % (counts, msg))
+    print("  gloo on CUDA refused before any launch: %s" % msg, flush=True)
+    torch.distributed.destroy_process_group(mesh.group)
+    return msg
+
+
+def mesh_window_times(mesh):
+    """(e) ms a step (CUDA events) and host enqueue ms of the graphed
+    one-subnet window at phase 13's envelope (bench.py's 16 steps, one
+    window, Adam) with and without the NCCL world-1 mesh, float32 and bf16,
+    MESH_TIME_ROUNDS rounds of (no mesh, mesh, mesh, no mesh) after a warm
+    window that captures. One card: no measure of multi-GPU speed."""
+    space = SearchSpace()
+    batch = synthetic_batch(BS, HR, DEVICE)
+    cfg_steps = bench_cfgs(space, SPD, 1)
+    out = {}
+    for dtype in (None, BF16):
+        runs = {}
+        for label, m in (("no mesh", None), ("mesh", mesh)):
+            tr = SRTrainer(graph_net(), opt_type="adam", weight_decay=3e-5, compute_dtype=dtype,
+                           mesh=m)
+            step = tr.make_scan_train_step(1)
+
+            def run(step=step):
+                step([batch] * SPD, cfg_steps, [BENCH_LR] * SPD)
+
+            run()
+            torch.cuda.synchronize()
+            runs[label] = run
+        times = {k: [] for k in runs}
+        for label in ("no mesh", "mesh", "mesh", "no mesh") * MESH_TIME_ROUNDS:
+            times[label].append(timed_steps(runs[label], SPD))
+        rec = {}
+        for label, t in times.items():
+            ev, host = zip(*t)
+            rec[label] = {"ms": list(ev), "host_enqueue_ms": list(host),
+                          "median_ms": float(np.median(ev)),
+                          "median_host_enqueue_ms": float(np.median(host))}
+        key = "bf16" if dtype else "f32"
+        print("  graphed window step ms (%s, %d one-subnet steps a window), median: no mesh "
+              "%.4f, NCCL world-1 mesh %.4f; host enqueue %.4f / %.4f"
+              % (key, SPD, rec["no mesh"]["median_ms"], rec["mesh"]["median_ms"],
+                 rec["no mesh"]["median_host_enqueue_ms"],
+                 rec["mesh"]["median_host_enqueue_ms"]), flush=True)
+        out[key] = rec
+        del runs, step, tr
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5196,6 +5607,31 @@ def main():
                                 "oracle CLIs": sum(d9[k]["launches"][key] for k in (
                                     "teacher validate", "teacher finetune", "ofa oracle"))}
     rows += apply_rows
+    # phase 8 (e)'s counted windows under the NCCL world-1 mesh and in one
+    # process beside them (each distinct pass counted at its eager first run
+    # and capture), and the apply entry points' errors with the active width
+    w1 = p8["nccl_world_1"]
+    windows8 = {"S4 window %s, %s" % (dt, label): run["launches"]
+                for dt in ("f32", "bf16") for label, run in w1["mesh_window_" + dt]["runs"].items()}
+    windows8.update({"MBV3 window bf16, %s" % label: run["launches"]
+                     for label, run in w1["mesh_cls_window_bf16"].items()})
+    row_wrapper = {id(r): w for r, w in zip(rows[2:8], ("bn_forward", "col_sums2",
+                                                        "bn_backward") * 2)}
+    for r in rows:
+        base = row_wrapper.get(id(r), ROW_WRAPPER.get(r["name"], r["name"].split()[0]))
+        bf16 = r.get("dtype") == "bfloat16" and base not in ("mbconv", "shuffle_tail")
+
+        def of_type(counts, wrapper, bf16=bf16):
+            return counts.get(wrapper + "_bf16", 0) if bf16 else (
+                counts.get(wrapper, 0) - counts.get(wrapper + "_bf16", 0))
+
+        r["launches_phase8_mesh_window"] = {w: of_type(c, base) for w, c in windows8.items()}
+        if base == "bn_backward":  # its pass 1 under the mesh counts under bn_bwd_sums
+            r["launches_phase8_mesh_window_bn_bwd_sums"] = {
+                w: of_type(c, "bn_bwd_sums") for w, c in windows8.items()}
+        if base in ("bn_forward_from_sums", "bn_backward_from_sums"):
+            r["max_abs_err_active_mesh"] = w1["errs"][base + "_active" + ("_bf16" if bf16
+                                                                          else "")]
     # phase 10's counted runs: the export phase's kernel frames (and their
     # checks and timings), the classification nets' train-mode forwards
     # (float32 only), the tutorial (training, evaluation, deployment)

@@ -6,7 +6,11 @@ be overridden; `--synthetic` swaps the dataset for the synthetic provider,
 so every entry point runs without an image tree. `--device` (default
 `cuda`) picks the card; `--device cpu` runs on the CPU. The JAX package's
 XLA-only flags (`--remat`, `--ks_switch`, `--dw_switch`, `--dw_align`) have
-no counterpart (ROADMAP queue 1 item 14).
+no counterpart (ROADMAP queue 1 item 14). Nor has its `s2d` option: the
+trunk in space-to-depth layout, block-diagonal 4x-deep 1x1 contractions
+for the TPU's matrix unit (ofa_sr_tpu/train/train_step.py:120-123), which
+changes no number; cuDNN and csrc/mbconv.cu take NHWC at any depth, so
+the layout buys nothing here.
 """
 
 from __future__ import annotations

@@ -105,7 +105,11 @@
 // coefficients there, so dx, dscale and dbias are 0: the gradient of the
 // re-masked y. The width is read on the device, never by the host, so a
 // CUDA graph replays the same launches for any width; a null pointer
-// leaves every bit as it was without the operand.
+// leaves every bit as it was without the operand. Under a mesh the width
+// reaches the same places: the backward's pass 1 (mode 2) zeroes this
+// rank's sums from it on, so dscale, dbias and the all-reduced totals are
+// 0 there; the apply calls' finish keeps the running statistics and writes
+// zero dx coefficients there, and the normalize writes y = 0.
 // The scratch `partial` (2*C*G floats), `out` (2*C), `coef` (3*C) and
 // `stats` (4*C) are allocated by the caller.
 
@@ -556,14 +560,18 @@ cudaError_t launch_norm_widest(const T* x, const float* stats,
 }
 
 // mode 0: col_sums2(a, b); 1: the moments (mean, biased var) of a's
-// columns, reading a once (b unused); 2: bn_bwd_sums(dy=a, x=b, mean, inv);
+// columns, reading a once (b unused); 2: bn_bwd_sums(dy=a, x=b, mean, inv),
+// with `active` (null, or the active width: 0 sums from it on, as the fused
+// backward's finish writes them; the backward's pass 1 under a mesh);
 // 3: (sum a, sum a*a) reading a once, the forward's pass 1 and its sums in
-// bn_fwd_finish_kernel's order (the forward's totals under a mesh).
+// bn_fwd_finish_kernel's order (the forward's totals under a mesh). Modes
+// other than 2 take no width.
 template <typename T>
 int col_sums2(const T* a, const T* b, const float* mean, const float* inv,
               float* partial, float* out, int N, int C, int G, int mode,
-              void* stream) {
-  if (bad_shape(N, C, G)) return (int)cudaErrorInvalidValue;
+              const int* active, void* stream) {
+  if (bad_shape(N, C, G) || (active != nullptr && mode != BWD))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case SUMS2:
@@ -575,7 +583,7 @@ int col_sums2(const T* a, const T* b, const float* mean, const float* inv,
     case BWD:
       if (mean == nullptr || inv == nullptr) return (int)cudaErrorInvalidValue;
       return (int)launch<BWD, T>(a, b, mean, inv, nullptr, partial, out,
-                                 nullptr, N, C, G, s);
+                                 nullptr, N, C, G, s, active);
     case FWD:
       return (int)launch<FWD, T>(a, a, mean, inv, nullptr, partial, out,
                                  nullptr, N, C, G, s);
@@ -629,7 +637,9 @@ int bn_forward(const T* x, const float* scale, const float* bias, float* rm,
 // apply part below starts from them and the global row count Ng, while the
 // normalize or dx pass runs over this rank's n rows. Its per-column
 // arithmetic is bn_fwd_finish_kernel's and finish_kernel<BWD>'s, on the
-// same sums, so at one rank the two calls give the fused call's bits.
+// same sums, so at one rank the two calls give the fused call's bits,
+// with the active width too (`active` as the fused calls take it; mode 2
+// zeroes the backward's sums from it on before the all-reduce).
 
 // the forward's finish from the totals: one thread a column
 __global__ void __launch_bounds__(THREADS)
@@ -637,56 +647,60 @@ bn_fwd_from_sums_kernel(const float* __restrict__ sums,
                         const float* __restrict__ scale, float* __restrict__ rm,
                         float* __restrict__ rv, float* __restrict__ stats, int Ng,
                         int C, float one_minus_m, float m, int unbiased,
-                        float unbias, float eps) {
+                        float unbias, float eps, const int* __restrict__ active) {
   const int c = blockIdx.x * THREADS + threadIdx.x;
   if (c >= C) return;
   bn_fwd_finalize(c, sums[c], sums[C + c], Ng, C, scale[c], rm, rv,
                   rm != nullptr ? rm[c] : 0.f, rv != nullptr ? rv[c] : 0.f,
-                  stats, one_minus_m, m, unbiased, unbias, eps);
+                  stats, one_minus_m, m, unbiased, unbias, eps,
+                  active == nullptr || c < *active);
 }
 
 // the backward's dx coefficients from the totals, as finish_kernel<BWD>
-// writes them: one thread a column
+// writes them: one thread a column, zero past the active width
 __global__ void __launch_bounds__(THREADS)
 bn_bwd_coef_kernel(const float* __restrict__ sums, const float* __restrict__ scale,
                    const float* __restrict__ inv, float* __restrict__ coef, int Ng,
-                   int C) {
+                   int C, const int* __restrict__ active) {
   const int c = blockIdx.x * THREADS + threadIdx.x;
   if (c >= C) return;
   const float n = (float)Ng;
-  coef[c] = inv[c] * scale[c];
-  coef[C + c] = sums[c] / n;
-  coef[2 * C + c] = sums[C + c] / n;
+  const bool live = active == nullptr || c < *active;
+  coef[c] = live ? inv[c] * scale[c] : 0.f;
+  coef[C + c] = (live ? sums[c] : 0.f) / n;
+  coef[2 * C + c] = (live ? sums[C + c] : 0.f) / n;
 }
 
 template <typename T>
 int bn_forward_from_sums(const T* x, const float* sums, const float* scale,
                          const float* bias, float* rm, float* rv, float* stats,
                          T* y, int n, int C, int Ng, double momentum,
-                         double eps, int unbiased, void* stream) {
+                         double eps, int unbiased, const int* active,
+                         void* stream) {
   if (n <= 0 || C <= 0 || Ng < n || !x || !sums || !scale || !bias ||
       !stats || !y || (rm == nullptr) != (rv == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   bn_fwd_from_sums_kernel<<<(C + THREADS - 1) / THREADS, THREADS, 0, s>>>(
       sums, scale, rm, rv, stats, Ng, C, (float)(1.0 - momentum), (float)momentum,
-      unbiased, (float)((double)Ng / (double)(Ng > 1 ? Ng - 1 : 1)), (float)eps);
+      unbiased, (float)((double)Ng / (double)(Ng > 1 ? Ng - 1 : 1)), (float)eps,
+      active);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_norm_widest<T>(x, stats, bias, y, n, C, s);
+  return (int)launch_norm_widest<T>(x, stats, bias, y, n, C, s, active);
 }
 
 template <typename T>
 int bn_backward_from_sums(const T* dy, const T* x, const float* sums,
                           const float* scale, const float* mean,
                           const float* inv, float* coef, T* dx, int n, int C,
-                          int Ng, void* stream) {
+                          int Ng, const int* active, void* stream) {
   if (n <= 0 || C <= 0 || Ng < n || !dy || !x || !sums || !scale || !mean ||
       !inv || !coef || !dx)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   bn_bwd_coef_kernel<<<(C + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-      sums, scale, inv, coef, Ng, C);
+      sums, scale, inv, coef, Ng, C, active);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_dx_widest<T>(dy, x, mean, inv, coef, dx, n, C, s);
@@ -696,22 +710,24 @@ int bn_backward_from_sums(const T* dy, const T* x, const float* sums,
 
 // `partial` holds 2*C*G floats, `out` 2*C: out[c] is the first result of
 // column c, out[C + c] the second. Pass 1 runs G blocks along the rows,
-// each over ceil(N / G) rows. mode: see col_sums2 above.
+// each over ceil(N / G) rows. mode and `active` (mode 2 only, else null):
+// see col_sums2 above.
 extern "C" int ofa_col_sums2_f32(const float* a, const float* b,
                                  const float* mean, const float* inv,
                                  float* partial, float* out, int N, int C,
-                                 int G, int mode, void* stream) {
+                                 int G, int mode, const int* active,
+                                 void* stream) {
   return col_sums2<float>(a, b, mean, inv, partial, out, N, C, G, mode,
-                          stream);
+                          active, stream);
 }
 
 extern "C" int ofa_col_sums2_bf16(const __nv_bfloat16* a,
                                   const __nv_bfloat16* b, const float* mean,
                                   const float* inv, float* partial,
                                   float* out, int N, int C, int G, int mode,
-                                  void* stream) {
+                                  const int* active, void* stream) {
   return col_sums2<__nv_bfloat16>(a, b, mean, inv, partial, out, N, C, G,
-                                  mode, stream);
+                                  mode, active, stream);
 }
 
 // The train-mode BN backward: out = (s1 = dbias, s2 = dscale) as in mode 2,
@@ -769,16 +785,18 @@ extern "C" int ofa_bn_forward_bf16(const __nv_bfloat16* x, const float* scale,
 // The apply part of the forward under a mesh: from sums = [sum x | sum x*x]
 // (2*C floats) over all Ng rows of every rank, stats (as ofa_bn_forward_*)
 // and the running statistics' update (the unbiased factor Ng/(Ng-1)), then
-// y over this rank's n rows of x.
+// y over this rank's n rows of x. `active`: null, or the device address of
+// the active width (columns from it on: running statistics kept, y 0).
 extern "C" int ofa_bn_forward_from_sums_f32(const float* x, const float* sums,
                                             const float* scale, const float* bias,
                                             float* running_mean, float* running_var,
                                             float* stats, float* y, int n, int C,
                                             int Ng, double momentum, double eps,
-                                            int unbiased, void* stream) {
+                                            int unbiased, const int* active,
+                                            void* stream) {
   return bn_forward_from_sums<float>(x, sums, scale, bias, running_mean,
                                      running_var, stats, y, n, C, Ng, momentum,
-                                     eps, unbiased, stream);
+                                     eps, unbiased, active, stream);
 }
 
 extern "C" int ofa_bn_forward_from_sums_bf16(const __nv_bfloat16* x, const float* sums,
@@ -786,22 +804,26 @@ extern "C" int ofa_bn_forward_from_sums_bf16(const __nv_bfloat16* x, const float
                                              float* running_mean, float* running_var,
                                              float* stats, __nv_bfloat16* y, int n,
                                              int C, int Ng, double momentum,
-                                             double eps, int unbiased, void* stream) {
+                                             double eps, int unbiased,
+                                             const int* active, void* stream) {
   return bn_forward_from_sums<__nv_bfloat16>(x, sums, scale, bias, running_mean,
                                              running_var, stats, y, n, C, Ng,
-                                             momentum, eps, unbiased, stream);
+                                             momentum, eps, unbiased, active,
+                                             stream);
 }
 
 // The apply part of the backward under a mesh: from sums = [sum dy | sum
 // dy*xhat] over all Ng rows, the dx coefficients into coef (3*C floats),
-// then dx over this rank's n rows.
+// then dx over this rank's n rows. `active`: null, or the device address of
+// the active width (columns from it on: coefficients and dx 0).
 extern "C" int ofa_bn_backward_from_sums_f32(const float* dy, const float* x,
                                              const float* sums, const float* scale,
                                              const float* mean, const float* inv,
                                              float* coef, float* dx, int n, int C,
-                                             int Ng, void* stream) {
+                                             int Ng, const int* active,
+                                             void* stream) {
   return bn_backward_from_sums<float>(dy, x, sums, scale, mean, inv, coef, dx,
-                                      n, C, Ng, stream);
+                                      n, C, Ng, active, stream);
 }
 
 extern "C" int ofa_bn_backward_from_sums_bf16(const __nv_bfloat16* dy,
@@ -809,9 +831,10 @@ extern "C" int ofa_bn_backward_from_sums_bf16(const __nv_bfloat16* dy,
                                               const float* sums, const float* scale,
                                               const float* mean, const float* inv,
                                               float* coef, __nv_bfloat16* dx, int n,
-                                              int C, int Ng, void* stream) {
+                                              int C, int Ng, const int* active,
+                                              void* stream) {
   return bn_backward_from_sums<__nv_bfloat16>(dy, x, sums, scale, mean, inv,
-                                              coef, dx, n, C, Ng, stream);
+                                              coef, dx, n, C, Ng, active, stream);
 }
 
 extern "C" const char* ofa_cuda_error_string(int e) {

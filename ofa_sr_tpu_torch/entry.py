@@ -159,7 +159,7 @@ def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda
     `steps_per_dispatch` > 1: windows of that many steps through
     `SRTrainer.make_scan_train_step` (the masked step, as CUDA-graph
     replays on a CUDA net), the last window shorter where `steps` is not a
-    multiple; not with a mesh.
+    multiple; with a mesh too (NCCL on the card).
     Returns each step's {"loss", "psnr"} (the global batch's) as floats."""
     dev = resolve_device(device)
     net = _default_net(net, mode, dev, "train")

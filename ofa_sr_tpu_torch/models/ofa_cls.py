@@ -379,7 +379,7 @@ class ElasticClassifierNet(nn.Module):
 
     def forward_masked(self, x, arch, *, training=False, bn_training=None, use_kernels=None,
                        dropout_generator: Optional[torch.Generator] = None,
-                       compute_dtype: Optional[torch.dtype] = None):
+                       compute_dtype: Optional[torch.dtype] = None, bn_group=None):
         """`forward` in the masked form (JAX `apply`): `arch` is the device
         arch (`device_arch`), read on the device only. Every layer runs at
         its max shape: the elastic widths are channel masks (the BNs'
@@ -391,15 +391,15 @@ class ElasticClassifierNet(nn.Module):
         writes 0 and keeps its running statistics (JAX's where over its
         state). Dropout draws the shape of the max-width features, which is
         the sliced forward's where the widths are not elastic. The other
-        arguments are `forward`'s (no mesh: the masked form's BN widths are
-        not taken under a group)."""
+        arguments are `forward`'s: under `bn_group` every train-mode BN
+        takes the moments of all the ranks' rows with its width."""
         bnt = bool(training if bn_training is None else bn_training)
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
         cd = compute_dtype
         if cd is not None:
             x = x.to(cd)
-        bn = dict(bn_training=bnt, use_kernels=use_kernels)
+        bn = dict(bn_training=bnt, use_kernels=use_kernels, bn_group=bn_group)
 
         def elastic(widths, key):
             return arch[key] if len(set(widths)) > 1 else None

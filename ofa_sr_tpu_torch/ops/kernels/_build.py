@@ -82,18 +82,18 @@ _VP, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _FUNCTIONS = {
     "ofa_mbconv_f32": ("mbconv", [_VP] * 8 + [_INT] * 9 + [_VP]),
     "ofa_shuffle_tail_f32": ("shuffle_tail", [_VP] * 4 + [_INT] * 5 + [_VP]),
-    "ofa_col_sums2_f32": ("bn_stats", [_VP] * 6 + [_INT] * 4 + [_VP]),
+    "ofa_col_sums2_f32": ("bn_stats", [_VP] * 6 + [_INT] * 4 + [_VP, _VP]),
     "ofa_bn_backward_f32": ("bn_stats", [_VP] * 9 + [_INT] * 3 + [_VP, _VP]),
-    "ofa_col_sums2_bf16": ("bn_stats", [_VP] * 6 + [_INT] * 4 + [_VP]),
+    "ofa_col_sums2_bf16": ("bn_stats", [_VP] * 6 + [_INT] * 4 + [_VP, _VP]),
     "ofa_bn_backward_bf16": ("bn_stats", [_VP] * 9 + [_INT] * 3 + [_VP, _VP]),
     "ofa_bn_forward_f32": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP, _VP]),
     "ofa_bn_forward_bf16": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP, _VP]),
     "ofa_bn_forward_from_sums_f32": ("bn_stats",
-                                     [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP]),
+                                     [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP, _VP]),
     "ofa_bn_forward_from_sums_bf16": ("bn_stats",
-                                      [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP]),
-    "ofa_bn_backward_from_sums_f32": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_VP]),
-    "ofa_bn_backward_from_sums_bf16": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_VP]),
+                                      [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP, _VP]),
+    "ofa_bn_backward_from_sums_f32": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_VP, _VP]),
+    "ofa_bn_backward_from_sums_bf16": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_VP, _VP]),
 }
 SOURCES = tuple(sorted({src for src, _ in _FUNCTIONS.values()}))
 _fns = {}   # C name -> the bound ctypes function

@@ -10,7 +10,7 @@ ofa_sr_tpu/ops/pallas/bn_stats.py.
     bn_backward(dy, x, scale, m, inv) -> (dx, dscale, dbias)
     bn_forward_from_sums(x, sums, scale, bias, running stats, *, n_total, ...)
                                -> (y, mean, var, inv)
-    bn_backward_from_sums(dy, x, sums, scale, m, inv, *, n_total) -> dx
+    bn_backward_from_sums(dy, x, sums, scale, m, inv, *, n_total, active) -> dx
 
 all accumulated in float32, from float32 or bfloat16 activations (a, b,
 dy, x of one type; the vectors mean, inv, scale, bias and the running
@@ -69,7 +69,10 @@ of those columns, so dx, dscale and dbias are 0 there, the gradient of the
 re-masked y. The width is read on the device, so a captured CUDA graph
 replays the same launches for any width. Without it the launches and bits
 are those of the call without the operand. The plain versions take the
-same operand. Not under a mesh.
+same operand. Under a mesh the width goes with the group: the backward's
+pass 1 (`col_sums2` mode 2) zeroes this rank's sums from it on before the
+all-reduce, and the apply entry points take it as the fused calls do, so
+at one rank the mesh route gives the fused call's bits with it too.
 
 A wrapper call is host work the training step waits on (~90 calls a step):
 the pass-1 grid is cached per (N, C, device), and each call allocates one
@@ -272,9 +275,10 @@ def _count(wrapper, suffix):
         wrapper.launches_bf16 += 1
 
 
-def _launch(mode, a, b, mean=None, inv=None):
+def _launch(mode, a, b, mean=None, inv=None, active=None):
     """Both passes of csrc/bn_stats.cu; returns the (2C,) float32 results,
-    [first | second], and the entry point's suffix. A call allocates one
+    [first | second], and the entry point's suffix. `active` (mode 2, a
+    checked width): the sums are 0 from it on. A call allocates one
     buffer, [out (2C) | partials (2CG)], and passes pointers into it: tensor
     views would cost more host time than the small launches take on the
     device."""
@@ -283,7 +287,7 @@ def _launch(mode, a, b, mean=None, inv=None):
     g = _grid(n, c, suffix, device)
     buf = torch.empty(2 * c * (g + 1), device=device, dtype=torch.float32)
     _build.launch("ofa_col_sums2_" + suffix, device, a, b, mean, inv, buf.data_ptr() + 8 * c,
-                  buf, n, c, g, mode)
+                  buf, n, c, g, mode, active)
     _count(bn_bwd_sums if mode == MODE_BWD else col_sums2, suffix)
     return buf[:2 * c], suffix
 
@@ -352,7 +356,7 @@ def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
     bits of the call without a group.
 
     `active` (a one-element int32 tensor on x's device): the masked form's
-    active width (module docstring); not with a group."""
+    active width (module docstring), with or without a group."""
     if momentum is None:
         raise ValueError("bn_forward takes a float momentum (the EMA), not None")
     if update_var not in UPDATE_VARS:
@@ -361,8 +365,6 @@ def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
         raise ValueError("bn_forward takes both running statistics or neither")
     device = x.device
     _check_active(active, device)
-    if active is not None and group is not None:
-        raise ValueError("bn_forward takes no active width under a mesh")
     if device.type == "cpu":
         return bn_forward_reference(x, scale, bias, running_mean, running_var,
                                     momentum=momentum, eps=eps, update_var=update_var,
@@ -380,7 +382,8 @@ def bn_forward(x, scale, bias, running_mean, running_var, *, momentum, eps=1e-5,
     if group is not None:
         sums = all_reduce_sum(_launch(MODE_FWD_SUMS, x, x)[0], group)
         return _forward_from_sums(x, sums, scale, bias, running_mean, running_var, n, c,
-                                  n * world_size(group), suffix, momentum, eps, update_var)
+                                  n * world_size(group), suffix, momentum, eps, update_var,
+                                  active)
     g = _grid(n, c, suffix, device)
     y = torch.empty_like(x)
     # [mean | var | inv | inv*scale (4C) | partials (2CG)]
@@ -408,18 +411,16 @@ def bn_backward(dy, x, scale, mean, inv, *, group=None, active=None):
     all-reduce adds up with every other parameter's.
 
     `active` (the forward's): dx, dscale and dbias are 0 from that column
-    on; not with a group."""
+    on, with or without a group."""
     device = dy.device
     _check_active(active, device)
-    if active is not None and group is not None:
-        raise ValueError("bn_backward takes no active width under a mesh")
     if device.type == "cpu":
         return bn_backward_reference(dy, x, scale, mean, inv, group=group, active=active)
     n, c, suffix = _check(dy, x, mean=mean, inv=inv, scale=scale)
     if group is not None:
-        local = _launch(MODE_BWD, dy, x, mean, inv)[0]
+        local = _launch(MODE_BWD, dy, x, mean, inv, active)[0]
         dx = _backward_from_sums(dy, x, all_reduce_sum(local.clone(), group), scale, mean, inv,
-                                 n, c, n * world_size(group), suffix)
+                                 n, c, n * world_size(group), suffix, active)
         return dx, local[c:], local[:c]
     g = _grid(n, c, suffix, device)
     dx = torch.empty_like(dy)
@@ -441,21 +442,23 @@ def _check_total(n, n_total):
 
 
 def bn_forward_from_sums(x, sums, scale, bias, running_mean, running_var, *, n_total,
-                         momentum, eps=1e-5, update_var="unbiased"):
+                         momentum, eps=1e-5, update_var="unbiased", active=None):
     """The apply part of `bn_forward` under a mesh: (y, mean, var, inv) for
     this rank's x from `sums` = [sum x | sum x*x] (2C float32) over
     `n_total` rows of every rank, the running statistics updated in place
     (the unbiased var from n_total). One call of two launches on the card
     (csrc/bn_stats.cu `ofa_bn_forward_from_sums_*`: the finish of the fused
-    forward on the totals, then its normalize)."""
+    forward on the totals, then its normalize). `active`: `bn_forward`'s
+    (the running statistics kept and y 0 from it on)."""
     if update_var not in UPDATE_VARS:
         raise ValueError("update_var must be 'unbiased' or 'biased', got %r" % (update_var,))
     if (running_mean is None) != (running_var is None):
         raise ValueError("bn_forward_from_sums takes both running statistics or neither")
+    _check_active(active, x.device)
     if x.device.type == "cpu":
         return bn_forward_from_sums_reference(
             x, sums, scale, bias, running_mean, running_var, n_total=n_total,
-            momentum=momentum, eps=eps, update_var=update_var)
+            momentum=momentum, eps=eps, update_var=update_var, active=active)
     if not x.is_contiguous():
         raise ValueError("bn_forward_from_sums takes a row-contiguous x; got strides %s"
                          % (x.stride(),))
@@ -466,45 +469,48 @@ def bn_forward_from_sums(x, sums, scale, bias, running_mean, running_var, *, n_t
     if sums.shape != (2 * c,):
         raise ValueError("sums must be (2C,) = (%d,); got %s" % (2 * c, tuple(sums.shape)))
     return _forward_from_sums(x, sums, scale, bias, running_mean, running_var, n, c, n_total,
-                              suffix, momentum, eps, update_var)
+                              suffix, momentum, eps, update_var, active)
 
 
 def _forward_from_sums(x, sums, scale, bias, running_mean, running_var, n, c, n_total, suffix,
-                       momentum, eps, update_var):
+                       momentum, eps, update_var, active):
     """`bn_forward_from_sums`'s launch on checked operands (`bn_forward`
     under a mesh calls it after its own checks)."""
     y = torch.empty_like(x)
     stats = torch.empty(4 * c, device=x.device, dtype=torch.float32)
     _build.launch("ofa_bn_forward_from_sums_" + suffix, x.device, x, sums, scale, bias,
                   running_mean, running_var, stats, y, n, c, n_total, momentum, eps,
-                  update_var == "unbiased")
+                  update_var == "unbiased", active)
     _count(bn_forward_from_sums, suffix)
     mean, var, inv, _ = stats.split(c)
     return y, mean, var, inv
 
 
-def bn_backward_from_sums(dy, x, sums, scale, mean, inv, *, n_total):
+def bn_backward_from_sums(dy, x, sums, scale, mean, inv, *, n_total, active=None):
     """The apply part of `bn_backward` under a mesh: dx for this rank's dy
     and x from `sums` = [sum dy | sum dy*xhat] (2C float32) over `n_total`
     rows of every rank. One call of two launches on the card
     (csrc/bn_stats.cu `ofa_bn_backward_from_sums_*`: the dx coefficients,
-    then the fused backward's dx pass)."""
+    then the fused backward's dx pass). `active`: `bn_backward`'s (the
+    coefficients, so dx, 0 from it on)."""
+    _check_active(active, dy.device)
     if dy.device.type == "cpu":
-        return bn_backward_from_sums_reference(dy, x, sums, scale, mean, inv, n_total=n_total)
+        return bn_backward_from_sums_reference(dy, x, sums, scale, mean, inv, n_total=n_total,
+                                               live=_live(x.shape[-1], active, x.device))
     n, c, suffix = _check(dy, x, mean=mean, inv=inv, scale=scale)
     _check_total(n, n_total)
     _build.require_cuda(dy.device, torch.float32, sums=sums)
     if sums.shape != (2 * c,):
         raise ValueError("sums must be (2C,) = (%d,); got %s" % (2 * c, tuple(sums.shape)))
-    return _backward_from_sums(dy, x, sums, scale, mean, inv, n, c, n_total, suffix)
+    return _backward_from_sums(dy, x, sums, scale, mean, inv, n, c, n_total, suffix, active)
 
 
-def _backward_from_sums(dy, x, sums, scale, mean, inv, n, c, n_total, suffix):
+def _backward_from_sums(dy, x, sums, scale, mean, inv, n, c, n_total, suffix, active):
     """`bn_backward_from_sums`'s launch on checked operands."""
     dx = torch.empty_like(dy)
     coef = torch.empty(3 * c, device=dy.device, dtype=torch.float32)
     _build.launch("ofa_bn_backward_from_sums_" + suffix, dy.device, dy, x, sums, scale, mean,
-                  inv, coef, dx, n, c, n_total)
+                  inv, coef, dx, n, c, n_total, active)
     _count(bn_backward_from_sums, suffix)
     return dx
 

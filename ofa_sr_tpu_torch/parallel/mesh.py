@@ -112,6 +112,14 @@ def world_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def capturable(group) -> bool:
+    """Whether a CUDA graph can capture `group`'s collectives: NCCL's run
+    on the device (once the communicator exists, made by an eager
+    collective first), gloo's pass through the host. True for None (no
+    collective)."""
+    return group is None or dist.get_backend(group) == dist.Backend.NCCL
+
+
 class _AllReduceSum(torch.autograd.Function):
     """all_reduce(SUM) with its gradient: each rank's input feeds every
     rank's output, so the cotangent is the sum of the ranks' cotangents."""

@@ -29,9 +29,11 @@ shorter than a window through the same step (JAX runs it eagerly), and
 records once a window: its metrics are the window's means, and it logs
 where a print boundary falls inside the window (JAX's rule). At 1 each
 step runs `train_step` eagerly in the sliced form, where torch's
-optimizers skip the blocks no subnet ran (a None gradient). Not under a
-mesh yet (ROADMAP queue 1 item 14). `_apply_dw_live` and `remat` are
-XLA-only levers, not ported (item 14).
+optimizers skip the blocks no subnet ran (a None gradient). Under a mesh
+the windows keep the rules above: each batch of a window split over the
+ranks, the same archs and lrs on every rank, the global batch's metrics
+(NCCL on the card, its collectives captured in the graphs).
+`_apply_dw_live` and `remat` are XLA-only levers, not ported (item 14).
 """
 
 from __future__ import annotations
@@ -84,10 +86,6 @@ class ClsRunManager:
             compute_dtype=_compute_dtype_of(rc), use_kernels=use_kernels, mesh=mesh,
             dropout_seed=rc.manual_seed + 1)
         if mesh is not None:
-            if rc.steps_per_dispatch > 1:
-                raise NotImplementedError(
-                    "steps_per_dispatch > 1 under a mesh is not ported: NCCL inside a CUDA "
-                    "graph, ROADMAP.md queue 1 item 14")
             shard_params(net, mesh)
         self._scan_step = None
 
@@ -206,7 +204,7 @@ class ClsRunManager:
             archs = self.sample_archs(epoch, n_batch, i, constraints)
             n = len(batch["label"])
             if self._scan_step is not None:
-                pending.append((self._to_device(batch), archs, lr, n, i))
+                pending.append((self._to_device(batch, shard=True), archs, lr, n, i))
                 if len(pending) == rc.steps_per_dispatch:
                     flush()
                 continue

@@ -37,9 +37,10 @@ program (`cls_trainer.py:154-219`): a window of steps in the masked form
 (`ElasticClassifierNet.forward_masked`, every block run, depth a device
 gate), as CUDA-graph replays on a CUDA net (`train/graphs.py`), with the
 optimizer gated by each step's `cls_touched_mask` (`optim.GatedOpt`); on a
-CPU net the same masked steps run eagerly. Not under a mesh yet (ROADMAP
-queue 1 item 14). JAX's XLA-only levers (`remat`, `ks_switch`,
-`dw_switch`, `dw_opts`) have no counterpart (item 14).
+CPU net the same masked steps run eagerly. Under a mesh the window has the
+eager step's global-batch semantics (`graphs.WindowStep`), its collectives
+captured in the graphs over NCCL. JAX's XLA-only levers (`remat`,
+`ks_switch`, `dw_switch`, `dw_opts`) have no counterpart (item 14).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import torch
 
 from ..parallel.mesh import all_reduce_sum
 from .graphs import ClsWindowStep
-from .optim import GatedOpt, build_optimizer
+from .optim import build_optimizer
 from .train_step import average_gradients
 
 
@@ -121,12 +122,12 @@ class ClsTrainer:
         forward) or, `masked`, the net's device arch (`forward_masked`)."""
         labels = batch["label"]
         kw = dict(training=True, bn_training=not self.bn_frozen, use_kernels=self.use_kernels,
-                  dropout_generator=self.dropout_generator, compute_dtype=self.compute_dtype)
+                  dropout_generator=self.dropout_generator, compute_dtype=self.compute_dtype,
+                  bn_group=None if self.bn_frozen else self._group)
         if masked:
             logits = self.net.forward_masked(batch["image"], arch, **kw)
         else:
-            logits = self.net(batch["image"], arch,
-                              bn_group=None if self.bn_frozen else self._group, **kw)
+            logits = self.net(batch["image"], arch, **kw)
         ce = cross_entropy(logits, labels, self.label_smoothing)
         if soft is not None:
             kd = (soft_target_ce(logits, soft) if self.kd_type == "ce"
@@ -171,14 +172,15 @@ class ClsTrainer:
         tensors. `teacher` (net, its ClsArch) replaces the trainer's own.
         The trainer's optimizer becomes a `GatedOpt` holding the same state
         (its `state_dict` keeps torch's layout); `train_step` still runs
-        with it. Not under a mesh."""
-        if self.mesh is not None:
-            raise NotImplementedError("make_scan_train_step (steps_per_dispatch > 1) under a "
-                                      "mesh is not ported: ROADMAP.md queue 1 item 14")
+        with it.
+
+        Under a mesh each rank passes its rows of each batch (the same
+        archs and lrs on every rank); the metrics that come back are the
+        global batch's, as `train_step`'s, and every rank ends with the
+        same parameters. On a CUDA net the mesh's backend must be NCCL,
+        whose collectives the graphs capture (`graphs.WindowStep`)."""
         if teacher is not None:
             self.teacher = teacher
-        if not isinstance(self.opt, GatedOpt):
-            self.opt = GatedOpt(self.opt)
         return ClsWindowStep(self, n_subnets)
 
     def eval_step(self, batch, arch):

@@ -39,6 +39,25 @@ as an eager call would: capture advances no generator, and a replay
 advances it by what its kernels draw. On a CPU net the same code runs
 eagerly, part by part: the CPU tests' path.
 
+Under a mesh (the trainer's `mesh`, data parallelism; each rank passes
+its rows of every batch, the same subnets, touched masks and lrs) the
+window has the eager step's global-batch semantics, with its collectives
+inside the parts that issue them:
+- every train-mode BN of a pass all-reduces its column totals each way
+  (the BN wrappers' `group`), inside the pass's graph;
+- the update first sums the flat gradient buffer over the ranks and
+  divides it by the world size (`train_step.average_gradients`), then
+  clips and steps, inside the update's graph;
+- each pass keeps this rank's parts of the metrics (the SR loss and the
+  sum and count of its squared Y errors; the classification loss, top-1
+  and top-5), and one all-reduce a window, after the last replay, makes
+  them the global batch's.
+On a CUDA net the graphs capture NCCL's collectives: the communicator is
+made by the first eager run of a key that issues one, before any capture.
+A CUDA net under a group whose collectives cannot be captured (gloo, which
+copies through the host) raises ValueError when the window step is made,
+before anything runs. On a CPU net, over gloo, every part runs eagerly.
+
 A wrapper's launch counter counts the eager first run and the capture of
 each graph, not its replays.
 """
@@ -50,8 +69,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.arch import MaskedArch
+from ..parallel.mesh import all_reduce_sum, capturable, world_size
+from ..utils.metrics import psnr_from_mse
+from .optim import GatedOpt
 from .touched import cls_touched_mask, sr_touched_mask
 
 
@@ -122,22 +145,34 @@ class WindowStep:
     docstring): the part the SR and classification window steps share.
     A subclass gives the subnet's `arch` row (`arch_row`), its touched mask
     (`touched_mask`), a pass's graph key (`pass_key`), the pass's loss and
-    metrics (`subnet_pass`), the teacher's output (`teacher_forward`) and
-    the result's names (`metric_names`: (window mean, per step) pairs)."""
+    metrics (`subnet_pass`: `parts` values, this rank's under a mesh), the
+    global batch's metrics from the ranks' summed parts (`global_rows`),
+    the teacher's output (`teacher_forward`) and the result's names
+    (`metric_names`: (window mean, per step) pairs). The trainer's
+    optimizer becomes a `GatedOpt` holding the same state."""
 
     metric_names = ()
 
-    def __init__(self, trainer, n_subnets, arch_len):
-        self.trainer = trainer
-        self.k = n_subnets
+    def __init__(self, trainer, n_subnets, arch_len, parts=None):
         net = trainer.net
         self.device = net.device
+        self.group = trainer._group
+        if self.device.type == "cuda" and not capturable(self.group):
+            raise ValueError(
+                "a window step on a CUDA net captures its collectives in CUDA graphs, which "
+                "NCCL's allow and this mesh's backend %r does not (its collectives pass "
+                "through the host): run the mesh over NCCL" % dist.get_backend(self.group))
+        self.world = world_size(self.group)
+        if not isinstance(trainer.opt, GatedOpt):
+            trainer.opt = GatedOpt(trainer.opt)
+        self.trainer = trainer
+        self.k = n_subnets
         self.opt = trainer.opt
         self.names = {id(p): n for n, p in net.named_parameters()}
         self.cache = GraphCache(self.device)
         # the pass graphs' subnet (the subclass's view of it)
         self.arch = torch.zeros(arch_len, dtype=torch.int32, device=self.device)
-        self.metrics = torch.zeros(len(self.metric_names), device=self.device)
+        self.metrics = torch.zeros(parts or len(self.metric_names), device=self.device)
         self.inputs = {}       # (name, shape, dtype) -> static batch tensor
         self.teacher_out = {}  # teacher key -> static teacher output
 
@@ -165,7 +200,8 @@ class WindowStep:
         or one {parameter name: bool} a step. Updates the parameters, the
         optimizer's state and the running statistics in place. Returns the
         window's mean of each metric and each step's mean over its subnets,
-        under `metric_names`, as device tensors."""
+        under `metric_names`, as device tensors. Under a mesh each batch is
+        this rank's rows and the metrics are the global batch's."""
         n, k, dev = len(batches), self.k, self.device
         if not (len(archs) == len(lrs) == n) or any(len(c) != k for c in archs):
             raise ValueError("a window takes one batch, %d subnets and one lr a step; got %d "
@@ -177,7 +213,7 @@ class WindowStep:
                                   np.int32), dev)
         lr = _pinned(np.asarray(lrs, np.float32), dev)
         flags = _pinned(np.asarray([self._touched_row(m) for m in touched], np.bool_), dev)
-        metrics = torch.empty(n * k, len(self.metric_names), device=dev)
+        metrics = torch.empty(n * k, self.metrics.numel(), device=dev)
         cache, opt = self.cache, self.opt
         main = torch.cuda.current_stream(dev) if cache.cuda else None
         if cache.cuda:
@@ -199,7 +235,9 @@ class WindowStep:
                     cache.run(self.pass_key(a, shapes, t_out is not None),
                               lambda: self._pass(sb, a, t_out))
                     metrics[i * k + j].copy_(self.metrics)
-                cache.run(("update",), lambda: opt.update(self.clip_grad_norm))
+                cache.run(("update",), self._update)
+            if self.group is not None:
+                metrics = self.global_rows(all_reduce_sum(metrics, self.group))
         if cache.cuda:
             main.wait_stream(cache.stream)
         steps = metrics.view(n, k, -1).mean(1)
@@ -207,6 +245,19 @@ class WindowStep:
         for c, (mean, per_step) in enumerate(self.metric_names):
             out[mean], out[per_step] = steps[:, c].mean(), steps[:, c]
         return out
+
+    def _update(self):
+        """The step's update; under a mesh the gradients are first summed
+        over the ranks and divided by the world size (`average_gradients`),
+        so the clip and the step see the global batch's mean gradient."""
+        if self.group is not None:
+            all_reduce_sum(self.opt.grad, self.group).div_(self.world)
+        self.opt.update(self.clip_grad_norm)
+
+    def global_rows(self, summed):
+        """The passes' metrics, the global batch's, from their parts summed
+        over the ranks (rows of `parts`): each the ranks' mean."""
+        return summed / self.world
 
     def _teacher(self, tkey, sb):
         out = self.teacher_forward(sb)
@@ -226,13 +277,16 @@ class SRWindowStep(WindowStep):
     the subnet's (ks_idx, mid), one entry a block of every trunk; a pass's
     key holds its depths and pixel_d, the host branches of the masked
     forward. Returns {"loss", "psnr"}: the window's means, and "losses",
-    "psnrs": each step's mean over its subnets."""
+    "psnrs": each step's mean over its subnets. Under a mesh a pass keeps
+    (loss, sum of squared Y errors, their count), and PSNR-Y is formed from
+    the ranks' totals (`SRTrainer._global_metrics`)."""
 
     metric_names = (("loss", "losses"), ("psnr", "psnrs"))
 
     def __init__(self, trainer, n_subnets):
         net = trainer.net
-        super().__init__(trainer, n_subnets, 2 * net.space.blocks_per_trunk * net.n_trunks)
+        super().__init__(trainer, n_subnets, 2 * net.space.blocks_per_trunk * net.n_trunks,
+                         parts=2 if trainer._group is None else 3)
         self.ks_list = list(net.space.ks_list)
         self.kd = trainer.kd_ratio > 0
         self.clip_grad_norm = trainer.clip_grad_norm
@@ -251,8 +305,16 @@ class SRWindowStep(WindowStep):
 
     def subnet_pass(self, sb, cfg, t_out):
         rows = self.arch.view(2, -1)
-        return self.trainer._subnet_loss(sb, MaskedArch(rows[0], rows[1], tuple(cfg.d),
-                                                        cfg.pixel_d), t_out)
+        loss, m = self.trainer._subnet_loss(sb, MaskedArch(rows[0], rows[1], tuple(cfg.d),
+                                                           cfg.pixel_d), t_out)
+        if self.group is None:
+            return loss, m
+        sq, count = m
+        return loss, sq, torch.full_like(sq, count)
+
+    def global_rows(self, summed):
+        return torch.stack([summed[:, 0] / self.world,
+                            psnr_from_mse(summed[:, 1] / summed[:, 2])], 1)
 
     def teacher_forward(self, sb):
         return self.trainer._teacher_out(sb)

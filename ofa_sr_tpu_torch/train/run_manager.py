@@ -19,7 +19,10 @@ steps and runs each through `SRTrainer.make_scan_train_step` (CUDA-graph
 replays of the masked step on a GPU), a shorter tail through the same
 step, and records and logs once a window. Left out of the JAX package's
 RunConfig: the other XLA-era levers (`remat`, `ks_switch`, `dw_switch`,
-`dw_align`, `s2d`; ROADMAP queue 1 item 14).
+`dw_align`; ROADMAP queue 1 item 14) and `s2d`, a space-to-depth layout of
+the trunk for the TPU's matrix unit (4x-deep 1x1 contractions,
+ofa_sr_tpu/train/train_step.py:120-123) that changes no number: cuDNN and
+csrc/mbconv.cu take NHWC at any depth, so the port has no counterpart.
 
 With a `mesh` (data parallelism, one process a device, every rank running
 the same run over the same provider): the parameters are broadcast from
@@ -28,7 +31,10 @@ rank 0 at the start, each training batch is split over the ranks
 moments, gradient and metrics; validation runs whole on every rank, as the
 JAX package runs it replicated; checkpoints, `latest.txt`, the logs and the
 run's info files are written by rank 0 alone, the process-per-device form
-of JAX's single writer.
+of JAX's single writer. Under `steps_per_dispatch` > 1 the same holds: every
+batch of a window is split over the ranks, every rank draws the same
+subnets and lrs, and the window's metrics are the global batch's (on the
+card the mesh runs over NCCL, whose collectives the graphs capture).
 """
 
 from __future__ import annotations
@@ -203,10 +209,6 @@ class SRRunManager:
             use_kernels=use_kernels, compute_dtype=_compute_dtype_of(run_config),
             mode=run_config.mode, mesh=mesh, **kd)
         if mesh is not None:
-            if run_config.steps_per_dispatch > 1:
-                raise NotImplementedError(
-                    "steps_per_dispatch > 1 under a mesh is not ported: NCCL inside a CUDA "
-                    "graph, ROADMAP.md queue 1 item 14")
             shard_params(net, mesh)
         self._scan_step = None
         self._write_net_info()
@@ -392,7 +394,7 @@ class SRRunManager:
             cfgs = self.sample_archs(epoch, n_batch, i, constraints, fixed_cfg)
             n = batch["image"].shape[0]
             if self._scan_step is not None:
-                pending.append((self._to_device(batch), cfgs, lr, n, i))
+                pending.append((self._to_device(batch, shard=True), cfgs, lr, n, i))
                 if len(pending) == rc.steps_per_dispatch:
                     flush()
                 continue

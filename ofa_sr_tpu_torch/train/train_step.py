@@ -46,7 +46,8 @@ the sliced form. `make_scan_train_step` is the JAX package's device-side
 multi-step training: a window of steps in the masked form (`MaskedArch`),
 as CUDA-graph replays on a CUDA net (`train/graphs.py`), with the
 optimizer gated by each step's touched mask (`optim.GatedOpt`); on a CPU
-net the same masked steps run eagerly.
+net the same masked steps run eagerly. Under a mesh the window keeps the
+rules above, its collectives captured in the graphs (NCCL) on the card.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ from ..ops.elastic import spatial_valid_mask
 from ..parallel.mesh import all_reduce_sum
 from ..utils.metrics import psnr_from_mse, psnr_y_device, y_squared_error_sum
 from .graphs import SRWindowStep
-from .optim import GatedOpt, build_optimizer
+from .optim import build_optimizer
 
 
 def average_gradients(opt, mesh):
@@ -180,16 +181,17 @@ class SRTrainer:
         device tensors. `teacher` (net, its SubnetConfig, its pixel_d)
         replaces the trainer's own. The trainer's optimizer becomes a
         `GatedOpt` holding the same state (its `state_dict` keeps torch's
-        layout); `train_step` still runs with it. Not under a mesh."""
-        if self.mesh is not None:
-            raise NotImplementedError("make_scan_train_step (steps_per_dispatch > 1) under a "
-                                      "mesh is not ported: ROADMAP.md queue 1 item 14")
+        layout); `train_step` still runs with it.
+
+        Under a mesh each rank passes its rows of each batch (the same
+        subnets and lrs on every rank); the loss and PSNR-Y that come back
+        are the global batch's, as `train_step`'s, and every rank ends with
+        the same parameters. On a CUDA net the mesh's backend must be NCCL,
+        whose collectives the graphs capture (`graphs.WindowStep`)."""
         if teacher is not None:
             self.teacher = teacher
         if self.kd_ratio > 0 and self.teacher is None:
             raise ValueError("kd_ratio > 0 needs a teacher")
-        if not isinstance(self.opt, GatedOpt):
-            self.opt = GatedOpt(self.opt)
         return SRWindowStep(self, n_subnets)
 
     def _global_metrics(self, losses, sq_errors):

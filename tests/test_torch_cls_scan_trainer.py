@@ -491,8 +491,19 @@ def test_scan_step_refuses_mesh_and_bad_windows(tmp_path):
     a = net.sample_arch(seed=0)
     with pytest.raises(ValueError, match="one batch"):
         step([tbatch(batch(0))], [[a]], [LR])
+    # a world-1 mesh (no process group) builds the window step, which gives
+    # the no-mesh step's numbers
     mesh = types.SimpleNamespace(rank=0, world=1, group=None)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ClsTrainer(net, mesh=mesh).make_scan_train_step()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ClsRunManager(str(tmp_path), net, RunConfig(steps_per_dispatch=2), None, mesh=mesh)
+    archs = [[net.sample_arch(seed=i)] for i in range(2)]
+    out = {}
+    for m in (None, mesh):
+        net = twin("narrow")[3]
+        got = ClsTrainer(net, mesh=m).make_scan_train_step()(
+            [tbatch(batch(i)) for i in range(2)], archs, [LR] * 2)
+        out[m is None] = (net.state_dict(), got["losses"], got["top1s"], got["top5s"])
+    for a, b in zip(out[True][1:], out[False][1:]):
+        assert torch.equal(a, b)
+    for k, v in out[True][0].items():
+        assert torch.equal(out[False][0][k], v), k
+    rm = ClsRunManager(str(tmp_path), net, RunConfig(steps_per_dispatch=2), None, mesh=mesh)
+    assert rm.run_config.steps_per_dispatch == 2 and rm.mesh is mesh

@@ -517,11 +517,22 @@ def test_scan_step_refuses_mesh_and_bad_windows(tmp_path):
         step([batch], [[cfg]], [1e-2])
     with pytest.raises(ValueError, match="steps_per_dispatch"):
         RunConfig(steps_per_dispatch=0)
+    # a world-1 mesh (no process group) builds the window step, which gives
+    # the no-mesh step's numbers
     mesh = types.SimpleNamespace(rank=0, world=1, group=None)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        SRTrainer(OFAMobileNetS4(space, device="cpu"), mesh=mesh).make_scan_train_step()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        SRRunManager(str(tmp_path), OFAMobileNetS4(space, device="cpu"),
-                     RunConfig(steps_per_dispatch=2), None, mesh=mesh)
+    cfgs = [[sample_subnet(space, seed=i)] for i in range(2)]
+    out = {}
+    for m in (None, mesh):
+        net = OFAMobileNetS4(space, device="cpu", generator=torch.Generator().manual_seed(3))
+        got = SRTrainer(net, opt_type="sgd", mesh=m).make_scan_train_step()(
+            [batch] * 2, cfgs, [1e-2] * 2)
+        out[m is None] = (net.state_dict(), got["losses"], got["psnrs"])
+    for a, b in zip(out[True][1:], out[False][1:]):
+        assert torch.equal(a, b)
+    for k, v in out[True][0].items():
+        assert torch.equal(out[False][0][k], v), k
+    rm = SRRunManager(str(tmp_path), OFAMobileNetS4(space, device="cpu"),
+                      RunConfig(steps_per_dispatch=2), None, mesh=mesh)
+    assert rm.run_config.steps_per_dispatch == 2 and rm.mesh is mesh
     assert isinstance(SubnetConfig(ks=(3,), e=(2,), d=(1,), pixel_d=1).to_device(space)["mid"],
                       torch.Tensor)
