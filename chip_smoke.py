@@ -29,7 +29,15 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    the running statistics unchanged from the width on, an active width of
    C the bits of the call without it; dx, dscale, dbias against the plain
    backward with it, 0 from the width on; train-mode BN through the kernels
-   with it against the plain autograd branch.
+   with it against the plain autograd branch. Then the masked depthwise
+   (csrc/dw_masked.cu: forward, dgrad, wgrad), TF32 off, f32 and bf16, at
+   the S4 masked step's shapes (C 384 at 36,864 and 9,216 rows with widths
+   0, 192, 200, 256, 384 and those rounded up to 128 as bounds; C 192 and
+   256 at their full width) and MBV3's (C 96 at 64x112x112, stride 1 and 2; C 960 at
+   64x7x7), every kernel size: y and dx against the plain version within
+   TOL (bf16 BF16_DX_TOL), dW no farther from a float64 plain run than the
+   plain version plus DW_F64_MARGIN, exact zeros from the bound on and
+   outside the k x k window, two calls the same bits.
 3. Serving: a full-width OFAMobileNetS4 (seeded he_fout weights, random BN
    statistics) materialized as the ks7/e6/d2/pixel_d 2 subnet serves 8 LR
    180x320 frames (720p out) through `entry.serve`, with every kernel's
@@ -75,7 +83,11 @@ Phases (each failure ends the run with a non-zero exit and no result line):
 6. Per-kernel numbers at the paths' shapes (kernel, plain version, the
    card's least time, and for the BN kernels one PyTorch call computing the
    same function as a yardstick the port never calls: F.batch_norm in train
-   mode for the fused forward), the BN kernels in float32 and in bf16. Then
+   mode for the fused forward), the BN kernels in float32 and in bf16, and
+   the masked depthwise's three directions at the graphed one-subnet S4
+   window's shapes (with the masked work's bound and cuDNN's unmasked 7x7
+   calls beside them; their device time from phase 13's dw_switch
+   profile). Then
    the torch.profiler
    sessions of phases 3 and 4, last, because a profiler session leaves the
    launch path slower for the rest of the process: device time and kernels
@@ -146,7 +158,11 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    convolutions vary between runs); one MBV3 bf16 window (ClsRunManager,
    batch 64 at 224 px) the same way; a gloo group on the card refused with
    ValueError before any launch; ms a step of the graphed one-subnet
-   window (16 steps) with and without the mesh, f32 and bf16. The two-rank
+   window (16 steps) with and without the mesh, f32 and bf16; and the
+   deterministic pair again with dw_switch on (the masked depthwise's
+   deterministic wgrad keeps the one-process window's bits; each direction
+   launched once a block of each distinct pass at its eager first run and
+   capture). The two-rank
    timings on one card, and the world-1 mesh's, are no measure of
    multi-GPU speed.
 9. (run after phase 8, before phase 6's timings and profiles) Subnet
@@ -259,7 +275,11 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    float32 and bf16, the BN wrappers counted: each distinct pass (depths,
    pixel_d) launches bn_forward and bn_backward once per train-mode BN at
    its eager first run and once at its capture, the replays without the
-   wrappers; nothing else. (b) Parity, TF32 off: the graphed windows
+   wrappers; nothing else; then the one-subnet envelope with dw_switch on,
+   the masked depthwise's main path: each of its three directions launched
+   once a block of each distinct pass at its eager first run and capture
+   (2 * sum(d) a pass key), none without the lever. (b) Parity, TF32 off:
+   the graphed windows
    against the same steps run eagerly in the masked form (the cache's
    graphs off) and against the eager sliced steps (`train_step`), per-step
    losses at STEP_TOL (bf16: BF16_STEP_TOL), in float32 the parameters at
@@ -267,13 +287,17 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    step's update) and the running statistics at CLS_STATE_TOL: the S4 at
    the bench's 8 subnets (16 one-subnet steps; 8 steps of 4 + KD), f32 and
    bf16; the X4 in sr mode (4 windows of 4) and autoencoder mode (one of
-   4); captures held to the distinct passes + the update (+ the teacher).
+   4); captures held to the distinct passes + the update (+ the teacher);
+   the S4's one-subnet window with dw_switch against the eager sliced
+   steps, f32 and bf16, its captures as many as without the lever and its
+   masked depthwise launches counted at first runs and captures alone.
    Graphs of one pool replayed out of capture order (A, B, A, B | B, A)
    against eager. (c) SRRunManager at steps_per_dispatch 4 (one window of
    4 steps, bs16 96 px synthetic) against the same epoch at 1, its log
    lines, and its checkpoint resumed at 1. (d) ms a step and host enqueue
    ms, eager sliced against graphed, f32 and bf16, 1 subnet and 4 + KD,
-   alternating rounds; replays a step, captures and capture seconds, peak
+   alternating rounds (the one-subnet graphed window with dw_switch among
+   them); replays a step, captures and capture seconds, peak
    max_memory_allocated; the one-subnet paths profiled with phase 6's. (e)
    bn_forward / bn_backward ms a launch at C 384 with the active width and
    without. A failed capture or replay ends the run non-zero.
@@ -303,7 +327,10 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    windows do on every path), running statistics at CLS_STATE_TOL; two pass
    keys (224 and 192 px) replayed out of capture order against eager; the
    masked forward of a stride-2 SE block against its sliced forward at
-   every (ks, e) through the kernels. (c) Dropout 0.1: replays of one key
+   every (ks, e) through the kernels; MBV3's one-subnet window with
+   dw_switch against the eager sliced steps, f32 and bf16 (captures as
+   without the lever; the masked depthwise launched once an elastic block
+   at the pass's first run and capture). (c) Dropout 0.1: replays of one key
    draw pairwise distinct masks, the keep fraction within 4 sigma of 0.9,
    and the graphed window's draws against an eager window's from the same
    seed, step by step (reported). (d) ClsRunManager at steps_per_dispatch 4
@@ -312,7 +339,8 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    ElasticResolution(128-224) at 4: a pass key a size, its captures, BN
    launches and peak memory. (e) ms a step and host enqueue ms, eager
    sliced against graphed, both families, f32 and bf16, 1 subnet and 4 +
-   KD, alternating rounds; replays a step, captures and their seconds,
+   KD, alternating rounds (MBV3's one-subnet graphed window with dw_switch
+   among them); replays a step, captures and their seconds,
    peak max_memory_allocated; the one-subnet paths profiled with phase 6's.
    Phase 2 holds bn_forward and bn_backward with the active width at the
    classification step's shapes (C 96 at 802,816 rows, widths 0, 48, 72,
@@ -332,6 +360,7 @@ import copy
 import ctypes
 import dataclasses
 import functools
+import gc
 import hashlib
 import json
 import os
@@ -425,6 +454,15 @@ from ofa_sr_tpu_torch.ops.kernels.bn_stats import (  # noqa: E402
     col_sums2,
     col_sums2_reference,
 )
+from ofa_sr_tpu_torch.ops.kernels.dw_masked import (  # noqa: E402
+    dw_masked_dgrad,
+    dw_masked_forward,
+    dw_masked_wgrad,
+    masked_depthwise_grads_reference,
+    masked_depthwise_reference,
+    out_size,
+    tap_mask,
+)
 from ofa_sr_tpu_torch.ops.kernels.mbconv import fused_mbconv_infer, mbconv_reference  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.shuffle_tail import (  # noqa: E402
     fused_shuffle_tail,
@@ -493,7 +531,7 @@ N_FRAMES = 8
 BS, HR = 16, 96                       # the training envelope of the JAX bench
 TRAIN_STEPS = 8                       # one-subnet steps; steps 0-7 sample both pixel_d
 KD_STEPS = 2                          # steps of 4 subnets with KD
-STEP_ROUNDS = 3                       # rounds of (plain, kernels, kernels, plain) timing
+STEP_ROUNDS = 2                       # rounds of (plain, kernels, kernels, plain) timing
 # the BN wrappers the training path calls, one launch each per train-mode BN
 # (the fused forward and the fused backward), and the BN wrappers that are
 # off the path (entry points of the Pallas functions, held in phase 2)
@@ -502,7 +540,8 @@ BN_OFF_PATH = (col_sums2, bn_moments)
 # the __global__ functions of csrc/*.cu, as the profiler names them
 PORT_KERNELS = ("col_partials_kernel", "finish_kernel", "bn_dx_kernel", "bn_fwd_finish_kernel",
                 "bn_norm_kernel", "mbconv_kernel", "shuffle_tail_kernel",
-                "bn_fwd_from_sums_kernel", "bn_bwd_coef_kernel")
+                "bn_fwd_from_sums_kernel", "bn_bwd_coef_kernel", "dw_fwd_kernel",
+                "dw_dgrad_kernel", "dw_wgrad_partial_kernel", "dw_wgrad_finish_kernel")
 # the kernels of each BN row, as the profiler names them (the mode is the
 # template argument: 1 moments, 2 backward, 3 the forward's moments)
 # the backward row times `bn_backward`: bn_bwd_sums' sums and dx in one call
@@ -526,10 +565,10 @@ TEACHER_EPOCH_STEPS = 64 // BS
 EVAL_HR = 720                         # the evaluator's HR frames: LR 180x180 at pixel_d 2
 EVAL_FRAMES = 4
 PSNR_TOL_DB = 1e-3                    # evaluator's mean PSNR-Y, kernels vs plain path
-RM_ROUNDS = 3                         # rounds of (entry.train, train_one_epoch) timing
+RM_ROUNDS = 2                         # rounds of (entry.train, train_one_epoch) timing
 # phase 7: the X4 supernet
 X4_STEPS = 4                          # one-subnet steps a (mode, type) run
-X4_ROUNDS = 2                         # rounds of (plain, kernels, kernels, plain) step timing
+X4_ROUNDS = 1                         # rounds of (plain, kernels, kernels, plain) step timing
 X4_MODES = ("sr", "autoencoder")
 # phase 12: the curriculum's batch and crops (its default, and the long
 # run's CURRICULUM_r04 config)
@@ -1089,6 +1128,165 @@ def bn_active_parity(g, dtype=torch.float32, cases=None, key="_active"):
 
 
 # -- phase 3: serving --------------------------------------------------------
+
+# -- phase 2: the masked depthwise (csrc/dw_masked.cu) -------------------------
+
+# the three directions' wrappers, each counting its calls (one a call: the
+# wgrad's two launches included), and their kernels as the profiler names them
+DW_WRAPPERS = (dw_masked_forward, dw_masked_dgrad, dw_masked_wgrad)
+DW_ROW_KERNELS = {"dw_masked_forward": ("dw_fwd_kernel",),
+                  "dw_masked_dgrad": ("dw_dgrad_kernel",),
+                  "dw_masked_wgrad": ("dw_wgrad_partial_kernel", "dw_wgrad_finish_kernel")}
+DW_KS = (3, 5, 7)                      # the nets' kernel sizes: a 7x7 bank
+DW_ALIGNS = (0, 128)
+# dW against a float64 run of the plain version: its max abs error no more
+# than the plain version's (cuDNN in the same type) plus this share of dW's
+# largest magnitude. float32: both sum 9,216 to 802,816 rows in float32, in
+# other orders (1e-5 is ~80 float32 ulps of the largest dW); bf16: each
+# rounds its float32 sum once, so the two may straddle a rounding boundary:
+# half a bf16 ulp (2^-8 of the value)
+DW_F64_MARGIN = {"f32": 1e-5, "bf16": 2.0 ** -8}
+# the lever the graphed windows of phases 8 (e), 13 and 14 run with
+DW_LEVER = dict(dw_switch=True)
+
+
+def zero_dw_counts():
+    for k in DW_WRAPPERS:
+        k.launches = k.launches_bf16 = 0
+
+
+def dw_counts():
+    counts = {k.__name__: k.launches for k in DW_WRAPPERS}
+    counts.update({k.__name__ + "_bf16": k.launches_bf16 for k in DW_WRAPPERS})
+    return counts
+
+
+def dw_counts_wrong(counts, expect, bf16):
+    """Why `counts` is not each direction of the masked depthwise launched
+    `expect` times, all of the run's type; None if it is."""
+    got = {k.__name__: counts[k.__name__] for k in DW_WRAPPERS}
+    if any(v != expect for v in got.values()):
+        return "masked depthwise launches %s, expected %d each" % (got, expect)
+    if any(counts[k.__name__ + "_bf16"] != (expect if bf16 else 0) for k in DW_WRAPPERS):
+        return "launched masked depthwise kernels of the other type"
+    return None
+
+
+def dw_masked_cases():
+    """Phase 2's masked depthwise shapes: (label, x shape, stride, the
+    active widths). The S4 masked step's (bs16, LR 48 and 24 at pixel_d 1
+    and 2: 36,864 and 9,216 rows; its bank width 384 with the middle widths
+    192 and 256 on the candidate grid, 200 off it, 0 and C; the banks of
+    widths 192 and 256 at their full width) and MBV3's at batch 64, 224 px
+    (C 96 at 112x112, stride 1 and 2: 802,816 input rows; C 960 at 7x7). Each
+    width is run as the bound (the nets' lever passes the width) and
+    rounded up to a multiple of 128 (the bounds of the JAX package's
+    dw_align 128)."""
+    cases = []
+    for lr in (HR // 2, HR // 4):
+        cases.append(("S4", (BS, lr, lr, 384), 1, (0, 192, 200, 256, 384)))
+        cases += [("S4", (BS, lr, lr, c), 1, (c,)) for c in (192, 256)]
+    cases += [("MBV3", (CLS_TRAIN_BATCH, 112, 112, 96), s, (0, 64, 72, 96)) for s in (1, 2)]
+    cases.append(("MBV3", (CLS_TRAIN_BATCH, 7, 7, 960), 1, (0, 480, 500, 960)))
+    return cases
+
+
+def dw_close(name, got, ref, tol):
+    """check_close without its line: max abs err, or fail."""
+    err = float((got.float() - ref.float()).abs().max())
+    ok = bool(torch.isfinite(got).all()) and bool(
+        ((got.float() - ref.float()).abs() <= tol["atol"] + tol["rtol"] * ref.float().abs())
+        .all())
+    if not ok:
+        fail("%s disagrees with its plain version (max abs err %.3e)" % (name, err))
+    return err
+
+
+def dw_masked_parity(g, dtype=torch.float32):
+    """The masked depthwise's three directions against the plain version
+    (cuDNN's grouped conv of x * cmask and w * tapmask, and its autograd),
+    TF32 off, at `dw_masked_cases` for every kernel size and bound, on
+    `dtype` (float32, or bf16 for the bf16 entry points): y and dx within TOL
+    (bf16: BF16_DX_TOL); dW no farther from a float64 run of the plain
+    version than the plain version is, plus DW_F64_MARGIN of its largest
+    magnitude; exact zeros from the bound on (y, dx, dW) and outside the
+    k x k window (dW); two calls the same bits, each direction. Returns
+    {wrapper: max abs err} and the dW errors against float64."""
+    bf16 = dtype is BF16
+    key = "_bf16" if bf16 else ""
+    tol = BF16_DX_TOL if bf16 else TOL
+    errs = {k.__name__ + key: 0.0 for k in DW_WRAPPERS}
+    f64 = {"kernel": 0.0, "plain": 0.0}
+    t0, n_cases = time.perf_counter(), 0
+    for label, shape, stride, widths in dw_masked_cases():
+        c = shape[-1]
+        ho, wo = out_size(shape[1], 7, stride), out_size(shape[2], 7, stride)
+        x = randn(g, *shape).to(dtype)
+        dy = randn(g, shape[0], ho, wo, c).to(dtype)
+        w = randn(g, c, 1, 7, 7, scale=0.1).to(dtype)
+        kw = dict(ks_list=DW_KS, stride=stride)
+        # the float64 dW at every tap and channel: a bound and a window
+        # only mask it (the wgrad does not read w)
+        full = torch.tensor(len(DW_KS) - 1, dtype=torch.int32, device=DEVICE)
+        every = torch.tensor(c, dtype=torch.int32, device=DEVICE)
+        dw64 = masked_depthwise_grads_reference(x.double(), w.double(), full, every,
+                                                dy.double(), **kw)[1]
+        bounds = sorted({min(-(-m // a) * a, c) if a else m for m in widths for a in DW_ALIGNS})
+        for bnd in bounds:
+            bt = torch.tensor(bnd, dtype=torch.int32, device=DEVICE)
+            live = bnd
+            for ki in range(len(DW_KS)):
+                kt = torch.tensor(ki, dtype=torch.int32, device=DEVICE)
+                name = "%s %s stride %d ks %d bound %s%s" % (label, tuple(shape), stride,
+                                                             DW_KS[ki], bnd, key)
+                outs = [launched(dw_masked_forward, lambda: dw_masked_forward(
+                            x, w, kt, bt, **kw), bf16),
+                        launched(dw_masked_dgrad, lambda: dw_masked_dgrad(
+                            dy, w, kt, bt, in_hw=shape[1:3], **kw), bf16),
+                        launched(dw_masked_wgrad, lambda: dw_masked_wgrad(
+                            x, dy, kt, bt, bank_ks=7, **kw), bf16)]
+                again = [dw_masked_forward(x, w, kt, bt, **kw),
+                         dw_masked_dgrad(dy, w, kt, bt, in_hw=shape[1:3], **kw),
+                         dw_masked_wgrad(x, dy, kt, bt, bank_ks=7, **kw)]
+                torch.cuda.synchronize()
+                for d, a, b in zip(DW_WRAPPERS, outs, again):
+                    if not torch.equal(a, b):
+                        fail("%s: two calls of %s differ" % (name, d.__name__))
+                y, dx, dw = outs
+                yr = masked_depthwise_reference(x, w, kt, bt, **kw)
+                dxr, dwr = masked_depthwise_grads_reference(x, w, kt, bt, dy, **kw)
+                errs["dw_masked_forward" + key] = max(errs["dw_masked_forward" + key],
+                                                      dw_close(name + " y", y, yr, tol))
+                errs["dw_masked_dgrad" + key] = max(errs["dw_masked_dgrad" + key],
+                                                    dw_close(name + " dx", dx, dxr, tol))
+                tm = tap_mask(kt, DW_KS, 7, DEVICE).bool()
+                ref64 = dw64 * tm.double()
+                ref64[live:] = 0
+                kern, pl = (float((t.double() - ref64).abs().max()) for t in (dw, dwr))
+                margin = DW_F64_MARGIN["bf16" if bf16 else "f32"] * float(ref64.abs().max())
+                if not kern <= pl + margin:
+                    fail("%s dW: %.3e from float64, the plain version %.3e (+ margin %.3e)"
+                         % (name, kern, pl, margin))
+                f64["kernel"], f64["plain"] = max(f64["kernel"], kern), max(f64["plain"], pl)
+                errs["dw_masked_wgrad" + key] = max(errs["dw_masked_wgrad" + key],
+                                                    float((dw.float() - dwr.float()).abs().max()))
+                if (y[..., live:].any() or dx[..., live:].any() or dw[live:].any()
+                        or dw[:, :, ~tm].any()):
+                    fail("%s: a value past the bound or outside the %dx%d window is not 0"
+                         % (name, DW_KS[ki], DW_KS[ki]))
+                n_cases += 1
+        print("  masked depthwise %s %s stride %d%s: %d bounds x %d kernel sizes ok (y/dx/dW "
+              "max abs err vs plain so far %.3e / %.3e / %.3e; dW vs float64 %.3e, plain %.3e)"
+              % (label, tuple(shape), stride, " bf16" if bf16 else "", len(bounds), len(DW_KS),
+                 errs["dw_masked_forward" + key], errs["dw_masked_dgrad" + key],
+                 errs["dw_masked_wgrad" + key], f64["kernel"], f64["plain"]), flush=True)
+        del x, dy, w, dw64
+        torch.cuda.empty_cache()
+    errs["dw_masked_wgrad_vs_f64" + key] = f64
+    print("  masked depthwise%s: %d cases, two calls the same bits each, %.1f s"
+          % (" bf16" if bf16 else "", n_cases, time.perf_counter() - t0), flush=True)
+    return errs
+
 
 def randomize_bn(net, g):
     """Random BN affine parameters and running statistics, so the BN fold
@@ -2350,7 +2548,7 @@ def nccl_world_one(g, dev):
 
 MESH_SPD, MESH_WINDOWS = 4, 2           # the graphed mesh window: bench.py's one-subnet
                                         # envelope, 2 windows of 4 steps
-MESH_TIME_ROUNDS = 2                    # rounds of (no mesh, mesh, mesh, no mesh) windows
+MESH_TIME_ROUNDS = 1                    # rounds of (no mesh, mesh, mesh, no mesh) windows
 # the wrappers of the mesh route, and the fused ones it never launches
 MESH_ROUTE_KEYS = ("col_sums2", "bn_bwd_sums", "bn_forward_from_sums", "bn_backward_from_sums")
 FUSED_KEYS = ("bn_forward", "bn_backward")
@@ -2483,6 +2681,14 @@ def mesh_counts_wrong(counts, expect, bf16, mesh):
     return "launched %s" % others if others else None
 
 
+def release_graphs():
+    """Free the memory of the graphs no window holds any more: their pools
+    go back to the allocator once the graphs are collected (a window's
+    objects refer to each other), and the cached blocks to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_state(net):
     return ({k: p.detach().clone() for k, p in net.named_parameters()},
             {k: v.clone() for k, v in net.state_dict().items() if "running" in k})
@@ -2511,32 +2717,45 @@ def mesh_window_main_path(mesh, dtype=None):
     convolutions vary between runs, and Adam at 1e-4 turns a near-zero
     gradient's noise into a whole lr step) the per-step losses at STEP_TOL
     (bf16: BF16_STEP_TOL), and the state's distance beside the one-process
-    window's distance from itself, run again (f32), reported."""
+    window's distance from itself, run again (f32), reported. Then the same
+    deterministic pair with dw_switch on: the masked depthwise (its wgrad a
+    fixed two-pass sum, no atomics) keeps the bits, and launches each
+    direction once a block of each distinct pass at its eager first run and
+    capture (none without the lever)."""
     bf16 = dtype is BF16
     space = SearchSpace()
     steps = MESH_SPD * MESH_WINDOWS
     keys = pass_keys([step_subnets(space, i, 1) for i in range(steps)])
     expect = 2 * sum(3 * sum(d) + pd + 4 for d, pd in keys)
+    dw_expect = 2 * sum(sum(d) for d, _ in keys)
     runs = {}
-    for label, m, det in (("mesh", mesh, False), ("one process", None, False),
-                          ("one process again", None, False),
-                          ("mesh, deterministic cuDNN", mesh, True),
-                          ("one process, deterministic cuDNN", None, True)):
+    for label, m, det, lever in (
+            ("mesh", mesh, False, None), ("one process", None, False, None),
+            ("one process again", None, False, None),
+            ("mesh, deterministic cuDNN", mesh, True, None),
+            ("one process, deterministic cuDNN", None, True, None),
+            ("mesh, deterministic cuDNN, dw_switch", mesh, True, DW_LEVER),
+            ("one process, deterministic cuDNN, dw_switch", None, True, DW_LEVER)):
         if label == "one process again" and bf16:
             continue
         net = graph_net()
         torch.cuda.synchronize()
         zero_kernel_counts()
+        zero_dw_counts()
         t0 = time.perf_counter()
         torch.backends.cudnn.deterministic = det
         try:
             with recorded_caches() as caches:
                 metrics = train(steps, device=DEVICE, net=net, compute_dtype=dtype, mesh=m,
-                                steps_per_dispatch=MESH_SPD)
+                                steps_per_dispatch=MESH_SPD, **(lever or {}))
             torch.cuda.synchronize()
         finally:
             torch.backends.cudnn.deterministic = False
         wall = time.perf_counter() - t0
+        dw = dw_counts()
+        wrong = dw_counts_wrong(dw, dw_expect if lever else 0, bf16)
+        if wrong:
+            fail("the S4 window%s (%s): %s" % (" bf16" if bf16 else "", label, wrong))
         counts = {k: v for k, v in kernel_counts().items() if v}
         cache = caches[0]
         name = "entry.train %d steps%s, steps_per_dispatch %d, %s" % (
@@ -2555,13 +2774,18 @@ def mesh_window_main_path(mesh, dtype=None):
                     2 * steps - len(keys) - 1))
         if not all(np.isfinite(x["loss"]) and np.isfinite(x["psnr"]) for x in metrics):
             fail("%s: non-finite metrics %s" % (name, metrics))
-        runs[label] = {"metrics": metrics, "launches": counts, "expected": expect,
+        runs[label] = {"metrics": metrics, "launches": dict(counts, **{
+                           k: v for k, v in dw.items() if v}), "expected": expect,
+                       "expected_dw": dw_expect if lever else 0,
                        "captures": cache.captures, "replays": cache.replays,
                        "capture_s": cache.capture_s, "wall_s": wall, "state": run_state(net)}
         del net, cache, caches
+        release_graphs()
     out = {}
     for label, ref_label in (("mesh", "one process"), ("one process again", "one process"),
-                             ("mesh, deterministic cuDNN", "one process, deterministic cuDNN")):
+                             ("mesh, deterministic cuDNN", "one process, deterministic cuDNN"),
+                             ("mesh, deterministic cuDNN, dw_switch",
+                              "one process, deterministic cuDNN, dw_switch")):
         if label not in runs:
             continue
         got, ref = runs[label], runs[ref_label]
@@ -3368,7 +3592,7 @@ CLS_LR = 2.5e-3                          # the depth and expand phase-1 presets'
 # float32 path's share reported beside it
 CLS_UPDATE_RTOL = 5e-2
 CLS_EVAL_HW = 224                         # eval_ofa_net's default --image_size
-CLS_STEP_ROUNDS = 3                       # rounds of (plain, kernels, kernels, plain) timing
+CLS_STEP_ROUNDS = 2                       # rounds of (plain, kernels, kernels, plain) timing
 CLS_FAMILIES = (("MBV3", OFAMobileNetV3), ("Proxyless", OFAProxylessNASNets))
 CLS_DTYPES = ((None, "f32"), (BF16, "bf16"))
 CLS_STEP_PATHS = ("plain", "kernels")
@@ -3397,12 +3621,12 @@ def cls_train_net(make, dev, seed, **kw):
     return net
 
 
-def cls_trainer(net, env, teacher, use_kernels, dtype):
+def cls_trainer(net, env, teacher, use_kernels, dtype, lever=None):
     kd = env != "1 subnet"
     return ClsTrainer(net, opt_type="sgd", weight_decay=3e-5, momentum=0.9, nesterov=True,
                       label_smoothing=0.1, kd_ratio=1.0 if kd else 0.0,
                       teacher=teacher if kd else None, use_kernels=use_kernels,
-                      compute_dtype=dtype)
+                      compute_dtype=dtype, **(lever or {}))
 
 
 BN_PATH_KEYS = ("bn_forward", "bn_backward", "bn_forward_bf16", "bn_backward_bf16")
@@ -4167,6 +4391,7 @@ BENCH_LR = 1e-4              # bench.py's Adam lr
 PARITY_OPT, PARITY_LR = "sgd", 0.01
 X4_SPD, X4_SR_WINDOWS = 4, 4  # the X4: 4 windows of 4 sr steps, one of 4 autoencoder steps
 GRAPH_ROUNDS = 2             # rounds of (sliced, graphed, graphed, sliced) step timing
+GRAPH_ROUNDS_KD = 1          # the same for 4 subnets + KD
 RM_TRAIN = 64                # run manager: synthetic images, bs16: 4 steps an epoch
 
 
@@ -4189,20 +4414,36 @@ def graph_main_path(compute_dtype=None):
     subnets with KD, one window), counted: each distinct pass launches
     bn_forward and bn_backward once per train-mode BN at its eager first run
     and once at its capture, its replays none, so 2 * (3*sum(d) + pixel_d +
-    4) for each distinct (depths, pixel_d); nothing else."""
+    4) for each distinct (depths, pixel_d); nothing else. Then the
+    one-subnet envelope with dw_switch on (the masked depthwise's main
+    path): the same BN launches, and each direction of the masked depthwise
+    once a block of each distinct pass at its eager first run and capture,
+    2 * sum(d) for each distinct (depths, pixel_d); none without the
+    lever."""
     space = SearchSpace()
     bf16 = compute_dtype is BF16
     runs = {}
     for label, steps, kw in (("1 subnet", SPD, {}),
-                             ("4 subnets + KD", SPD_KD, dict(n_subnets=4, kd_ratio=1.0))):
+                             ("4 subnets + KD", SPD_KD, dict(n_subnets=4, kd_ratio=1.0)),
+                             ("1 subnet, dw_switch", SPD, DW_LEVER)):
         cfg_steps = [step_subnets(space, i, kw.get("n_subnets", 1)) for i in range(steps)]
         zero_bn_counts()
+        zero_dw_counts()
         metrics = train(steps, device=DEVICE, compute_dtype=compute_dtype,
                         steps_per_dispatch=steps, **kw)
         torch.cuda.synchronize()
         counts = bn_counts()
+        dw = dw_counts()
         keys = pass_keys(cfg_steps)
         expect = 2 * sum(3 * sum(d) + pd + 4 for d, pd in keys)
+        # the masked depthwise: each direction once a block of each distinct
+        # pass, at its eager first run and at its capture, with the lever
+        dw_expect = 2 * sum(sum(d) for d, _ in keys) if "dw_switch" in kw else 0
+        wrong = dw_counts_wrong(dw, dw_expect, bf16)
+        if wrong:
+            fail("the graphed %s training path (%s) %s" % ("bf16" if bf16 else "float32", label,
+                                                           wrong))
+        counts.update({k: v for k, v in dw.items() if v})
         print("  entry.train(%d steps, %s%s, steps_per_dispatch=%d): BN-kernel launches %s "
               "(expected %d each: %d distinct passes, counted at their eager first run and "
               "capture), losses %s" % (steps, label, ", bf16" if bf16 else "", steps,
@@ -4214,7 +4455,8 @@ def graph_main_path(compute_dtype=None):
         if not all(np.isfinite(m["loss"]) and np.isfinite(m["psnr"]) for m in metrics):
             fail("non-finite graphed training metrics: %s" % metrics)
         runs[label] = {"steps": steps, "launches": counts, "expected": expect,
-                       "distinct_passes": len(keys), "metrics": metrics}
+                       "expected_dw": dw_expect, "distinct_passes": len(keys),
+                       "metrics": metrics}
     return runs
 
 
@@ -4227,14 +4469,15 @@ def graph_net(kind="s4", seed=0, dtype=None):
 
 
 def window_run(path, cfg_steps, batch, *, kind="s4", mode="sr", n_subnets=1, kd=False,
-               compute_dtype=None, spd=None):
+               compute_dtype=None, spd=None, lever=None):
     """Run `cfg_steps` (PARITY_OPT at PARITY_LR, weight decay 3e-5) from
     the seeded weights on one path: "graphed" (make_scan_train_step's windows of
     `spd`, CUDA graphs), "eager masked" (the same windows with the cache's
     graphs off: every part run eagerly), "eager sliced" (train_step) or
-    "float64" (train_step on the plain path in float64). Returns per-step
-    losses, the parameters and running statistics after, the first
-    weights, and the graph cache's counts."""
+    "float64" (train_step on the plain path in float64). `lever`: the
+    trainer's depthwise lever (DW_LEVER) or None. Returns per-step losses,
+    the parameters and running statistics after, the first weights, the
+    graph cache's counts and the masked depthwise's launches."""
     dtype = torch.float64 if path == "float64" else None
     net = graph_net(kind, dtype=dtype)
     w0 = {k: p.detach().clone() for k, p in net.named_parameters()}
@@ -4245,8 +4488,9 @@ def window_run(path, cfg_steps, batch, *, kind="s4", mode="sr", n_subnets=1, kd=
         teacher = (t_net.double() if dtype else t_net, t_cfg, t_pd)
     tr = SRTrainer(net, opt_type=PARITY_OPT, weight_decay=3e-5, kd_ratio=1.0 if kd else 0.0,
                    teacher=teacher, compute_dtype=compute_dtype, mode=mode,
-                   use_kernels=False if dtype else None)
+                   use_kernels=False if dtype else None, **(lever or {}))
     b = {k: v.to(torch.float64) for k, v in batch.items()} if dtype else batch
+    zero_dw_counts()
     losses, cache = [], None
     if path in ("graphed", "eager masked"):
         step = tr.make_scan_train_step(n_subnets)
@@ -4263,7 +4507,7 @@ def window_run(path, cfg_steps, batch, *, kind="s4", mode="sr", n_subnets=1, kd=
     out = {"losses": torch.tensor(losses, dtype=torch.float64),
            "params": {k: p.detach().clone() for k, p in net.named_parameters()},
            "stats": {k: v.clone() for k, v in net.state_dict().items() if "running" in k},
-           "w0": w0, "s0": s0}
+           "w0": w0, "s0": s0, "dw_launches": dw_counts()}
     if cache is not None:
         out["cache"] = {"captures": cache.captures, "replays": cache.replays,
                         "capture_s": cache.capture_s}
@@ -4327,18 +4571,25 @@ def graph_parity():
               SPD_KD),
              ("X4 sr", dict(kind="x4"), bench_cfgs(space, X4_SPD * X4_SR_WINDOWS, 1, 2), X4_SPD),
              ("X4 autoencoder", dict(kind="x4", mode="autoencoder"),
-              bench_cfgs(space, X4_SPD, 1, 2), X4_SPD)]
+              bench_cfgs(space, X4_SPD, 1, 2), X4_SPD),
+             ("S4 1 subnet dw_switch", dict(n_subnets=1, lever=DW_LEVER),
+              bench_cfgs(space, SPD, 1), SPD)]
     out = {}
     for label, kw, cfg_steps, spd in cases:
         for cd in (None, BF16):
             if cd is BF16 and label.startswith("X4"):
                 continue  # the X4's bf16 step is held in phase 7; its graphs here in f32
             name = label + (" bf16" if cd else "")
+            lever = kw.get("lever") is not None
             t0 = time.perf_counter()
+            # with the lever: against the eager sliced steps (the levers
+            # change nothing there), its captures against the lever-off run's
+            paths = ("graphed", "eager sliced") if lever else ("graphed", "eager masked",
+                                                                "eager sliced")
             runs = {p: window_run(p, cfg_steps, batch, compute_dtype=cd, spd=spd, **kw)
-                    for p in ("graphed", "eager masked", "eager sliced")}
+                    for p in paths}
             noise = None
-            if cd is None:
+            if cd is None and not lever:
                 # the run-to-run noise of the float32 eager masked steps
                 # (cuDNN's backward convolutions sum in no fixed order): the
                 # floor under graphed against eager masked
@@ -4358,27 +4609,46 @@ def graph_parity():
                 return f64_box[0]
 
             rec = {"steps": len(cfg_steps), "window": spd, "cache": runs["graphed"]["cache"],
-                   "losses": runs["graphed"]["losses"].tolist(),
-                   "vs eager masked": hold_to(name + ", graphed vs eager masked",
-                                              runs["graphed"], runs["eager masked"], f64,
-                                              bool(cd)),
-                   "vs eager sliced": hold_to(name + ", graphed vs eager sliced",
-                                              runs["graphed"], runs["eager sliced"], f64,
-                                              bool(cd)),
-                   "eager_masked_run_to_run": noise, "float64_run": bool(f64_box),
-                   "wall_s": time.perf_counter() - t0}
+                   "losses": runs["graphed"]["losses"].tolist()}
+            for ref in paths[1:]:
+                rec["vs " + ref] = hold_to("%s, graphed vs %s" % (name, ref), runs["graphed"],
+                                           runs[ref], f64, bool(cd))
+            rec.update(eager_masked_run_to_run=noise, float64_run=bool(f64_box),
+                       wall_s=time.perf_counter() - t0)
             keys = len(pass_keys(cfg_steps)) + 1 + bool(kw.get("kd"))
             if rec["cache"]["captures"] != keys:
                 fail("%s: %d captures, expected %d (the distinct passes, the update%s)"
                      % (name, rec["cache"]["captures"], keys, ", the teacher" if
                         kw.get("kd") else ""))
+            # the masked depthwise: a launch a direction for each block of
+            # each distinct pass at its eager first run and at its capture,
+            # none at a replay, none without the lever; as many captures as
+            # the same window without the lever
+            dw_expect = 2 * sum(sum(d) for d, _ in pass_keys(cfg_steps)) if lever else 0
+            for p in paths:
+                wrong = dw_counts_wrong(runs[p]["dw_launches"],
+                                        dw_expect if p == "graphed" else 0, bool(cd))
+                if wrong:
+                    fail("%s, %s: %s" % (name, p, wrong))
+            if lever:
+                off = out[name.replace(" dw_switch", "")]["cache"]["captures"]
+                if rec["cache"]["captures"] != off:
+                    fail("%s: %d captures, %d without the lever" % (
+                        name, rec["cache"]["captures"], off))
+                rec["dw_launches"] = {k: v for k, v in runs["graphed"]["dw_launches"].items()
+                                      if v}
+                print("  %s: masked depthwise launches %s (expected %d each: a block of each "
+                      "distinct pass at its eager first run and capture, none at replay); %d "
+                      "captures, as without the lever" % (name, rec["dw_launches"], dw_expect,
+                                                          rec["cache"]["captures"]),
+                      flush=True)
             print("  %s: %d steps in windows of %d, %d captures (%.2f s), %d replays; %.1f s"
                   % (name, len(cfg_steps), spd, rec["cache"]["captures"],
                      rec["cache"]["capture_s"], rec["cache"]["replays"], rec["wall_s"]),
                   flush=True)
             out[name] = rec
             del runs, f64_box
-            torch.cuda.empty_cache()
+            release_graphs()
     return out
 
 
@@ -4470,7 +4740,11 @@ def graph_step_times():
     """ms a step (CUDA events) and host enqueue ms a step, eager sliced
     (train_step) against graphed (windows of make_scan_train_step), float32
     and bf16, one subnet (windows of 16) and 4 + KD (windows of 8), in
-    GRAPH_ROUNDS rounds of (sliced, graphed, graphed, sliced); graph
+    GRAPH_ROUNDS (4 + KD: GRAPH_ROUNDS_KD) rounds of (sliced, graphed,
+    graphed, sliced), the one
+    subnet's with the graphed window under dw_switch between them
+    (sliced, graphed, graphed dw_switch, graphed dw_switch, graphed,
+    sliced); graph
     replays a step, captures and capture seconds; each path's peak
     max_memory_allocated (the graphed one with its cache full); and the
     runs to profile with phase 6's."""
@@ -4481,18 +4755,23 @@ def graph_step_times():
     for env, k, n in (("1 subnet", 1, SPD), ("4 subnets + KD", 4, SPD_KD)):
         cfg_steps = bench_cfgs(space, n, k)
         kd = k > 1
+        # one subnet: the graphed window with dw_switch too, in the same rounds
+        order = (("sliced", "graphed", "graphed dw_switch", "graphed dw_switch", "graphed",
+                  "sliced") if k == 1 else ("sliced", "graphed", "graphed", "sliced"))
+        rounds = GRAPH_ROUNDS if k == 1 else GRAPH_ROUNDS_KD
         for cd in (None, BF16):
             name = env + (" bf16" if cd else "")
-            rec, runs = {}, {}
-            for path in ("sliced", "graphed"):
+            rec, runs, steps, replays0 = {}, {}, {}, {}
+            for path in dict.fromkeys(order):
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
                 tr = SRTrainer(graph_net(), opt_type="adam", weight_decay=3e-5, compute_dtype=cd,
-                               kd_ratio=1.0 if kd else 0.0, teacher=teacher if kd else None)
+                               kd_ratio=1.0 if kd else 0.0, teacher=teacher if kd else None,
+                               **(DW_LEVER if path == "graphed dw_switch" else {}))
                 # bound now: the one-subnet runs are profiled after the loop
-                if path == "graphed":
-                    step = tr.make_scan_train_step(k)
+                if path != "sliced":
+                    step = steps[path] = tr.make_scan_train_step(k)
 
                     def run(step=step, n=n, cfg_steps=cfg_steps):
                         step([batch] * n, cfg_steps, [BENCH_LR] * n)
@@ -4506,16 +4785,17 @@ def graph_step_times():
                 rec[path] = {"warm_s": time.perf_counter() - t0,
                              "max_memory_allocated_MiB":
                                  torch.cuda.max_memory_allocated() / 2 ** 20}
-                if path == "graphed":
+                if path != "sliced":
                     rec[path].update(captures=step.cache.captures,
                                      capture_s=step.cache.capture_s)
-                    replays0 = step.cache.replays
+                    replays0[path] = step.cache.replays
                 runs[path] = run
             times = {p: [] for p in runs}
-            for p in (("sliced", "graphed", "graphed", "sliced") * GRAPH_ROUNDS):
+            for p in order * rounds:
                 times[p].append(timed_steps(runs[p], n))
-            rec["graphed"]["replays_per_step"] = (step.cache.replays - replays0) / (
-                n * 2 * GRAPH_ROUNDS)
+            for p, step in steps.items():
+                rec[p]["replays_per_step"] = (step.cache.replays - replays0[p]) / (
+                    n * 2 * rounds)
             for p in runs:
                 ev, host = zip(*times[p])
                 rec[p].update(ms=list(ev), host_enqueue_ms=list(host),
@@ -4527,14 +4807,14 @@ def graph_step_times():
                                       np.median(host), rec[p]["max_memory_allocated_MiB"],
                                       "; %d captures in %.2f s, %.1f replays a step" % (
                                           rec[p]["captures"], rec[p]["capture_s"],
-                                          rec[p]["replays_per_step"]) if p == "graphed" else ""),
+                                          rec[p]["replays_per_step"]) if p in steps else ""),
                       flush=True)
             out[name] = rec
             if k == 1:
                 profiles += [("%s %s" % (p, name), runs[p], n, rec[p]["median_ms"])
-                             for p in ("graphed", "sliced")]
+                             for p in ("graphed", "graphed dw_switch", "sliced")]
             else:
-                del runs, step, tr
+                del runs, step, steps, tr
                 torch.cuda.empty_cache()
     return out, profiles
 
@@ -4580,6 +4860,7 @@ def phase13(g, tmp):
                     ("parity", graph_parity), ("replay_order", replay_order_check),
                     ("run_manager", lambda: graph_run_manager(tmp)),
                     ("step_times", graph_step_times), ("masked_bn", lambda: masked_bn_numbers(g))):
+        release_graphs()
         t1 = time.perf_counter()
         out[key] = fn()
         walls[key] = time.perf_counter() - t1
@@ -4596,6 +4877,7 @@ CLS_SPD = 4                  # steps a window: the run manager's steps_per_dispa
 CLS_MAIN_STEPS = 8           # (a): two windows an envelope
 CLS_KD_WINDOW = 2            # (b), (e): a window of 2 steps of 4 subnets + KD
 CLS_GRAPH_ROUNDS = 2         # (e): rounds of (sliced, graphed, graphed, sliced)
+CLS_GRAPH_ROUNDS_KD = 1      # (e): the same for 4 subnets + KD
 CLS_RM_STEPS = 6             # (d): a window of 4 and a tail of 2
 CLS_ORDER_SIZES = (224, 192)  # (b): the out-of-order replays' two batch shapes (keys A, B)
 DROPOUT_STEPS = 4            # (c): one eager first run, then 3 replays
@@ -4716,15 +4998,16 @@ def cls_graph_main_path(tmp, dtype=None):
 
 
 def cls_window_run(path, make, arch_steps, batches, *, kd=False, dtype=None, spd=None,
-                   dropout=0.0):
+                   dropout=0.0, lever=None):
     """Run `arch_steps` (SGD Nesterov at CLS_PARITY_LR, weight decay 3e-5, label
     smoothing 0.1) on `batches` (one a step) from the seeded weights on one
     path: "graphed" (make_scan_train_step's windows of `spd`), "eager
     masked" (the same windows, the cache's graphs off), "eager sliced"
     (train_step) or "float64" (train_step on the plain path in float64).
     Returns window_run's record (per-step losses, parameters and running
-    statistics after, the first ones) with the per-step top-1 and top-5 and
-    the graph cache's counts."""
+    statistics after, the first ones, the masked depthwise's launches) with
+    the per-step top-1 and top-5 and the graph cache's counts. `lever`: the
+    trainer's depthwise lever (DW_LEVER) or None."""
     f64 = path == "float64"
     net = cls_train_net(make, DEVICE, 41, dropout_rate=dropout)
     w0 = {k: p.detach().clone() for k, p in net.named_parameters()}
@@ -4739,8 +5022,9 @@ def cls_window_run(path, make, arch_steps, batches, *, kd=False, dtype=None, spd
         batches = [dict(b, image=b["image"].double()) for b in batches]
     tr = ClsTrainer(net, opt_type="sgd", weight_decay=3e-5, momentum=0.9, nesterov=True,
                     label_smoothing=0.1, kd_ratio=1.0 if kd else 0.0, teacher=teacher,
-                    compute_dtype=dtype, use_kernels=False if f64 else None)
+                    compute_dtype=dtype, use_kernels=False if f64 else None, **(lever or {}))
     n, ms, cache = len(arch_steps), [], None
+    zero_dw_counts()
     if path in ("graphed", "eager masked"):
         step = tr.make_scan_train_step(len(arch_steps[0]))
         cache = step.cache
@@ -4761,7 +5045,7 @@ def cls_window_run(path, make, arch_steps, batches, *, kd=False, dtype=None, spd
            "top5": list(top5),
            "params": {k: p.detach().clone() for k, p in net.named_parameters()},
            "stats": {k: v.clone() for k, v in net.state_dict().items() if "running" in k},
-           "w0": w0, "s0": s0}
+           "w0": w0, "s0": s0, "dw_launches": dw_counts()}
     if cache is not None:
         out["cache"] = {"captures": cache.captures, "replays": cache.replays,
                         "capture_s": cache.capture_s}
@@ -4811,15 +5095,25 @@ def cls_graph_parity():
         gated = gated_off_blocks(probe, one)
         if not gated:
             fail("%s: the one-subnet parity window gates off no block" % fam)
+        n_elastic = probe.n_blocks
         del probe
-        for env, arch_steps, kd in (("1 subnet", one, False), ("4 subnets + KD", four, True)):
+        envs = [("1 subnet", one, False), ("4 subnets + KD", four, True)]
+        if fam == "MBV3":  # the masked depthwise under dw_switch: MBV3's one-subnet window
+            envs.append(("1 subnet dw_switch", one, False))
+        for env, arch_steps, kd in envs:
             batches = [cls_batch(50 + i) for i in range(len(arch_steps))]
+            lever = DW_LEVER if env.endswith("dw_switch") else None
+            # with the lever: against the eager sliced steps (which it does
+            # not change), its captures against the lever-off window's
+            paths = ("graphed", "eager sliced") if lever else ("graphed", "eager masked",
+                                                                "eager sliced")
             for dtype, dname in CLS_DTYPES:
                 name = "%s %s %s" % (fam, env, dname)
                 bf16 = dtype is BF16
                 t0 = time.perf_counter()
-                runs = {p: cls_window_run(p, make, arch_steps, batches, kd=kd, dtype=dtype)
-                        for p in ("graphed", "eager masked", "eager sliced")}
+                runs = {p: cls_window_run(p, make, arch_steps, batches, kd=kd, dtype=dtype,
+                                          lever=lever)
+                        for p in paths}
                 f64_box = []
 
                 def f64(make=make, arch_steps=arch_steps, batches=batches, kd=kd):
@@ -4830,7 +5124,7 @@ def cls_graph_parity():
 
                 g = runs["graphed"]
                 noise = None
-                if not bf16:
+                if not bf16 and not lever:
                     again = cls_window_run("eager masked", make, arch_steps, batches, kd=kd)
                     noise = {"loss": float((again["losses"] - runs["eager masked"]["losses"])
                                            .abs().max()),
@@ -4842,7 +5136,7 @@ def cls_graph_parity():
                 rec = {"steps": len(arch_steps), "cache": g["cache"],
                        "eager_masked_run_to_run": noise,
                        "losses": g["losses"].tolist(), "top1": g["top1"], "top5": g["top5"]}
-                for ref in ("eager masked", "eager sliced"):
+                for ref in paths[1:]:
                     rec["vs " + ref] = hold_to("%s, graphed vs %s" % (name, ref), g, runs[ref],
                                                f64, bf16, beside_ref=True)
                     # the same arithmetic: the same hits; bf16 against the
@@ -4854,7 +5148,7 @@ def cls_graph_parity():
                         if off > rows * 100.0 / CLS_TRAIN_BATCH + 1e-9:
                             fail("%s: %s %s (graphed) against %s (%s)"
                                  % (name, k, g[k], runs[ref][k], ref))
-                if env == "1 subnet":
+                if env.startswith("1 subnet"):
                     for k, v in g["stats"].items():
                         if k.startswith(tuple(gated)) and not torch.equal(v, g["s0"][k]):
                             fail("%s: %s of a gated-off block changed" % (name, k))
@@ -4866,16 +5160,34 @@ def cls_graph_parity():
                 if rec["cache"]["captures"] != keys:
                     fail("%s: %d captures, expected %d" % (name, rec["cache"]["captures"],
                                                             keys))
+                # the masked depthwise: each elastic block's (gated-off ones
+                # too, bound 0) at the pass's eager first run and capture
+                dw_expect = 2 * n_elastic if lever else 0
+                for p in paths:
+                    wrong = dw_counts_wrong(runs[p]["dw_launches"],
+                                            dw_expect if p == "graphed" else 0, bf16)
+                    if wrong:
+                        fail("%s, %s: %s" % (name, p, wrong))
+                if lever:
+                    off = out[name.replace(" dw_switch", "")]["cache"]["captures"]
+                    if rec["cache"]["captures"] != off:
+                        fail("%s: %d captures, %d without the lever"
+                             % (name, rec["cache"]["captures"], off))
+                    rec["dw_launches"] = {k: v for k, v in g["dw_launches"].items() if v}
                 rec.update(float64_run=bool(f64_box), wall_s=time.perf_counter() - t0)
                 print("  %s: %d steps, %d captures (%.2f s), %d replays, top-1 %s top-5 %s "
                       "held on all paths%s; %.1f s"
                       % (name, len(arch_steps), rec["cache"]["captures"],
                          rec["cache"]["capture_s"], rec["cache"]["replays"], g["top1"],
                          g["top5"], "; gated-off blocks %s unchanged" % gated
-                         if env == "1 subnet" else "", rec["wall_s"]), flush=True)
+                         if env.startswith("1 subnet") else "", rec["wall_s"]), flush=True)
+                if lever:
+                    print("  %s: masked depthwise launches %s (expected %d each: every elastic "
+                          "block at the pass's eager first run and capture)"
+                          % (name, rec["dw_launches"], dw_expect), flush=True)
                 out[name] = rec
                 del runs, f64_box
-                torch.cuda.empty_cache()
+                release_graphs()
     return out
 
 
@@ -5116,14 +5428,20 @@ def cls_graph_step_times():
     """(e) ms a step (CUDA events) and host enqueue ms a step, eager sliced
     (train_step) against graphed (make_scan_train_step's windows), MBV3 and
     Proxyless, f32 and bf16, one subnet (windows of 4) and 4 + KD (windows
-    of 2), in CLS_GRAPH_ROUNDS rounds of (sliced, graphed, graphed,
-    sliced); replays a step, captures and their seconds, each path's peak
-    max_memory_allocated (the graphed one with its cache full); the
-    one-subnet runs returned for phase 6's profiles."""
+    of 2), in CLS_GRAPH_ROUNDS (4 + KD: CLS_GRAPH_ROUNDS_KD) rounds of
+    (sliced, graphed, graphed, sliced), MBV3's one subnet with the graphed window under dw_switch
+    between them (sliced, graphed, graphed dw_switch, graphed dw_switch,
+    graphed, sliced); replays a step, captures and their seconds, each
+    path's peak max_memory_allocated (the graphed one with its cache full);
+    the one-subnet runs returned for phase 6's profiles."""
     out, profiles = {}, []
     for fam, make in CLS_FAMILIES:
         for env in ("1 subnet", "4 subnets + KD"):
             kd = env != "1 subnet"
+            # MBV3's one subnet: the graphed window with dw_switch too
+            order = (("sliced", "graphed", "graphed dw_switch", "graphed dw_switch", "graphed",
+                      "sliced") if fam == "MBV3" and not kd
+                     else ("sliced", "graphed", "graphed", "sliced"))
             for dtype, dname in CLS_DTYPES:
                 name = "%s %s %s" % (fam, env, dname)
                 net = cls_train_net(make, DEVICE, 41)
@@ -5135,14 +5453,18 @@ def cls_graph_step_times():
                     t_net = cls_train_net(make, DEVICE, 43, ks_list=[7], expand_list=[6],
                                           depth_list=[4])
                     teacher = (t_net, t_net.max_arch())
-                rec, runs = {}, {}
-                for path in ("sliced", "graphed"):
+                rec, runs, steps, replays0 = {}, {}, {}, {}
+                for path in dict.fromkeys(order):
                     torch.cuda.synchronize()
                     torch.cuda.empty_cache()
                     torch.cuda.reset_peak_memory_stats()
-                    tr = cls_trainer(net, env, teacher, True, dtype)
-                    if path == "graphed":
-                        step = tr.make_scan_train_step(len(arch_steps[0]))
+                    # the lever is the net's (set by its trainer, as in JAX):
+                    # the dw_switch window gets a net of its own, the same weights
+                    lever = path == "graphed dw_switch"
+                    tr = cls_trainer(cls_train_net(make, DEVICE, 41) if lever else net, env,
+                                     teacher, True, dtype, DW_LEVER if lever else None)
+                    if path != "sliced":
+                        step = steps[path] = tr.make_scan_train_step(len(arch_steps[0]))
 
                         def run(step=step, n=n, arch_steps=arch_steps, batch=batch):
                             step([batch] * n, arch_steps, [CLS_LR] * n)
@@ -5156,16 +5478,18 @@ def cls_graph_step_times():
                     rec[path] = {"warm_s": time.perf_counter() - t0,
                                  "max_memory_allocated_MiB":
                                      torch.cuda.max_memory_allocated() / 2 ** 20}
-                    if path == "graphed":
+                    if path != "sliced":
                         rec[path].update(captures=step.cache.captures,
                                          capture_s=step.cache.capture_s)
-                        replays0 = step.cache.replays
+                        replays0[path] = step.cache.replays
                     runs[path] = run
                 times = {p: [] for p in runs}
-                for p in ("sliced", "graphed", "graphed", "sliced") * CLS_GRAPH_ROUNDS:
+                rounds = CLS_GRAPH_ROUNDS_KD if kd else CLS_GRAPH_ROUNDS
+                for p in order * rounds:
                     times[p].append(timed_steps(runs[p], n))
-                rec["graphed"]["replays_per_step"] = (step.cache.replays - replays0) / (
-                    n * 2 * CLS_GRAPH_ROUNDS)
+                for p, step in steps.items():
+                    rec[p]["replays_per_step"] = (step.cache.replays - replays0[p]) / (
+                        n * 2 * rounds)
                 for p in runs:
                     ev, host = zip(*times[p])
                     rec[p].update(ms=list(ev), host_enqueue_ms=list(host),
@@ -5178,14 +5502,14 @@ def cls_graph_step_times():
                               np.median(host), rec[p]["max_memory_allocated_MiB"],
                               "; %d captures in %.2f s, %.1f replays a step" % (
                                   rec[p]["captures"], rec[p]["capture_s"],
-                                  rec[p]["replays_per_step"]) if p == "graphed" else ""),
+                                  rec[p]["replays_per_step"]) if p in steps else ""),
                           flush=True)
                 out[name] = rec
-                if not kd:
+                if not kd:  # (the dw_switch window is not kept: its graphs' memory)
                     profiles += [("cls %s %s" % (p, name), runs[p], n, rec[p]["median_ms"])
                                  for p in ("graphed", "sliced")]
                 else:
-                    del runs, step, tr
+                    del runs, step, steps, tr
                 del net, teacher
                 torch.cuda.empty_cache()
     return out, profiles
@@ -5201,6 +5525,7 @@ def phase14(tmp):
                     ("dropout", cls_dropout_check),
                     ("run_manager", lambda: cls_graph_run_manager(tmp)),
                     ("step_times", cls_graph_step_times)):
+        release_graphs()
         t1 = time.perf_counter()
         out[key] = fn()
         walls[key] = time.perf_counter() - t1
@@ -5410,6 +5735,110 @@ def bn_kernel_numbers(g, launches, errs, dtype=torch.float32):
                        **dict(info, **({"library_note": library_note} if library_note else {})))]
 
 
+def dw_path_shapes(space):
+    """{(LR side, ks, mid): launches a step} of the masked depthwise on the
+    graphed one-subnet S4 window's path (bench.py's 16 steps): one a block
+    run, at the bank width 384."""
+    per = {}
+    cfg_steps = bench_cfgs(space, SPD, 1)
+    for (cfg,) in cfg_steps:
+        lr = HR // 2 ** cfg.pixel_d
+        for stage in range(space.n_stages):
+            for i in range(cfg.d[stage]):
+                bi = stage * space.max_depth + i
+                key = (lr, cfg.ks[bi], space.mid_channels(cfg.e[bi]))
+                per[key] = per.get(key, 0) + 1.0 / len(cfg_steps)
+    return per
+
+
+def dw_kernel_numbers(g, p13, errs, dtype=torch.float32):
+    """The masked depthwise's three rows (forward, dgrad, wgrad): time a
+    step of their launches at the graphed one-subnet S4 window's shapes
+    (bs16, LR 48 and 24, bank width 384, each block's sampled ks and mid,
+    the activations 0 from mid on), against the plain version (cuDNN's
+    grouped conv of the masked operands, and for dx and dW the
+    convolution_backward calls its autograd makes, with the masks) and one
+    library call of the masked step's own work (cuDNN's grouped conv
+    forward, and convolution_backward for dx or dW alone, at 7x7 over all
+    384 channels, unmasked: what the masked step runs without the lever),
+    with the card's least time for the sampled work (k x k taps below the
+    bound: FMAs at the FP32 rate against the bytes the kernel must move: the
+    live channels read, the whole output written), the masked work's
+    beside it. `launches` is the main path's: phase 13's graphed run with
+    dw_switch."""
+    bf16 = dtype is BF16
+    key = "_bf16" if bf16 else ""
+    space, c, big = SearchSpace(), SearchSpace().mid_channels(max(SearchSpace().expand_list)), 7
+    esz = torch.finfo(dtype).bits // 8
+    ks_list = tuple(sorted(set(space.ks_list)))
+    rows = {k.__name__: [] for k in DW_WRAPPERS}
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+    cb = torch.ops.aten.convolution_backward
+    for (lr, ks, mid), k in sorted(dw_path_shapes(space).items()):
+        live = (torch.arange(c, device=DEVICE) < mid).to(dtype)
+        x = (randn(g, BS, lr, lr, c) * live).to(dtype).contiguous()
+        dy = (randn(g, BS, lr, lr, c) * live).to(dtype).contiguous()
+        w = randn(g, c, 1, big, big, scale=0.1).to(dtype)
+        kt = torch.tensor(ks_list.index(ks), dtype=torch.int32, device=DEVICE)
+        bt = torch.tensor(mid, dtype=torch.int32, device=DEVICE)
+        tm = tap_mask(kt, ks_list, big, DEVICE).to(dtype)
+        wm = w * tm
+        cv = dict(stride=[1, 1], padding=[big // 2] * 2, dilation=[1, 1], transposed=False,
+                  output_padding=[0, 0], groups=c)
+        kw = dict(ks_list=ks_list, stride=1)
+        r = x.numel() // c
+        sampled = 2 * r * mid * ks * ks
+        masked = 2 * r * c * big * big
+        info = dict(shape=[BS, lr, lr, c], ks=ks, mid=mid)
+        for name, kern, plain, library, nbytes_s, nbytes_m in (
+                ("dw_masked_forward", lambda: dw_masked_forward(x, w, kt, bt, **kw),
+                 lambda: masked_depthwise_reference(x, w, kt, bt, **kw),
+                 lambda: torch.nn.functional.conv2d(nchw(x), w, padding=big // 2, groups=c),
+                 (r * mid + r * c) * esz + mid * ks * ks * esz, 2 * r * c * esz),
+                ("dw_masked_dgrad", lambda: dw_masked_dgrad(dy, w, kt, bt, in_hw=(lr, lr), **kw),
+                 lambda: cb(nchw(dy * live), nchw(x), wm, None, output_mask=[True, False, False],
+                            **cv)[0] * live.view(1, c, 1, 1),
+                 lambda: cb(nchw(dy), nchw(x), w, None, output_mask=[True, False, False], **cv),
+                 (r * mid + r * c) * esz + mid * ks * ks * esz, 2 * r * c * esz),
+                ("dw_masked_wgrad", lambda: dw_masked_wgrad(x, dy, kt, bt, bank_ks=big, **kw),
+                 lambda: cb(nchw(dy * live), nchw(x * live), wm, None,
+                            output_mask=[False, True, False], **cv)[1] * tm,
+                 lambda: cb(nchw(dy), nchw(x), w, None, output_mask=[False, True, False], **cv),
+                 2 * r * mid * esz + c * big * big * esz, 2 * r * c * esz)):
+            rec = measure_shape(kern, plain, sampled, nbytes_s, k, unit="step", library=library,
+                                **info)
+            rec["bound_masked_work_ms_per_launch"] = max(bound_ms(masked, nbytes_m))
+            rows[name].append(rec)
+        del x, dy, w, wm, tm
+    src = "ofa_sr_tpu_torch/csrc/dw_masked.cu"
+    replaces = ("none: no Pallas kernel; the XLA depthwise branches of the masked MBConv, "
+                "ofa_sr_tpu/models/layers.py:248 (_dw_switched, dw_switch) and :425 (ks_switch)")
+    run = p13["main_path_bf16" if bf16 else "main_path"]["1 subnet, dw_switch"]
+    out = []
+    for name in rows:
+        row = kernel_row(name + (" (bf16)" if bf16 else ""), src, replaces,
+                         run["launches"].get(name + key, 0), errs[name + key], rows[name],
+                         unit="step", wrapper=name, dtype=str(dtype).replace("torch.", ""),
+                         bound_rate="FMAs at %.0f TFLOP/s (FP32) against %.2f TB/s, the "
+                         "sampled k x k taps below the bound" % (PEAK_F32_FLOPS / 1e12,
+                                                                PEAK_BYTES / 1e12),
+                         library_call={"dw_masked_forward": "F.conv2d(groups=C), 7x7, all C",
+                                       "dw_masked_dgrad": "aten.convolution_backward, dx, "
+                                                          "7x7, all C",
+                                       "dw_masked_wgrad": "aten.convolution_backward, dW, "
+                                                          "7x7, all C"}[name])
+        row["bound_masked_work_ms"] = sum(sh["bound_masked_work_ms_per_launch"]
+                                          * sh["launches_per_step"] for sh in rows[name])
+        if name == "dw_masked_wgrad":
+            row["max_abs_err_vs_f64"] = errs["dw_masked_wgrad_vs_f64" + key]
+        out.append(row)
+        print("  %-24s %d launches (graphed main path)  %.4f ms/step  plain %.4f  bound %.4f "
+              "(%s; masked work %.4f)  library %.4f" % (
+                  row["name"], row["launches"], row["ms"], row["plain_ms"], row["bound_ms"],
+                  row["bound_by"], row["bound_masked_work_ms"], row["library_ms"]), flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script measures the port on a GPU")
@@ -5455,6 +5884,10 @@ def main():
     for dtype in (torch.float32, BF16):
         errs.update(bn_active_parity(g, dtype, cls_masked_bn_cases(), "_active_cls"))
     bn_dtype_rule()
+    print("phase 2: the masked depthwise (csrc/dw_masked.cu), forward, dgrad and wgrad, "
+          "float32 and bf16", flush=True)
+    for dtype in (torch.float32, BF16):
+        errs.update(dw_masked_parity(g, dtype))
 
     print("phase 3: serving %d frames of %dx%d LR" % ((N_FRAMES,) + LR_HW), flush=True)
     net = build_net(dev)
@@ -5709,6 +6142,7 @@ def main():
                 "launches"].get(key, 0)}
         if base in ("bn_forward", "bn_backward"):
             r["max_abs_err_active_cls"] = errs[base + "_active_cls" + ("_bf16" if bf16 else "")]
+    dw_rows = dw_kernel_numbers(g, p13, errs) + dw_kernel_numbers(g, p13, errs, BF16)
     rows[2]["route_note"] = ("takes every channel count; JAX switches its Pallas BN in only "
                              "for C % 64 == 0 (ofa_sr_tpu/ops/norm.py:76); the classification "
                              "nets' C 16-1280 run through it here")
@@ -5737,6 +6171,18 @@ def main():
         prof["ms_after_profiling"], prof["host_enqueue_ms_after_profiling"] = after
         print("  %s after the profiles: %.4f ms per step (CUDA events), host enqueue %.4f"
               % ((name,) + after), flush=True)
+    # the masked depthwise's rows: their times at the graphed window's
+    # shapes were taken with phase 6's others (below, before the profiles);
+    # their device time a step from the graphed dw_switch step's profile
+    by13 = {p["path"]: p for p in p13["step_profiles"]}
+    for r in dw_rows:
+        prof = by13["graphed dw_switch 1 subnet" + (" bf16" if r["dtype"] == "bfloat16"
+                                                   else "")]
+        r["device_ms"] = sum(k["ms_per_step"] for k in prof["port_kernels"]
+                             if any(n in k["kernel"] for n in DW_ROW_KERNELS[r["wrapper"]]))
+        print("  %s: %.4f ms per step on the device (bound %.4f)"
+              % (r["name"], r["device_ms"], r["bound_ms"]), flush=True)
+    rows += dw_rows
     print("phase 10 (b): trace() around two kernel frames", flush=True)
     with tempfile.TemporaryDirectory(prefix="ofa_sr_trace_") as tmp:
         p10["trace"] = trace_check(dev, tmp)

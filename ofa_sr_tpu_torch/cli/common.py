@@ -4,9 +4,15 @@ ofa_sr_tpu/cli/common.py).
 Each script exposes the reference preset as defaults and lets any of them
 be overridden; `--synthetic` swaps the dataset for the synthetic provider,
 so every entry point runs without an image tree. `--device` (default
-`cuda`) picks the card; `--device cpu` runs on the CPU. The JAX package's
-XLA-only flags (`--remat`, `--ks_switch`, `--dw_switch`, `--dw_align`) have
-no counterpart (ROADMAP queue 1 item 14). Nor has its `s2d` option: the
+`cuda`) picks the card; `--device cpu` runs on the CPU. `add_perf_args`
+gives the training CLIs the JAX package's `--compute_dtype`, `--ks_switch`,
+`--dw_switch [dw|project]` and `--dw_align` (on the CLIs where JAX's
+`add_perf_args` has them), and `perf_config_kw` maps them to the RunConfig
+as JAX's does. The depthwise levers act in the masked window step
+(`RunConfig.steps_per_dispatch` > 1, which these CLIs leave at 1, as JAX's
+do); the eager sliced step already runs only the sampled taps and channels.
+Its `--remat` is not ported (the steps fit the card's memory without
+rematerialization; ROADMAP queue 1 item 14); nor is its `s2d` option: the
 trunk in space-to-depth layout, block-diagonal 4x-deep 1x1 contractions
 for the TPU's matrix unit (ofa_sr_tpu/train/train_step.py:120-123), which
 changes no number; cuDNN and csrc/mbconv.cu take NHWC at any depth, so
@@ -59,7 +65,7 @@ def add_common_args(parser: argparse.ArgumentParser, *, path, n_epochs,
                              "has)")
     parser.add_argument("--kd_ratio", type=float, default=0.0)
     parser.add_argument("--dynamic_batch_size", type=int, default=dynamic_batch_size)
-    add_compute_dtype_arg(parser)
+    add_perf_args(parser)
     return parser
 
 
@@ -69,11 +75,45 @@ def add_device_arg(parser: argparse.ArgumentParser):
     return parser
 
 
-def add_compute_dtype_arg(parser: argparse.ArgumentParser):
+def add_perf_args(parser: argparse.ArgumentParser):
+    """The precision and depthwise flags of the training CLIs (JAX
+    `add_perf_args`, without `--remat`)."""
     parser.add_argument("--compute_dtype", type=str, default=None, choices=["f32", "bf16"],
                         help="bf16: mixed precision (float32 master params, BN statistics, "
                              "transform matrices)")
+    parser.add_argument("--ks_switch", action="store_true",
+                        help="the masked window step's depthwise (RunConfig."
+                             "steps_per_dispatch > 1) runs only the sampled kernel size's "
+                             "k x k taps, through the hand-written kernel (exact vs "
+                             "masking; the same kernel as --dw_switch, whose channel bound "
+                             "changes no value there); the eager sliced step does so "
+                             "already")
+    parser.add_argument("--dw_switch", nargs="?", const="dw", default="off",
+                        choices=["off", "dw", "project"],
+                        help="the masked window step's depthwise runs only the sampled "
+                             "subnet's taps and channels (exact vs masking; supersedes "
+                             "--ks_switch), through the hand-written kernel, which reads "
+                             "both on the device: no graph a subnet. 'project' runs as "
+                             "'dw': the kernel has no branch seam for it to shrink")
+    parser.add_argument("--dw_align", type=int, default=0,
+                        help="accepted for the JAX package's command lines: there it "
+                             "shares compiled branches between widths; the kernel takes any "
+                             "width, so it changes nothing. 0 = off")
     return parser
+
+
+def perf_config_kw(args):
+    """RunConfig kwargs for the precision and depthwise flags (JAX
+    `perf_config_kw`, without `remat`)."""
+    kw = {"compute_dtype": args.compute_dtype}
+    if getattr(args, "ks_switch", False):
+        kw["ks_switch"] = True
+    dws = getattr(args, "dw_switch", "off")
+    if dws and dws != "off":
+        kw["dw_switch"] = True if dws == "dw" else dws
+    if getattr(args, "dw_align", 0):
+        kw["dw_align"] = args.dw_align
+    return kw
 
 
 def seeded(args):

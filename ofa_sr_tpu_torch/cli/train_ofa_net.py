@@ -21,7 +21,7 @@ from ..data import ElasticResolution, ImagenetProvider, SyntheticClsProvider
 from ..models import OFAMobileNetV3
 from ..train import ClsRunManager, RunConfig
 from ..train.checkpoint import load_weights_strict
-from .common import add_compute_dtype_arg, add_device_arg, init_mesh, seeded, set_seeds
+from .common import add_device_arg, add_perf_args, init_mesh, perf_config_kw, seeded, set_seeds
 
 # the reference's task table (train_ofa_net.py:33-106)
 TASK_PHASES = {
@@ -63,7 +63,7 @@ def build_args(argv=None):
     p.add_argument("--manual_seed", type=int, default=0)
     p.add_argument("--warmstart", type=str, default=None)
     p.add_argument("--n_epochs", type=int, default=None)
-    add_compute_dtype_arg(p)
+    add_perf_args(p)
     return p.parse_args(argv)
 
 
@@ -100,7 +100,7 @@ def main(argv=None):
                     opt_type="sgd", weight_decay=3e-5, train_batch_size=global_bs,
                     dynamic_batch_size=preset["dynamic_batch_size"], kd_ratio=kd_ratio,
                     kd_type="ce", manual_seed=args.manual_seed,
-                    compute_dtype=args.compute_dtype)
+                    **perf_config_kw(args))
     rm = ClsRunManager(args.path or preset["path"], net, cfg, provider, teacher=teacher,
                        mesh=mesh if mesh.world > 1 else None)
     if args.warmstart:

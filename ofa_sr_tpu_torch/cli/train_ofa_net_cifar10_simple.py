@@ -18,7 +18,7 @@ import argparse
 from ..models import OFAMobileNetV3
 from ..train import ClsRunManager, RunConfig
 from ..train.checkpoint import load_weights_strict
-from .common import add_compute_dtype_arg, add_device_arg, seeded, set_seeds
+from .common import add_device_arg, add_perf_args, perf_config_kw, seeded, set_seeds
 from .train_teacher_net_cifar10_simple import cifar_provider
 
 
@@ -38,7 +38,7 @@ def build_args(argv=None):
     p.add_argument("--teacher_ckpt", type=str, default=None)
     p.add_argument("--warmstart", type=str, default=None)
     p.add_argument("--manual_seed", type=int, default=0)
-    add_compute_dtype_arg(p)
+    add_perf_args(p)
     return p.parse_args(argv)
 
 
@@ -59,7 +59,7 @@ def main(argv=None):
                     train_batch_size=args.base_batch_size,
                     dynamic_batch_size=args.dynamic_batch_size, kd_ratio=kd_ratio,
                     kd_type="ce", manual_seed=args.manual_seed,
-                    compute_dtype=args.compute_dtype)
+                    **perf_config_kw(args))
     rm = ClsRunManager(args.path, net, cfg, cifar_provider(args), teacher=teacher)
     if args.warmstart:
         rm.load_weights(args.warmstart)

@@ -21,7 +21,7 @@ from ..data import CodecDecoderProvider, OracleVideoProvider
 from ..models import OFAMobileNetX4, SearchSpace, sample_subnet
 from ..models.arch import uniform_subnet
 from ..train import RunConfig, SRRunManager
-from .common import add_common_args, make_net, make_sr_provider, set_seeds
+from .common import add_common_args, make_net, make_sr_provider, perf_config_kw, set_seeds
 
 
 def build_args(argv=None):
@@ -66,7 +66,7 @@ def main(argv=None):
         print_frequency=args.print_frequency,
         manual_seed=args.manual_seed, mode="sr", bn_frozen=True,
         bn_momentum=args.bn_momentum, bn_eps=args.bn_eps,
-        image_size=args.image_size, compute_dtype=args.compute_dtype)
+        image_size=args.image_size, **perf_config_kw(args))
     rm = SRRunManager(args.path, net, cfg, provider)
     if args.warmstart:
         rm.load_weights(args.warmstart)

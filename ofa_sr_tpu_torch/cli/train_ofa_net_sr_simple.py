@@ -27,7 +27,7 @@ from ..models.arch import reference_quirk_arch_x4, uniform_subnet
 from ..train import RunConfig, SRRunManager
 from ..train.checkpoint import checkpoint_state_dict, load_checkpoint
 from ..train.shrink import supporting_elastic
-from .common import add_common_args, make_net, make_sr_provider, set_seeds
+from .common import add_common_args, make_net, make_sr_provider, perf_config_kw, set_seeds
 
 # the reference's phase table
 TASK_PHASES = {
@@ -141,7 +141,7 @@ def main(argv=None):
         bn_momentum=args.bn_momentum, bn_eps=args.bn_eps,
         image_size=args.image_size, reference_quirks=args.reference_quirks,
         sandwich_rule=args.sandwich, corner_gate=args.corner_gate,
-        compute_dtype=args.compute_dtype)
+        **perf_config_kw(args))
     rm = SRRunManager(args.path, net, cfg, provider, teacher=teacher)
 
     # the validation grid: each dimension's min and max, every pixel_d

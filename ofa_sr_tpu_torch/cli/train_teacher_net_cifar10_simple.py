@@ -17,7 +17,7 @@ import argparse
 from ..data import Cifar10Provider, SyntheticClsProvider
 from ..models import OFAMobileNetV3
 from ..train import ClsRunManager, RunConfig
-from .common import add_compute_dtype_arg, add_device_arg, seeded, set_seeds
+from .common import add_device_arg, add_perf_args, perf_config_kw, seeded, set_seeds
 
 
 def build_args(argv=None):
@@ -36,7 +36,7 @@ def build_args(argv=None):
     p.add_argument("--ks", type=int, default=7)
     p.add_argument("--expand", type=int, default=6)
     p.add_argument("--depth", type=int, default=4)
-    add_compute_dtype_arg(p)
+    add_perf_args(p)
     return p.parse_args(argv)
 
 
@@ -58,7 +58,7 @@ def main(argv=None):
     cfg = RunConfig(n_epochs=args.n_epochs, base_lr=args.base_lr,
                     warmup_epochs=args.warmup_epochs, opt_type="sgd", weight_decay=3e-5,
                     train_batch_size=args.base_batch_size, manual_seed=args.manual_seed,
-                    compute_dtype=args.compute_dtype)
+                    **perf_config_kw(args))
     rm = ClsRunManager(args.path, net, cfg, cifar_provider(args),
                        label_smoothing=args.label_smoothing)
     rm.load_model()  # resume if a checkpoint exists

@@ -16,7 +16,7 @@ from ..data import OracleVideoProvider
 from ..models import OFAMobileNetS4, SearchSpace
 from ..models.arch import max_subnet
 from ..train import RunConfig, SRRunManager
-from .common import add_common_args, make_net, make_sr_provider, set_seeds
+from .common import add_common_args, make_net, make_sr_provider, perf_config_kw, set_seeds
 
 
 def build_args(argv=None):
@@ -43,7 +43,7 @@ def main(argv=None):
         clip_grad_norm=args.clip_grad_norm or None,
         train_batch_size=args.base_batch_size,
         manual_seed=args.manual_seed, bn_frozen=True,
-        image_size=args.image_size, compute_dtype=args.compute_dtype)
+        image_size=args.image_size, **perf_config_kw(args))
     rm = SRRunManager(args.path, net, cfg, provider)
     if args.checkpoint:
         rm.load_weights(args.checkpoint)

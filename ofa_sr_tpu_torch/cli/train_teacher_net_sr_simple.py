@@ -16,7 +16,7 @@ import argparse
 from ..data import Div2KSetXXProvider
 from ..models import OFAMobileNetS4, SearchSpace
 from ..train import RunConfig, SRRunManager
-from .common import add_common_args, make_net, make_sr_provider, set_seeds
+from .common import add_common_args, make_net, make_sr_provider, perf_config_kw, set_seeds
 
 
 def build_args(argv=None):
@@ -54,7 +54,7 @@ def main(argv=None):
         save_frequency=args.save_frequency,
         manual_seed=args.manual_seed, bn_momentum=args.bn_momentum,
         bn_eps=args.bn_eps, image_size=args.image_size,
-        bn_frozen=args.bn_mode == "frozen", compute_dtype=args.compute_dtype)
+        bn_frozen=args.bn_mode == "frozen", **perf_config_kw(args))
     rm = SRRunManager(args.path, net, cfg, provider)
     if args.warmstart:
         rm.load_weights(args.warmstart)

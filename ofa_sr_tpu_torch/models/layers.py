@@ -51,6 +51,7 @@ from ..ops.elastic import (
     transform_kernel_chain,
     transform_matrices_init,
 )
+from ..ops.kernels.dw_masked import masked_depthwise, masked_depthwise_reference
 from ..ops.norm import batch_norm, batch_norm_train
 from ..ops.pixelshuffle import pixel_shuffle, pixel_unshuffle
 from ..utils.common import make_divisible
@@ -250,7 +251,7 @@ class DynamicMBConvLayer(nn.Module):
 
     def forward_masked(self, x, ks_idx, mid, *, act="relu6", stride=1, se_mid=None,
                        out_ch=None, bn_training=False, use_kernels=False, compute_dtype=None,
-                       spatial_mask=None, bn_group=None):
+                       spatial_mask=None, bn_group=None, dw_lever=False):
         """The masked form of `forward` (the JAX package's
         `_masked_mbconv_apply`): `ks_idx` (an index into the sorted kernel
         sizes), `mid` (the active middle width), `se_mid` (the SE's active
@@ -266,7 +267,14 @@ class DynamicMBConvLayer(nn.Module):
         max-mid channels, of which the inactive ones are 0, and its BN masks
         y beyond `out_ch`: the sliced forward's values. A width of 0 gives
         y = 0 and leaves that BN's running statistics unchanged (the
-        classification nets' depth gate)."""
+        classification nets' depth gate).
+
+        `dw_lever`: the net's (`set_depthwise_lever`). Set, the depthwise
+        runs through `masked_depthwise` over the selected kernel size's
+        k x k centre taps and the channels below `mid` alone: the same
+        values, since y is 0 from `mid` on. On the card that is
+        csrc/dw_masked.cu, unless `use_kernels` is False, which takes its
+        plain version."""
         ib, dw, pl = self.inverted_bottleneck, self.depth_conv, self.point_linear
         bn = dict(bn_training=bn_training, use_kernels=use_kernels, bn_group=bn_group,
                   active=mid)
@@ -277,12 +285,55 @@ class DynamicMBConvLayer(nn.Module):
         mats = dw.conv.matrices()
         cands = kernel_candidates(cast(dw.conv.weight, compute_dtype), mats, self.ks_list,
                                   use_transform=bool(mats))
-        y = depthwise_conv2d(y, select_kernel(cands, ks_idx), stride)
+        w_dw = select_kernel(cands, ks_idx)
+        if not dw_lever:
+            y = depthwise_conv2d(y, w_dw, stride)
+        else:
+            y = (masked_depthwise if use_kernels else masked_depthwise_reference)(
+                y, w_dw, ks_idx, mid, ks_list=self.ks_list, stride=stride)
         y = apply_act(bn_apply(y, dw.bn, **bn), act)
         if hasattr(dw, "se"):
             y = dw.se.forward_masked(y, mid, se_mid, compute_dtype)
         y = conv2d(y, cast(pl.conv.weight, compute_dtype))
         return bn_apply(y, pl.bn, **dict(bn, active=out_ch))
+
+
+DW_SWITCHES = (False, True, "dw", "project")
+DW_OPTS = ("live", "seam", "align")
+
+
+def set_depthwise_lever(net, ks_switch=False, dw_switch=False, dw_opts=None):
+    """Set the JAX package's depthwise levers on `net`, as its trainers set
+    them (ofa_sr_tpu/train/train_step.py:98-119): `ks_switch`, `dw_switch`
+    (False, True, "dw" or "project") and `dw_opts` ({"live", "seam",
+    "align"}), all off by default, as in JAX. The port has one lever,
+    `net.dw_lever`, which the masked forwards read: the depthwise over the
+    sampled taps and the first `mid` channels (`masked_depthwise`). Every
+    one of JAX's forms gives the same values for the same work or more, so
+    each sets it:
+    - `ks_switch` (the taps over every channel): the channels from `mid`
+      on are 0 in the masked step, so bounding them changes no value.
+    - `dw_switch="project"` (`_dwp_switched`: the depthwise BN and the
+      project conv in each branch, to shrink the seam where a branch's
+      output rejoins the bank width): the kernel has no branches and
+      writes the zeros past the bound itself, so there is no seam.
+    - `dw_opts["align"]` (the bound rounded up to a multiple of it, to
+      share JAX's compiled branches) and `dw_opts["live"]` (a shrink
+      phase's lists, `_apply_dw_live`, narrowing them): the kernel takes
+      any (ks, mid), so they are checked and change nothing. So is
+      `dw_opts["seam"]` (how a branch's output rejoins: none here).
+    JAX's `expand_switch` (a branch per expand width around the whole
+    block) is not ported: the eager step already slices the expand width,
+    and in the graphed masked form a branch per width would make each
+    block's width a graph key."""
+    if dw_switch not in DW_SWITCHES:
+        raise ValueError("dw_switch must be one of %s, got %r" % (DW_SWITCHES, dw_switch))
+    unknown = set(dw_opts or {}) - set(DW_OPTS)
+    if unknown:
+        raise ValueError("dw_opts takes %s; got %s" % (DW_OPTS, sorted(unknown)))
+    if ((dw_opts or {}).get("align") or 0) < 0:
+        raise ValueError("dw_opts['align'] must be >= 0, got %r" % (dw_opts["align"],))
+    net.dw_lever = bool(ks_switch or dw_switch)
 
 
 class MobileInvertedResidualBlock(nn.Module):

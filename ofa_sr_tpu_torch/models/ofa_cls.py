@@ -119,6 +119,7 @@ class ElasticClassifierNet(nn.Module):
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         wml = sorted(width_mult_list) if width_mult_list else [width_mult]
         self.width_mult_list = wml
+        self.dw_lever = False  # the masked depthwise (layers.set_depthwise_lever)
         self.space = SearchSpace(ks_list=list(ks_list), expand_list=list(expand_list),
                                  depth_list=list(depth_list), pixel_d_list=[1],
                                  n_stages=len(stage_specs), width=first_conv_width)
@@ -392,7 +393,10 @@ class ElasticClassifierNet(nn.Module):
         state). Dropout draws the shape of the max-width features, which is
         the sliced forward's where the widths are not elastic. The other
         arguments are `forward`'s: under `bn_group` every train-mode BN
-        takes the moments of all the ranks' rows with its width."""
+        takes the moments of all the ranks' rows with its width. The
+        elastic blocks' depthwise takes the net's lever `dw_lever`
+        (`layers.set_depthwise_lever`): a gated-off block's bound is its
+        width, 0."""
         bnt = bool(training if bn_training is None else bn_training)
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
@@ -423,7 +427,8 @@ class ElasticClassifierNet(nn.Module):
             out_elastic = len(set(self.stage_width_lists[si])) > 1
             for i in range(spec.n_block):
                 kw = dict(act=spec.act, stride=spec.stride if i == 0 else 1,
-                          se_mid=arch["se_mid"][bi], compute_dtype=cd, **bn)
+                          se_mid=arch["se_mid"][bi], compute_dtype=cd, dw_lever=self.dw_lever,
+                          **bn)
                 block = self.blocks[1 + bi]
                 if i == 0:  # always runs; no shortcut
                     y = block.forward_masked(y, arch["ks_idx"][bi], arch["mid"][bi],

@@ -56,6 +56,7 @@ class OFAMobileNetX4(nn.Module):
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         w, ks = sp.width, self.CONV_KS
         self.n_mb = sp.blocks_per_trunk
+        self.dw_lever = False  # the masked depthwise (layers.set_depthwise_lever)
         self.n_shuffle = max(sp.pixel_d_list)
 
         def trunk():
@@ -110,7 +111,8 @@ class OFAMobileNetX4(nn.Module):
                                            x.shape[2], x.dtype, x.device)
                 x = x * smask
         skip = x
-        x = run_trunk(self.enc_blocks, x, cfg, self.space, 0, spatial_mask=smask, **kw)
+        x = run_trunk(self.enc_blocks, x, cfg, self.space, 0, spatial_mask=smask,
+                      dw_lever=self.dw_lever, **kw)
         if smask is not None:
             x = x * smask
         for i, layer in enumerate(self.enc_final_conv_blocks):

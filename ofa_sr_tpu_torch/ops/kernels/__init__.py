@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels (counterparts of ofa_sr_tpu/ops/pallas/), each
-beside its plain PyTorch version. Importing this package needs neither a GPU
-nor nvcc: a kernel is built at its first launch."""
+"""Hand-written CUDA kernels (counterparts of ofa_sr_tpu/ops/pallas/, and
+the masked depthwise of the JAX package's depthwise levers, an XLA op
+there), each beside its plain PyTorch version. Importing this package needs
+neither a GPU nor nvcc: a kernel is built at its first launch."""
 
 from .bn import bn_train_fused
 from .bn_stats import (
@@ -15,6 +16,7 @@ from .bn_stats import (
     col_sums2,
     col_sums2_reference,
 )
+from .dw_masked import masked_depthwise, masked_depthwise_reference
 from .mbconv import fused_mbconv_infer, mbconv_reference
 from .shuffle_tail import fused_shuffle_tail, shuffle_tail_reference
 
@@ -32,6 +34,8 @@ __all__ = [
     "col_sums2_reference",
     "fused_mbconv_infer",
     "fused_shuffle_tail",
+    "masked_depthwise",
+    "masked_depthwise_reference",
     "mbconv_reference",
     "shuffle_tail_reference",
 ]

@@ -94,6 +94,12 @@ _FUNCTIONS = {
                                       [_VP] * 8 + [_INT] * 3 + [_DBL] * 2 + [_INT, _VP, _VP]),
     "ofa_bn_backward_from_sums_f32": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_VP, _VP]),
     "ofa_bn_backward_from_sums_bf16": ("bn_stats", [_VP] * 8 + [_INT] * 3 + [_VP, _VP]),
+    "ofa_dw_masked_fwd_f32": ("dw_masked", [_VP] * 5 + [_INT] * 13 + [_VP]),
+    "ofa_dw_masked_fwd_bf16": ("dw_masked", [_VP] * 5 + [_INT] * 13 + [_VP]),
+    "ofa_dw_masked_dgrad_f32": ("dw_masked", [_VP] * 5 + [_INT] * 13 + [_VP]),
+    "ofa_dw_masked_dgrad_bf16": ("dw_masked", [_VP] * 5 + [_INT] * 13 + [_VP]),
+    "ofa_dw_masked_wgrad_f32": ("dw_masked", [_VP] * 6 + [_INT] * 15 + [_VP]),
+    "ofa_dw_masked_wgrad_bf16": ("dw_masked", [_VP] * 6 + [_INT] * 15 + [_VP]),
 }
 SOURCES = tuple(sorted({src for src, _ in _FUNCTIONS.values()}))
 _fns = {}   # C name -> the bound ctypes function

@@ -33,7 +33,11 @@ optimizers skip the blocks no subnet ran (a None gradient). Under a mesh
 the windows keep the rules above: each batch of a window split over the
 ranks, the same archs and lrs on every rank, the global batch's metrics
 (NCCL on the card, its collectives captured in the graphs).
-`_apply_dw_live` and `remat` are XLA-only levers, not ported (item 14).
+`RunConfig.ks_switch`, `dw_switch` and `dw_align` go to `ClsTrainer`, the
+masked window step's depthwise levers (JAX cls_run_manager.py:78-79, which
+leaves `dw_align` out; it changes no number). JAX's `_apply_dw_live`
+narrows compiled branches the kernel does not have (`SRRunManager`'s
+note); `remat` is not ported (`ClsTrainer`'s note).
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from ..utils.common import AverageMeter
 from .bn_recalib import bn_recalibrate
 from .checkpoint import CHECKPOINT_NAME, load_checkpoint, load_weights_lenient, save_checkpoint
 from .cls_trainer import ClsTrainer
-from .run_manager import RunConfig, _compute_dtype_of
+from .run_manager import RunConfig, _compute_dtype_of, depthwise_kw
 from .schedules import lr_at_step
 
 
@@ -84,7 +88,7 @@ class ClsRunManager:
             kd_ratio=rc.kd_ratio if use_teacher else 0.0, kd_type=rc.kd_type or "ce",
             teacher=teacher if use_teacher else None, bn_frozen=rc.bn_frozen,
             compute_dtype=_compute_dtype_of(rc), use_kernels=use_kernels, mesh=mesh,
-            dropout_seed=rc.manual_seed + 1)
+            dropout_seed=rc.manual_seed + 1, **depthwise_kw(rc))
         if mesh is not None:
             shard_params(net, mesh)
         self._scan_step = None

@@ -39,8 +39,14 @@ gate), as CUDA-graph replays on a CUDA net (`train/graphs.py`), with the
 optimizer gated by each step's `cls_touched_mask` (`optim.GatedOpt`); on a
 CPU net the same masked steps run eagerly. Under a mesh the window has the
 eager step's global-batch semantics (`graphs.WindowStep`), its collectives
-captured in the graphs over NCCL. JAX's XLA-only levers (`remat`,
-`ks_switch`, `dw_switch`, `dw_opts`) have no counterpart (item 14).
+captured in the graphs over NCCL. JAX's depthwise levers (`ks_switch`,
+`dw_switch`, `dw_opts`, cls_trainer.py:66-74) set the net's one lever and
+act in the masked form, as `SRTrainer`'s (train/train_step.py): the
+elastic blocks' depthwise through `ops/kernels/dw_masked.py`, its kernel
+size and width (a gated-off block's 0) read on the device. `train_step`'s sliced
+form runs only the sampled taps and channels already. JAX's `remat` is
+not ported: the steps fit the card's memory without rematerialization
+(ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..models.layers import set_depthwise_lever
 from ..parallel.mesh import all_reduce_sum
 from .graphs import ClsWindowStep
 from .optim import build_optimizer
@@ -88,12 +95,14 @@ class ClsTrainer:
     use_kernels (default: on for a CUDA net) takes train-mode BN through the
     BN kernels. compute_dtype: None (float32) or torch.bfloat16. mesh: a
     `parallel.Mesh` for data-parallel training (the batches `train_step`
-    takes are then this rank's rows), or None."""
+    takes are then this rank's rows), or None. ks_switch, dw_switch,
+    dw_opts: the masked form's depthwise levers (module docstring)."""
 
     def __init__(self, net, *, opt_type="sgd", weight_decay=3e-5, momentum=0.9, nesterov=True,
                  label_smoothing=0.1, kd_ratio=0.0, kd_type="ce", teacher=None,
                  bn_frozen=False, compute_dtype: Optional[torch.dtype] = None,
-                 use_kernels: Optional[bool] = None, mesh=None, dropout_seed=1):
+                 use_kernels: Optional[bool] = None, mesh=None, dropout_seed=1,
+                 ks_switch=False, dw_switch=False, dw_opts=None):
         if kd_type not in ("ce", "mse"):
             raise ValueError("kd_type must be 'ce' or 'mse', got %r" % (kd_type,))
         self.net = net
@@ -109,6 +118,7 @@ class ClsTrainer:
         self.mesh = mesh
         self._group = None if mesh is None else mesh.group
         self.dropout_generator = torch.Generator(device=net.device).manual_seed(dropout_seed)
+        set_depthwise_lever(net, ks_switch, dw_switch, dw_opts)
 
     def _soft_labels(self, x):
         if not (self.kd_ratio > 0 and self.teacher is not None):

@@ -23,15 +23,18 @@ the static inputs, the next subnet's row into `arch` and the next step's
 memory, and each pass's metrics out into the window's.
 
 `GraphCache` keeps one graph per key: an SR pass by (mode, depths, pixel_d,
-compute_dtype, batch shapes, frozen BN, KD); a classification pass by
-("cls", batch shapes, compute_dtype, frozen BN, KD), its depths being
-device gates; the teacher by its input's shape, and the one update. The
-first time a key comes up, its part of the step runs eagerly on the
-cache's stream (the real step, and the warm-up that capture needs), and is
-then captured without executing, so no step updates the parameters or
-running statistics twice. All graphs share one memory pool: nothing a
-graph allocates outlives its replay (its outputs go into buffers allocated
-outside the pool, held for the run's life), so the graphs can be replayed
+compute_dtype, batch shapes, frozen BN, KD, the net's depthwise lever); a
+classification pass by ("cls", batch shapes, compute_dtype, frozen BN, KD,
+the lever), its depths being device gates; the teacher by its input's
+shape, and the one update. The lever is set once with the trainer, and
+the masked depthwise reads each subnet's kernel size and width from
+`arch`: it adds no key a subnet. The first time a key comes up, its part
+of the step runs eagerly on the cache's stream (the real step, and the
+warm-up that capture needs), and is then captured without executing, so
+no step updates the parameters or running statistics twice. All graphs
+share one memory pool: nothing a graph allocates outlives its replay (its
+outputs go into buffers allocated outside the pool, held for the run's
+life), so the graphs can be replayed
 in any order. A generator that a captured function draws from (the
 classification trainer's dropout generator) is registered with every graph
 (`register_generator`), so each replay draws the generator's next numbers,
@@ -301,7 +304,7 @@ class SRWindowStep(WindowStep):
     def pass_key(self, cfg, shapes, kd):
         tr = self.trainer
         return ("pass", tr.mode, tuple(cfg.d), cfg.pixel_d, str(tr.compute_dtype), shapes,
-                tr.bn_frozen, kd)
+                tr.bn_frozen, kd, tr.net.dw_lever)
 
     def subnet_pass(self, sb, cfg, t_out):
         rows = self.arch.view(2, -1)
@@ -345,7 +348,8 @@ class ClsWindowStep(WindowStep):
 
     def pass_key(self, a, shapes, kd):
         tr = self.trainer
-        return ("pass", "cls", shapes, str(tr.compute_dtype), tr.bn_frozen, kd)
+        return ("pass", "cls", shapes, str(tr.compute_dtype), tr.bn_frozen, kd,
+                tr.net.dw_lever)
 
     def subnet_pass(self, sb, a, t_out):
         loss, acc = self.trainer._subnet_loss(sb, self.arch_dev, t_out, masked=True)

@@ -17,10 +17,18 @@ training: at 1 (the default) every step runs eagerly through
 `SRTrainer.train_step`; above 1 the epoch collects windows of that many
 steps and runs each through `SRTrainer.make_scan_train_step` (CUDA-graph
 replays of the masked step on a GPU), a shorter tail through the same
-step, and records and logs once a window. Left out of the JAX package's
-RunConfig: the other XLA-era levers (`remat`, `ks_switch`, `dw_switch`,
-`dw_align`; ROADMAP queue 1 item 14) and `s2d`, a space-to-depth layout of
-the trunk for the TPU's matrix unit (4x-deep 1x1 contractions,
+step, and records and logs once a window. `ks_switch`, `dw_switch` and
+`dw_align` are the JAX package's depthwise levers (its RunConfig's,
+run_manager.py:126-140), handed to `SRTrainer` as JAX hands them
+(`dw_opts={"align": dw_align}`, :212-241): any of them makes the masked
+window step run its depthwise through the hand-written
+`ops/kernels/dw_masked.py` over the sampled taps and widths
+(`models.layers.set_depthwise_lever`). JAX's `_apply_dw_live`, which narrows
+the compiled branches to a shrink phase's lists, has nothing to narrow
+here (the kernel takes any kernel size and width) and is not ported. Left
+out of the JAX package's RunConfig: `remat` (the steps fit the card's
+memory without rematerialization; ROADMAP queue 1 item 14) and `s2d`, a space-to-depth layout of the
+trunk for the TPU's matrix unit (4x-deep 1x1 contractions,
 ofa_sr_tpu/train/train_step.py:120-123) that changes no number: cuDNN and
 csrc/mbconv.cu take NHWC at any depth, so the port has no counterpart.
 
@@ -128,6 +136,13 @@ class RunConfig:
     # optimizer steps a window of the graphed masked step
     # (SRTrainer / ClsTrainer.make_scan_train_step); 1 = one eager step at a time
     steps_per_dispatch: int = 1
+    # JAX's depthwise levers: ks_switch or dw_switch (False, True or
+    # "project") runs the masked step's depthwise over the sampled taps and
+    # widths alone (exact); dw_align (JAX's branch sharing) is checked and
+    # changes nothing. See models.layers.set_depthwise_lever
+    ks_switch: bool = False
+    dw_switch: object = False
+    dw_align: int = 0
 
     def __post_init__(self):
         if self.save_frequency < 1:
@@ -148,6 +163,14 @@ def _compute_dtype_of(run_config):
     if run_config.compute_dtype in ("bf16", "bfloat16"):
         return torch.bfloat16
     raise ValueError("unknown compute_dtype %r" % run_config.compute_dtype)
+
+
+def depthwise_kw(run_config):
+    """The trainers' depthwise-lever kwargs from a RunConfig (JAX
+    run_manager.py:212-241): ks_switch, dw_switch, and dw_opts holding
+    dw_align where it is set."""
+    return dict(ks_switch=run_config.ks_switch, dw_switch=run_config.dw_switch,
+                dw_opts={"align": run_config.dw_align} if run_config.dw_align else None)
 
 
 def _bucket_pad(batch, pixel_d, bucket, mode="sr"):
@@ -207,7 +230,7 @@ class SRRunManager:
             momentum=run_config.momentum, nesterov=run_config.nesterov,
             clip_grad_norm=run_config.clip_grad_norm, bn_frozen=run_config.bn_frozen,
             use_kernels=use_kernels, compute_dtype=_compute_dtype_of(run_config),
-            mode=run_config.mode, mesh=mesh, **kd)
+            mode=run_config.mode, mesh=mesh, **depthwise_kw(run_config), **kd)
         if mesh is not None:
             shard_params(net, mesh)
         self._scan_step = None

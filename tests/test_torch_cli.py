@@ -20,7 +20,7 @@ from ofa_sr_tpu_torch.ops.kernels import fused_mbconv_infer, fused_shuffle_tail
 
 CPU = ["--synthetic", "--device", "cpu"]
 # flags only the JAX package has (XLA execution levers), or only the port
-JAX_ONLY = {"remat", "ks_switch", "dw_switch", "dw_align"}
+JAX_ONLY = {"remat"}
 PORT_ONLY = {"device"}
 
 

@@ -68,7 +68,7 @@ from ofa_sr_tpu_torch.train.checkpoint import mbv3_state_dict_from_jax
 from ofa_sr_tpu_torch.train.optim import build_optimizer
 
 PAIRS = [(jteacher, tteacher), (jcofa, tcofa), (jofa, tofa), (jeval, teval), (jspec, tspec)]
-JAX_ONLY = {"remat", "ks_switch", "dw_switch", "dw_align"}
+JAX_ONLY = {"remat"}
 PORT_ONLY = {"device"}
 UPDATE_RTOL, FLOOR_RTOL = 2e-2, 1e-5
 LR_SCALE = 1e-2
