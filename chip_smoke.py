@@ -34,7 +34,10 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    the S4 masked step's shapes (C 384 at 36,864 and 9,216 rows with widths
    0, 192, 200, 256, 384 and those rounded up to 128 as bounds; C 192 and
    256 at their full width) and MBV3's (C 96 at 64x112x112, stride 1 and 2; C 960 at
-   64x7x7), every kernel size: y and dx against the plain version within
+   64x7x7), and the tiled kernel's edges (C 100, whose bf16 pixel rows are
+   not a multiple of 16 bytes; an odd C 37; odd sides at stride 2; widths
+   ragged against the 16-column tile), every kernel size: y and dx against
+   the plain version within
    TOL (bf16 BF16_DX_TOL), dW no farther from a float64 plain run than the
    plain version plus DW_F64_MARGIN, exact zeros from the bound on and
    outside the k x k window, two calls the same bits.
@@ -463,6 +466,7 @@ from ofa_sr_tpu_torch.ops.kernels.dw_masked import (  # noqa: E402
     out_size,
     tap_mask,
 )
+from ofa_sr_tpu_torch.ops.kernels.dw_masked import smem_bytes as dw_smem_mirror  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.mbconv import fused_mbconv_infer, mbconv_reference  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.shuffle_tail import (  # noqa: E402
     fused_shuffle_tail,
@@ -531,7 +535,7 @@ N_FRAMES = 8
 BS, HR = 16, 96                       # the training envelope of the JAX bench
 TRAIN_STEPS = 8                       # one-subnet steps; steps 0-7 sample both pixel_d
 KD_STEPS = 2                          # steps of 4 subnets with KD
-STEP_ROUNDS = 2                       # rounds of (plain, kernels, kernels, plain) timing
+STEP_ROUNDS = 1                       # rounds of (plain, kernels, kernels, plain) timing
 # the BN wrappers the training path calls, one launch each per train-mode BN
 # (the fused forward and the fused backward), and the BN wrappers that are
 # off the path (entry points of the Pallas functions, held in phase 2)
@@ -1188,7 +1192,35 @@ def dw_masked_cases():
         cases += [("S4", (BS, lr, lr, c), 1, (c,)) for c in (192, 256)]
     cases += [("MBV3", (CLS_TRAIN_BATCH, 112, 112, 96), s, (0, 64, 72, 96)) for s in (1, 2)]
     cases.append(("MBV3", (CLS_TRAIN_BATCH, 7, 7, 960), 1, (0, 480, 500, 960)))
+    # the tiled kernel's edges: a C whose bf16 pixel rows are not a multiple
+    # of 16 bytes (C 100: 4-byte copies), an odd C (37: 2-byte bf16 copies,
+    # one-value stores), odd sides at stride 2, and widths ragged against
+    # the 16-column output tile and the stride-2 dgrad's 32-column dx tile
+    cases += [("edge", (8, 20, 36, 100), 1, (0, 50, 100)),
+              ("edge", (8, 15, 15, 100), 2, (0, 50, 100)),
+              ("edge", (4, 13, 21, 37), 1, (0, 19, 37)),
+              ("edge", (4, 15, 45, 37), 2, (0, 19, 37))]
     return cases
+
+
+def dw_smem_bytes():
+    """The masked depthwise's dynamic shared memory a block, by direction,
+    bank size, stride and type, as csrc/dw_masked.cu sizes it; fails unless
+    the wrapper's mirror of its tiling (`dw_masked.smem_bytes`) agrees."""
+    query = _build.load("dw_masked").ofa_dw_masked_smem_bytes
+    query.argtypes, query.restype = [ctypes.c_int] * 4, ctypes.c_int
+    out = {}
+    for di, d in enumerate(("fwd", "dgrad", "wgrad")):
+        for k in (3, 5, 7):
+            for bf16 in (False, True):
+                got = [query(di, k, s, int(bf16)) for s in (1, 2)]
+                mirror = [dw_smem_mirror(d, k, s, BF16 if bf16 else torch.float32)
+                          for s in (1, 2)]
+                if got != mirror:
+                    fail("dw_masked %s K %d: shared memory %s bytes, the wrapper's tiling says %s"
+                         % (d, k, got, mirror))
+                out["%s K%d %s" % (d, k, "bf16" if bf16 else "f32")] = got
+    return out
 
 
 def dw_close(name, got, ref, tol):
@@ -3592,7 +3624,7 @@ CLS_LR = 2.5e-3                          # the depth and expand phase-1 presets'
 # float32 path's share reported beside it
 CLS_UPDATE_RTOL = 5e-2
 CLS_EVAL_HW = 224                         # eval_ofa_net's default --image_size
-CLS_STEP_ROUNDS = 2                       # rounds of (plain, kernels, kernels, plain) timing
+CLS_STEP_ROUNDS = 1                       # rounds of (plain, kernels, kernels, plain) timing
 CLS_FAMILIES = (("MBV3", OFAMobileNetV3), ("Proxyless", OFAProxylessNASNets))
 CLS_DTYPES = ((None, "f32"), (BF16, "bf16"))
 CLS_STEP_PATHS = ("plain", "kernels")
@@ -5865,6 +5897,9 @@ def main():
     mb_smem = {ks: smem_query(64, ks) for ks in (3, 5, 7)}
     print("  [mbconv] dynamic shared memory a block at C 64, by k: %s bytes" % mb_smem,
           flush=True)
+    dw_smem = dw_smem_bytes()
+    print("  [dw_masked] dynamic shared memory a block, K 7, (stride 1, stride 2), float32 "
+          "and bf16: %s bytes" % {k: v for k, v in dw_smem.items() if "K7" in k}, flush=True)
 
     g = torch.Generator().manual_seed(1234)
     print("phase 2: kernel parity on the card", flush=True)
@@ -6193,7 +6228,8 @@ def main():
                       "search": p9, "phase10": p10, "phase11": p11, "phase12": p12,
                       "phase13": p13, "phase14": p14,
                       "build_s": build_s,
-                      "mbconv_smem_bytes": mb_smem, "gpu": smi_line}))
+                      "mbconv_smem_bytes": mb_smem, "dw_masked_smem_bytes": dw_smem,
+                      "gpu": smi_line}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

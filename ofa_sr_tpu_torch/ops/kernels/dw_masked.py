@@ -41,6 +41,12 @@ The wgrad sums over N*Ho*Wo rows in two passes with no atomics (fixed
 per-block partials into a workspace this module allocates, then a second
 kernel adding them in order), its partition chosen from the shapes alone:
 two calls on the same inputs give the same bits on any card.
+
+The kernel's tiling is mirrored here (`parity_taps`, `launch_grid`,
+`partition`, `smem_bytes`), so that the host-side numbers it is launched
+with can be checked on the CPU (tests/test_torch_dw_masked_tiles.py) and
+its shared memory against the kernel's own sizes on the card
+(chip_smoke.py phase 1).
 """
 
 from __future__ import annotations
@@ -54,10 +60,23 @@ from . import _build
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 STRIDES = (1, 2)
 BANK_SIZES = (3, 5, 7)
-CH = 32                   # channels a block (csrc/dw_masked.cu)
-SEG_W = 8                 # outputs a row segment (csrc/dw_masked.cu TW)
-WGRAD_BLOCKS = 528        # pass-1 blocks aimed at (4 an SM of an H100), all channel groups
-WGRAD_MIN_SEGS = 16       # row segments a pass-1 block sums at least
+# the kernel's tiling (csrc/dw_masked.cu): a block of WARPS warps takes a
+# channel group of GROUP_BYTES a pixel (32 float32 or 64 bf16 channels, one
+# or two a thread) and walks a run of tiles of output rows x TILE_W columns;
+# a thread's strip is strip rows x STRIP columns. The stride-2 dgrad's tile
+# is 2*DX_CLASS[0] x 2*DX_CLASS[1] pixels of dx, DX_CLASS a parity class,
+# one class a warp in strips of one class row.
+WARPS = 4
+STRIP = 8
+TILE_W = 16
+GROUP_BYTES = 128
+SMEM_HEAD = 128           # shared memory ahead of a block's buffers
+CORR_ROWS = {1: (8, 2), 2: (2, 1)}    # forward, stride-1 dgrad: (tile rows, strip rows)
+WGRAD_ROWS = {1: (8, 2), 2: (2, 1)}   # wgrad pass 1
+DX_CLASS = (8, 16)
+CORR_BLOCKS = 528         # forward / dgrad blocks aimed at, all groups: 2 waves of 2 an SM of 132
+WGRAD_BLOCKS = 528        # wgrad pass-1 blocks aimed at
+MIN_TILES = 2             # tiles a block walks at least (its two buffers)
 
 
 def _ks_table(ks_list):
@@ -101,17 +120,63 @@ def out_size(n, bank_ks, stride):
     return (n + 2 * (bank_ks // 2) - bank_ks) // stride + 1
 
 
-def wgrad_partition(n, ho, wo, c):
-    """(row segments a pass-1 block sums, blocks G along them) for an
-    output [n, ho, wo, c], cut into n*ho*ceil(wo/SEG_W) segments of SEG_W
-    neighbouring outputs along a row: about WGRAD_BLOCKS blocks over all
-    channel groups, each summing at least WGRAD_MIN_SEGS segments; from the
-    shapes alone."""
-    segs = n * ho * -(-wo // SEG_W)
-    groups = -(-c // CH)
-    g = max(1, -(-WGRAD_BLOCKS // groups))
-    per = max(WGRAD_MIN_SEGS, -(-segs // g))
-    return per, -(-segs // per)
+def group_channels(dtype):
+    """Channels of a group: GROUP_BYTES of a pixel."""
+    return GROUP_BYTES * 8 // torch.finfo(dtype).bits
+
+
+def launch_grid(direction, n, h, w, stride):
+    """The tiles a launch over x [n, h, w, .] walks (direction "fwd",
+    "dgrad" or "wgrad"): (images, rows, columns, tile rows, tile columns)
+    of the grid, walked image by image, row of tiles by row."""
+    if direction == "dgrad" and stride == 2:
+        return n, h, w, 2 * DX_CLASS[0], 2 * DX_CLASS[1]
+    if direction == "dgrad":
+        return n, h, w, CORR_ROWS[1][0], TILE_W
+    rows = (CORR_ROWS if direction == "fwd" else WGRAD_ROWS)[stride][0]
+    return n, -(-h // stride), -(-w // stride), rows, TILE_W  # out_size at any odd bank
+
+
+def partition(direction, n, h, w, c, stride, dtype):
+    """(tiles a block walks, blocks G along them) for a launch over x
+    [n, h, w, c]: about CORR_BLOCKS (WGRAD_BLOCKS) blocks over all channel
+    groups, each walking at least MIN_TILES tiles; from the shapes alone
+    (the wgrad's partials are added in this partition's order)."""
+    images, rows, cols, tile_rows, tile_cols = launch_grid(direction, n, h, w, stride)
+    tiles = images * -(-rows // tile_rows) * -(-cols // tile_cols)
+    groups = -(-c // group_channels(dtype))
+    blocks = WGRAD_BLOCKS if direction == "wgrad" else CORR_BLOCKS
+    per = max(MIN_TILES, -(-tiles // max(1, -(-blocks // groups))))
+    return per, -(-tiles // per)
+
+
+def parity_taps(k, p):
+    """A stride-2 dgrad parity class p (of a dx row or column) at kernel size
+    k: (first tap i0, number of taps n, first dy offset base). dx row 2a+p
+    reads dy rows a+base .. a+base+n-1 against the taps i0+2(n-1), ..., i0,
+    in that order (csrc/dw_masked.cu par_i0, par_n, par_base)."""
+    i0 = (p + k // 2) & 1
+    n = (k - i0 + 1) // 2
+    return i0, n, (p + k // 2 - i0) // 2 - n + 1
+
+
+def smem_bytes(direction, bank_ks, stride, dtype):
+    """Dynamic shared memory of a block (bytes), sized for k = bank_ks: a
+    128-byte head (the buffers' barriers) and two buffers of a tile's staged
+    pixels (the wgrad's: the x window and the dy tile), or the wgrad's end
+    reduction where that is larger."""
+    s, k = stride, bank_ks
+    if direction == "dgrad" and s == 2:
+        taps = [parity_taps(k, p) for p in (0, 1)]
+        halo = (max(base + m - 1 for _, m, base in taps if m)
+                - min(base for _, m, base in taps if m))
+        return SMEM_HEAD + 2 * (DX_CLASS[0] + halo) * (DX_CLASS[1] + halo) * GROUP_BYTES
+    th = (WGRAD_ROWS if direction == "wgrad" else CORR_ROWS)[s][0]
+    stage = ((th - 1) * s + k) * ((TILE_W - 1) * s + k) * GROUP_BYTES
+    if direction != "wgrad":
+        return SMEM_HEAD + 2 * stage
+    return SMEM_HEAD + max(2 * (stage + th * TILE_W * GROUP_BYTES),
+                           WARPS * k * k * group_channels(dtype) * 4)
 
 
 def _check(a, b, w, ks_idx, bound, ks_list, stride, bank_ks=None):
@@ -168,7 +233,8 @@ def dw_masked_forward(x, w, ks_idx, bound, *, ks_list, stride=1):
     ho, wo = out_size(h, k, stride), out_size(wd, k, stride)
     y = torch.empty(n, ho, wo, c, device=x.device, dtype=x.dtype)
     _build.launch("ofa_dw_masked_fwd_" + suffix, x.device, x, w, ks_idx, bound, y,
-                  n, h, wd, c, ho, wo, k, stride, *_ks_args(ks))
+                  n, h, wd, c, ho, wo, k, stride, *_ks_args(ks),
+                  *partition("fwd", n, h, wd, c, stride, x.dtype))
     _count(dw_masked_forward, suffix)
     return y
 
@@ -189,7 +255,8 @@ def dw_masked_dgrad(dy, w, ks_idx, bound, *, ks_list, stride=1, in_hw):
                                                                          tuple(in_hw)))
     dx = torch.empty(n, h, wd, c, device=dy.device, dtype=dy.dtype)
     _build.launch("ofa_dw_masked_dgrad_" + suffix, dy.device, dy, w, ks_idx, bound, dx,
-                  n, h, wd, c, ho, wo, k, stride, *_ks_args(ks))
+                  n, h, wd, c, ho, wo, k, stride, *_ks_args(ks),
+                  *partition("dgrad", n, h, wd, c, stride, dy.dtype))
     _count(dw_masked_dgrad, suffix)
     return dx
 
@@ -208,11 +275,11 @@ def dw_masked_wgrad(x, dy, ks_idx, bound, *, ks_list, stride=1, bank_ks):
     if tuple(dy.shape) != (n, ho, wo, c):
         raise ValueError("dy %s is not the output shape %s of x %s" % (
             tuple(dy.shape), (n, ho, wo, c), tuple(x.shape)))
-    segs, g = wgrad_partition(n, ho, wo, c)
-    part = torch.empty(g * c * k * k, device=x.device, dtype=torch.float32)
+    per, g = partition("wgrad", n, h, wd, c, stride, x.dtype)
+    part = torch.empty(g * k * k * c, device=x.device, dtype=torch.float32)
     dw = torch.empty(c, 1, k, k, device=x.device, dtype=x.dtype)
     _build.launch("ofa_dw_masked_wgrad_" + suffix, x.device, x, dy, ks_idx, bound, part, dw,
-                  n, h, wd, c, ho, wo, k, stride, *_ks_args(ks), segs, g)
+                  n, h, wd, c, ho, wo, k, stride, *_ks_args(ks), per, g)
     _count(dw_masked_wgrad, suffix)
     return dw
 
