@@ -147,7 +147,8 @@ def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda
           net=None, batch_size: int = 16, hr_size: int = 96,
           lr: float = 1e-4, use_kernels: Optional[bool] = None,
           compute_dtype: Optional[torch.dtype] = None, mode: str = "sr",
-          mesh=None, steps_per_dispatch: int = 1, dw_switch: bool = False) -> List[dict]:
+          mesh=None, steps_per_dispatch: int = 1, dw_switch: bool = False,
+          expand_switch: bool = False) -> List[dict]:
     """Train `net` (default: a seed-0 full-width OFAMobileNetS4, or
     OFAMobileNetX4 for the autoencoder, on `device`) for `steps` optimizer
     steps of `n_subnets` subnets each, on one synthetic batch, in `mode`.
@@ -161,6 +162,8 @@ def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda
     replays on a CUDA net), the last window shorter where `steps` is not a
     multiple; with a mesh too (NCCL on the card). `dw_switch`: the masked
     window's depthwise over the sampled taps and widths alone
+    (`SRTrainer`'s lever), off by default. `expand_switch`: the masked
+    window's 1x1 expand and project convs bounded by the sampled width
     (`SRTrainer`'s lever), off by default.
     Returns each step's {"loss", "psnr"} (the global batch's) as floats."""
     dev = resolve_device(device)
@@ -168,7 +171,8 @@ def train(steps: int, *, n_subnets: int = 1, kd_ratio: float = 0.0, device="cuda
     teacher = kd_teacher(net.space, dev) if kd_ratio > 0 else None
     trainer = SRTrainer(net, opt_type="adam", weight_decay=3e-5, kd_ratio=kd_ratio,
                         teacher=teacher, use_kernels=use_kernels, compute_dtype=compute_dtype,
-                        mode=mode, mesh=mesh, dw_switch=dw_switch)
+                        mode=mode, mesh=mesh, dw_switch=dw_switch,
+                        expand_switch=expand_switch)
     batch = synthetic_batch(batch_size, hr_size, dev)
     if mesh is not None:
         shard_params(net, mesh)

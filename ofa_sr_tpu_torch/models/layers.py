@@ -52,6 +52,7 @@ from ..ops.elastic import (
     transform_matrices_init,
 )
 from ..ops.kernels.dw_masked import masked_depthwise, masked_depthwise_reference
+from ..ops.kernels.pw_masked import masked_pointwise, masked_pointwise_reference
 from ..ops.norm import batch_norm, batch_norm_train
 from ..ops.pixelshuffle import pixel_shuffle, pixel_unshuffle
 from ..utils.common import make_divisible
@@ -216,6 +217,7 @@ class DynamicMBConvLayer(nn.Module):
             depthwise_conv_init(space.max_ks, mid, generator=generator),
             matrices=mats)
         self.point_linear = ConvBN(conv_init(1, mid, c_out, generator=generator))
+        self.n_expand = len(space.expand_list)  # the expand lever acts where it is > 1
         if use_se:
             self.depth_conv.se = SEModule(mid, generator=generator)
 
@@ -251,7 +253,7 @@ class DynamicMBConvLayer(nn.Module):
 
     def forward_masked(self, x, ks_idx, mid, *, act="relu6", stride=1, se_mid=None,
                        out_ch=None, bn_training=False, use_kernels=False, compute_dtype=None,
-                       spatial_mask=None, bn_group=None, dw_lever=False):
+                       spatial_mask=None, bn_group=None, dw_lever=False, expand_lever=False):
         """The masked form of `forward` (the JAX package's
         `_masked_mbconv_apply`): `ks_idx` (an index into the sorted kernel
         sizes), `mid` (the active middle width), `se_mid` (the SE's active
@@ -274,12 +276,32 @@ class DynamicMBConvLayer(nn.Module):
         k x k centre taps and the channels below `mid` alone: the same
         values, since y is 0 from `mid` on. On the card that is
         csrc/dw_masked.cu, unless `use_kernels` is False, which takes its
-        plain version."""
+        plain version.
+
+        `expand_lever`: the net's (`set_expand_lever`, JAX's
+        `expand_switch`). Set, on a block without SE whose space has more
+        than one expand option (JAX's rule), both 1x1 convs run through
+        `masked_pointwise` bounded by `mid`: the expand computes the columns
+        below `mid` and writes 0 from it on, the project contracts the first
+        `mid` channels alone; the same values, since the masked BN writes 0
+        from `mid` on. On the card that is csrc/pw_masked.cu, unless
+        `use_kernels` is False, which takes its plain version. JAX asserts
+        against it with `out_ch` or `spatial_mask`; this raises ValueError."""
         ib, dw, pl = self.inverted_bottleneck, self.depth_conv, self.point_linear
+        if expand_lever and (out_ch is not None or spatial_mask is not None):
+            raise ValueError("the expand lever (expand_switch) runs without out_ch and "
+                             "spatial_mask, as in the JAX package")
         bn = dict(bn_training=bn_training, use_kernels=use_kernels, bn_group=bn_group,
                   active=mid)
-        y = apply_act(bn_apply(conv2d(x, cast(ib.conv.weight, compute_dtype)), ib.bn, **bn),
-                      act)
+        pw = None
+        if expand_lever and not hasattr(dw, "se") and self.n_expand > 1:
+            pw = masked_pointwise if use_kernels else masked_pointwise_reference
+
+        def conv1x1(t, w, side):
+            return conv2d(t, w) if pw is None else pw(t, w, mid, side=side)
+
+        y = apply_act(bn_apply(conv1x1(x, cast(ib.conv.weight, compute_dtype), "expand"),
+                               ib.bn, **bn), act)
         if spatial_mask is not None:
             y = y * spatial_mask
         mats = dw.conv.matrices()
@@ -294,7 +316,7 @@ class DynamicMBConvLayer(nn.Module):
         y = apply_act(bn_apply(y, dw.bn, **bn), act)
         if hasattr(dw, "se"):
             y = dw.se.forward_masked(y, mid, se_mid, compute_dtype)
-        y = conv2d(y, cast(pl.conv.weight, compute_dtype))
+        y = conv1x1(y, cast(pl.conv.weight, compute_dtype), "project")
         return bn_apply(y, pl.bn, **dict(bn, active=out_ch))
 
 
@@ -322,10 +344,9 @@ def set_depthwise_lever(net, ks_switch=False, dw_switch=False, dw_opts=None):
       phase's lists, `_apply_dw_live`, narrowing them): the kernel takes
       any (ks, mid), so they are checked and change nothing. So is
       `dw_opts["seam"]` (how a branch's output rejoins: none here).
-    JAX's `expand_switch` (a branch per expand width around the whole
-    block) is not ported: the eager step already slices the expand width,
-    and in the graphed masked form a branch per width would make each
-    block's width a graph key."""
+    JAX's `expand_switch` is the other lever (`set_expand_lever`); inside
+    its branches JAX forwards `dw_switch` as `ks_switch`, which the
+    port's masked depthwise, already bounded by `mid`, covers."""
     if dw_switch not in DW_SWITCHES:
         raise ValueError("dw_switch must be one of %s, got %r" % (DW_SWITCHES, dw_switch))
     unknown = set(dw_opts or {}) - set(DW_OPTS)
@@ -334,6 +355,21 @@ def set_depthwise_lever(net, ks_switch=False, dw_switch=False, dw_opts=None):
     if ((dw_opts or {}).get("align") or 0) < 0:
         raise ValueError("dw_opts['align'] must be >= 0, got %r" % (dw_opts["align"],))
     net.dw_lever = bool(ks_switch or dw_switch)
+
+
+def set_expand_lever(net, expand_switch=False):
+    """Set the JAX package's `expand_switch` on `net`, as its trainer sets
+    it (ofa_sr_tpu/train/train_step.py:91-97), off by default, as in JAX.
+    JAX compiles a branch per middle width around each block (`lax.switch`
+    over `_sliced_mbconv_branch`), so that the sampled width runs only its
+    own work; the port's masked forwards read `net.expand_lever` and run
+    both 1x1 convs bounded by the sampled width read on the device
+    (`DynamicMBConvLayer.forward_masked`, csrc/pw_masked.cu on the card):
+    no branch, so one captured CUDA graph serves every width, and the same
+    values. It acts on blocks without SE where the space has more than one
+    expand option; the eager step's sliced form runs the sampled width
+    already, so the lever changes nothing there."""
+    net.expand_lever = bool(expand_switch)
 
 
 class MobileInvertedResidualBlock(nn.Module):

@@ -23,8 +23,10 @@ masked form, whose kernel sizes and widths are device tensors);
 JAX package's `net.apply(..., arch=cfg.to_device(space))`, with the depths
 and pixel_d on the host. The masked form reads the net's depthwise lever
 `dw_lever`, which the trainers set from JAX's `ks_switch`, `dw_switch` and
-`dw_opts` (`layers.set_depthwise_lever`); the sliced form has no use for
-it, since it runs only the sampled taps and channels already.
+`dw_opts` (`layers.set_depthwise_lever`), and its expand lever
+`expand_lever`, which the SR trainer sets from JAX's `expand_switch`
+(`layers.set_expand_lever`); the sliced form has no use for either, since
+it runs only the sampled taps and channels already.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ class OFAMobileNetS4(nn.Module):
         self.n_mb = sp.blocks_per_trunk
         self.n_shuffle = max(sp.pixel_d_list)
         self.dw_lever = False  # the masked depthwise (layers.set_depthwise_lever)
+        self.expand_lever = False  # the masked 1x1 convs (layers.set_expand_lever)
 
         self.dec_first_conv_block = ConvLayer(
             self.IN_CH, sp.width, self.CONV_KS, generator=g)
@@ -152,14 +155,16 @@ def forward_args(net, x, cfg, bn_training, use_kernels, compute_dtype, valid_hw,
                    bn_group=bn_group)
 
 
-def run_trunk(blocks, x, cfg, space, trunk, *, spatial_mask=None, dw_lever=False, **kw):
+def run_trunk(blocks, x, cfg, space, trunk, *, spatial_mask=None, dw_lever=False,
+              expand_lever=False, **kw):
     """The elastic stages of trunk `trunk` (its MBConv `blocks`): the first
     `d` blocks of each stage run, with ks and e read from the trunk's slice
     of `cfg` (block entries from trunk * blocks_per_trunk, depths from
     trunk * n_stages, as the JAX package's `_trunk`): sliced for a
     SubnetConfig, masked for a MaskedArch (its device ks_idx and mid), with
-    the net's depthwise lever `dw_lever` (`set_depthwise_lever`; the sliced
-    blocks run only the sampled taps and channels already)."""
+    the net's depthwise lever `dw_lever` (`set_depthwise_lever`) and expand
+    lever `expand_lever` (`set_expand_lever`; the sliced blocks run only
+    the sampled taps and channels already)."""
     base_b, base_s = trunk * space.blocks_per_trunk, trunk * space.n_stages
     masked = isinstance(cfg, MaskedArch)
     for stage in range(space.n_stages):
@@ -167,7 +172,8 @@ def run_trunk(blocks, x, cfg, space, trunk, *, spatial_mask=None, dw_lever=False
             bi = stage * space.max_depth + i
             if masked:
                 x = blocks[bi].forward_masked(x, cfg.ks_idx[base_b + bi], cfg.mid[base_b + bi],
-                                              spatial_mask=spatial_mask, dw_lever=dw_lever, **kw)
+                                              spatial_mask=spatial_mask, dw_lever=dw_lever,
+                                              expand_lever=expand_lever, **kw)
             else:
                 x = blocks[bi](x, cfg.ks[base_b + bi], space.mid_channels(cfg.e[base_b + bi]),
                                spatial_mask=spatial_mask, **kw)
@@ -192,7 +198,7 @@ def sr_decode(net, x, cfg, pixel_d, *, trunk, valid_hw=None, **kw):
     x = masked(net.dec_first_conv_block(x, **kw))
     skip = x
     x = run_trunk(net.dec_blocks, x, cfg, net.space, trunk, spatial_mask=smask,
-                  dw_lever=net.dw_lever, **kw)
+                  dw_lever=net.dw_lever, expand_lever=net.expand_lever, **kw)
     x = masked(x)  # the point-linear BN bias leaked into the pad
     for i, layer in enumerate(net.dec_final_conv_blocks):
         x = masked(layer(x, **kw))

@@ -57,6 +57,7 @@ class OFAMobileNetX4(nn.Module):
         w, ks = sp.width, self.CONV_KS
         self.n_mb = sp.blocks_per_trunk
         self.dw_lever = False  # the masked depthwise (layers.set_depthwise_lever)
+        self.expand_lever = False  # the masked 1x1 convs (layers.set_expand_lever)
         self.n_shuffle = max(sp.pixel_d_list)
 
         def trunk():
@@ -112,7 +113,7 @@ class OFAMobileNetX4(nn.Module):
                 x = x * smask
         skip = x
         x = run_trunk(self.enc_blocks, x, cfg, self.space, 0, spatial_mask=smask,
-                      dw_lever=self.dw_lever, **kw)
+                      dw_lever=self.dw_lever, expand_lever=self.expand_lever, **kw)
         if smask is not None:
             x = x * smask
         for i, layer in enumerate(self.enc_final_conv_blocks):

@@ -109,6 +109,10 @@ _FUNCTIONS = {
     "ofa_dw_masked_dgrad_bf16": ("dw_masked", [_VP] * 5 + [_INT] * 15 + [_VP]),
     "ofa_dw_masked_wgrad_f32": ("dw_masked", [_VP] * 6 + [_INT] * 15 + [_VP]),
     "ofa_dw_masked_wgrad_bf16": ("dw_masked", [_VP] * 6 + [_INT] * 15 + [_VP]),
+    "ofa_pw_masked_gemm_f32": ("pw_masked", [_VP] * 4 + [_INT] * 5 + [_VP]),
+    "ofa_pw_masked_gemm_bf16": ("pw_masked", [_VP] * 4 + [_INT] * 5 + [_VP]),
+    "ofa_pw_masked_wgrad_f32": ("pw_masked", [_VP] * 5 + [_INT] * 6 + [_VP]),
+    "ofa_pw_masked_wgrad_bf16": ("pw_masked", [_VP] * 5 + [_INT] * 6 + [_VP]),
 }
 SOURCES = tuple(sorted({src for src, _ in _FUNCTIONS.values()}))
 _fns = {}   # C name -> the bound ctypes function

@@ -304,7 +304,7 @@ class SRWindowStep(WindowStep):
     def pass_key(self, cfg, shapes, kd):
         tr = self.trainer
         return ("pass", tr.mode, tuple(cfg.d), cfg.pixel_d, str(tr.compute_dtype), shapes,
-                tr.bn_frozen, kd, tr.net.dw_lever)
+                tr.bn_frozen, kd, tr.net.dw_lever, tr.net.expand_lever)
 
     def subnet_pass(self, sb, cfg, t_out):
         rows = self.arch.view(2, -1)

@@ -51,14 +51,20 @@ rules above, its collectives captured in the graphs (NCCL) on the card.
 
 The JAX package's depthwise levers (`ks_switch`, `dw_switch`, `dw_opts`;
 its `SRTrainer` kwargs, ofa_sr_tpu/train/train_step.py:98-119) set the
-net's one lever (`models.layers.set_depthwise_lever`), which acts in the
-masked form: the window step's depthwise runs only the sampled kernel
+net's depthwise lever (`models.layers.set_depthwise_lever`), which acts in
+the masked form: the window step's depthwise runs only the sampled kernel
 size's taps over the channels below the sampled width, through the
 hand-written kernel `ops/kernels/dw_masked.py` on the card, reading both
 from the device, so no new graph key a subnet and the same values. Off by
-default, as in JAX. `train_step`'s sliced form runs only the sampled taps
-and channels already: the levers change nothing there. JAX's
-`expand_switch` is not ported (`set_depthwise_lever` says why).
+default, as in JAX. JAX's `expand_switch` (a branch per middle width
+around each block) sets the net's expand lever
+(`models.layers.set_expand_lever`): the window step's 1x1 expand and
+project convs run bounded by the sampled width, through the hand-written
+GEMM `ops/kernels/pw_masked.py` on the card, which reads the width from the
+device, so again no new graph key and the same values; it combines with
+the depthwise levers. Off by default, as in JAX, whose `ClsTrainer` has no
+such lever. `train_step`'s sliced form runs only the sampled taps and
+channels already: the levers change nothing there.
 """
 
 from __future__ import annotations
@@ -67,7 +73,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..models.layers import set_depthwise_lever
+from ..models.layers import set_depthwise_lever, set_expand_lever
 from ..ops.elastic import spatial_valid_mask
 from ..parallel.mesh import all_reduce_sum
 from ..utils.metrics import psnr_from_mse, psnr_y_device, y_squared_error_sum
@@ -100,14 +106,16 @@ class SRTrainer:
     data-parallel training (the batches `train_step` takes are then this
     rank's rows), or None. ks_switch, dw_switch (False, True, "dw" or
     "project"), dw_opts: JAX's depthwise levers of the masked form, any of
-    which sets the net's one lever (module docstring).
+    which sets the net's depthwise lever; expand_switch: JAX's expand
+    lever, the masked form's 1x1 convs bounded by the sampled width
+    (module docstring).
     """
 
     def __init__(self, net, *, opt_type="adam", weight_decay=3e-5, momentum=0.9,
                  nesterov=True, clip_grad_norm=None, kd_ratio=0.0,
                  bn_frozen=False, teacher=None, use_kernels: Optional[bool] = None,
                  compute_dtype: Optional[torch.dtype] = None, mode: str = "sr", mesh=None,
-                 ks_switch=False, dw_switch=False, dw_opts=None):
+                 ks_switch=False, dw_switch=False, dw_opts=None, expand_switch=False):
         if mode not in ("sr", "autoencoder"):
             raise ValueError("mode must be 'sr' or 'autoencoder', got %r" % (mode,))
         if mode == "autoencoder" and net.n_trunks != 2:
@@ -127,6 +135,7 @@ class SRTrainer:
         self.mesh = mesh
         self._group = None if mesh is None else mesh.group
         set_depthwise_lever(net, ks_switch, dw_switch, dw_opts)
+        set_expand_lever(net, expand_switch)
 
     def _input(self, batch, pixel_d):
         return batch["image"] if self.mode == "autoencoder" else batch["x%d" % 2 ** pixel_d]
