@@ -45,7 +45,8 @@ Phases (each failure ends the run with a non-zero exit and no result line):
    dgrad and wgrad of each conv), TF32 off, f32 and bf16, at the S4 masked
    step's shapes (36,864 and 9,216 rows, Cin = Cout = 64, the bank width
    384, bounds 0, 192, 200, 256, 384) and the GEMM's edges (1,000 rows,
-   Cin 24, M 72, Cout 40, bounds 0, 36, 37, 72): f32 forwards and dgrads
+   Cin 24, M 72, Cout 40, bounds 0, 36, 37, 72; 40 rows, fewer than one
+   64-row tile, at the S4's widths, bounds 0, 37, 200, 384): f32 forwards and dgrads
    within TOL of the plain version (3xTF32 keeps float32's accuracy), the
    wgrads no farther from float64 than the plain version plus
    PW_F64_MARGIN; bf16 every product within one bf16 ulp of the float64
@@ -388,6 +389,7 @@ import hashlib
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -497,6 +499,7 @@ from ofa_sr_tpu_torch.ops.kernels.pw_masked import (  # noqa: E402
     pw_masked_forward,
     pw_masked_wgrad,
 )
+from ofa_sr_tpu_torch.ops.kernels.pw_masked import smem_bytes as pw_smem_mirror  # noqa: E402
 from ofa_sr_tpu_torch.ops.kernels.shuffle_tail import (  # noqa: E402
     fused_shuffle_tail,
     shuffle_tail_reference,
@@ -576,7 +579,7 @@ PORT_KERNELS = ("col_partials_kernel", "finish_kernel", "bn_dx_kernel", "bn_fwd_
                 "bn_norm_kernel", "mbconv_kernel", "shuffle_tail_kernel",
                 "bn_fwd_from_sums_kernel", "bn_bwd_coef_kernel", "dw_fwd_kernel",
                 "dw_dgrad_kernel", "dw_wgrad_partial_kernel", "dw_wgrad_finish_kernel",
-                "pw_fwd_kernel", "pw_dgrad_kernel", "pw_wgrad_partial_kernel",
+                "pw_fwd_kernel", "pw_dgrad_kernel", "pw_wgrad_kernel",
                 "pw_wgrad_finish_kernel")
 # the kernels of each BN row, as the profiler names them (the mode is the
 # template argument: 1 moments, 2 backward, 3 the forward's moments)
@@ -1255,6 +1258,29 @@ def dw_smem_bytes():
     return out
 
 
+def pw_smem_bytes():
+    """The masked 1x1's dynamic shared memory a block, by form (a forward or
+    dgrad bounded on N or on K, at the S4 step's (K, N) and phase 2's edge,
+    and the wgrad) and type, as csrc/pw_masked.cu sizes it; fails unless
+    the wrapper's mirror (`pw_masked.smem_bytes`) agrees."""
+    query = _build.load("pw_masked").ofa_pw_masked_smem_bytes
+    query.argtypes, query.restype = [ctypes.c_int] * 4, ctypes.c_int
+    shapes = {"bound_n": ((64, 384), (24, 72), (40, 72)),
+              "bound_k": ((384, 64), (72, 40), (72, 24)), "wgrad": ((0, 0),)}
+    out = {}
+    for form, d in enumerate(("bound_n", "bound_k", "wgrad")):
+        for bf16 in (False, True):
+            dtype = BF16 if bf16 else torch.float32
+            for k, n in shapes[d]:
+                got = query(form, int(bf16), k, n)
+                mirror = pw_smem_mirror(d, dtype, k, n)
+                if got != mirror:
+                    fail("pw_masked %s K %d N %d %s: shared memory %d bytes, the wrapper's plan "
+                         "says %d" % (d, k, n, dtype, got, mirror))
+                out["%s K%d N%d %s" % (d, k, n, "bf16" if bf16 else "f32")] = got
+    return out
+
+
 def dw_close(name, got, ref, tol):
     """check_close without its line: max abs err, or fail."""
     err = float((got.float() - ref.float()).abs().max())
@@ -1355,7 +1381,7 @@ def dw_masked_parity(g, dtype=torch.float32):
 PW_WRAPPERS = (pw_masked_forward, pw_masked_dgrad, pw_masked_wgrad)
 PW_ROW_KERNELS = {"pw_masked_forward": ("pw_fwd_kernel",),
                   "pw_masked_dgrad": ("pw_dgrad_kernel",),
-                  "pw_masked_wgrad": ("pw_wgrad_partial_kernel", "pw_wgrad_finish_kernel")}
+                  "pw_masked_wgrad": ("pw_wgrad_kernel", "pw_wgrad_finish_kernel")}
 # the expand lever with the depthwise lever: the lever case of phases 6 and 13
 PW_LEVER = dict(dw_switch=True, expand_switch=True)
 PW_LABEL = "expand_switch + dw_switch"
@@ -1379,12 +1405,15 @@ def pw_masked_cases():
     Cout, the bounds). The S4 masked step's (bs16, LR 48 and 24: 36,864 and
     9,216 rows; Cin = Cout = 64, the bank width M 384; widths 192 and 256
     on the candidate grid, 200 off it, 0 and 384) and the GEMM's edges:
-    1,000 rows (ragged against the 128-row tile), Cin 24 (a K shorter than
-    one 32-wide chunk), M 72 and Cout 40 (ragged against the 64-wide tile),
-    bounds 0, 36, 37 (odd: inside a 16-byte copy) and 72."""
+    1,000 rows (ragged against the 64-row tile), Cin 24 (a K shorter than
+    one 128-byte chunk), M 72 and Cout 40 (ragged against the 64-wide
+    tile), bounds 0, 36, 37 (odd: inside a 16-byte piece) and 72; and 40
+    rows, fewer than one 64-row tile (a persistent grid of one block, TMA
+    boxes past the rows), at the S4's widths, bounds 0, 37, 200 and 384."""
     cases = [("S4", (BS, lr, lr), 64, 384, 64, (0, 192, 200, 256, 384))
              for lr in (HR // 2, HR // 4)]
     cases.append(("edge", (2, 20, 25), 24, 72, 40, (0, 36, 37, 72)))
+    cases.append(("edge", (1, 5, 8), 64, 384, 64, (0, 37, 200, 384)))
     return cases
 
 
@@ -1586,10 +1615,11 @@ def serving(net, net_cpu, cfg):
     return counts, times, profiles
 
 
-def device_profile(name, run, n, unit_ms, unit):
+def device_profile(name, run, n, unit_ms, unit, keep_rows=False):
     """Device time per `unit` (frame, step) by kernel from torch.profiler over
     run() (n units), and the device's idle share of the time per unit
-    measured with CUDA events (`unit_ms`; None: not measured)."""
+    measured with CUDA events (`unit_ms`; None: not measured); with
+    `keep_rows`, every kernel's row under "rows"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1626,8 +1656,46 @@ def device_profile(name, run, n, unit_ms, unit):
     for r in rows[:10] + [r for r in ours if r not in rows[:10]]:
         print("    %8.4f ms  x%-5.1f %s" % (r[key], r["calls_per_%s" % unit], r["kernel"]),
               flush=True)
-    return {"path": name, "busy_ms_per_%s" % unit: busy, "idle_share": idle,
-            "kernels_per_%s" % unit: n_kernels, "top": rows[:10], "port_kernels": ours}
+    out = {"path": name, "busy_ms_per_%s" % unit: busy, "idle_share": idle,
+           "kernels_per_%s" % unit: n_kernels, "top": rows[:10], "port_kernels": ours}
+    if keep_rows:
+        out["rows"] = rows
+    return out
+
+
+# cuDNN's kernels of each direction of a 1x1 conv on NHWC views, by name:
+# float32 its implicit GEMMs (fprop, dgrad, wgrad engines; their layout
+# transposes name no direction), bf16 the cuBLASLt kernels it calls on the
+# H100 (nvJet "TN?" forward and "NN?" dgrad; a CUTLASS "nt" GEMM and its
+# split-K reduction for the wgrad)
+CUDNN_DIRECTIONS = (("pw_masked_wgrad", re.compile(r"wgrad|splitKreduce|gemm\w*_nt_align")),
+                    ("pw_masked_dgrad", re.compile(r"dgrad|nvjet\w*_NN[NT]\b")),
+                    ("pw_masked_forward", re.compile(r"fprop|implicit_convolve|nvjet\w*_TN[NT]\b")))
+
+
+def cudnn_1x1_device_ms(without, with_lever):
+    """cuDNN's full-width 1x1 convs' device ms a step by direction, from two
+    profiles of the graphed one-subnet S4 step that phase 13 takes: with
+    the depthwise lever alone (`without`: the 1x1 convs are cuDNN's) and
+    with the expand lever too (`with_lever`: they are csrc/pw_masked.cu's).
+    A direction's number is the device ms a step its cuDNN kernels
+    (CUDNN_DIRECTIONS) take in the first less what they take in the second
+    (the step's other convs run in both); kernels of no direction (float32's
+    layout transposes) add to "other", the port's own are left out; the
+    busy times' difference beside it."""
+    ms = {}
+    for sign, prof in ((1.0, without), (-1.0, with_lever)):
+        for r in prof["rows"]:
+            ms[r["kernel"]] = ms.get(r["kernel"], 0.0) + sign * r["ms_per_step"]
+    out = {name: 0.0 for name, _ in CUDNN_DIRECTIONS}
+    out["other"] = 0.0
+    for kernel, d in ms.items():
+        if any(k in kernel for k in PORT_KERNELS):
+            continue
+        name = next((n for n, pat in CUDNN_DIRECTIONS if pat.search(kernel)), "other")
+        out[name] += d
+    out["busy_difference"] = without["busy_ms_per_step"] - with_lever["busy_ms_per_step"]
+    return out
 
 
 # -- phase 4: training -------------------------------------------------------
@@ -6192,6 +6260,10 @@ def main():
     dw_smem = dw_smem_bytes()
     print("  [dw_masked] dynamic shared memory a block, K 7, (stride 1, stride 2), float32 "
           "and bf16: %s bytes" % {k: v for k, v in dw_smem.items() if "K7" in k}, flush=True)
+    pw_smem = pw_smem_bytes()
+    print("  [pw_masked] dynamic shared memory a block at the S4 shapes: %s bytes" % {
+        k: v for k, v in pw_smem.items() if "K24" not in k and "K40" not in k and "K72" not in k},
+          flush=True)
 
     g = torch.Generator().manual_seed(1234)
     t_phase = time.perf_counter()
@@ -6491,7 +6563,7 @@ def main():
     print("phase 6: device profiles", flush=True)
     profiles = [device_profile(*p, "frame") for p in profiles + x4_profiles]
     train_profiles = [device_profile(*p, "step") for p in train_runs_to_profile]
-    p13["step_profiles"] = [device_profile(*p, "step") for p in graph_profiles]
+    p13["step_profiles"] = [device_profile(*p, "step", keep_rows=True) for p in graph_profiles]
     p14["step_profiles"] = [device_profile(*p, "step") for p in cls_graph_profiles]
     p11["step_profiles"] = [device_profile(*p, "step") for p in cls_profiles]
     by_path = {p["path"]: p for p in train_profiles}
@@ -6523,15 +6595,28 @@ def main():
               % (r["name"], r["device_ms"], r["bound_ms"]), flush=True)
     rows += dw_rows
     # the masked 1x1's rows the same way, their device time a step from the
-    # graphed expand_switch + dw_switch step's profile
+    # graphed expand_switch + dw_switch step's profile; the library's device
+    # time a step (cuDNN's full-width 1x1 convs) from the graphed dw_switch
+    # step's profile against it, device time against device time
     for r in pw_rows:
-        prof = by13["graphed %s 1 subnet%s" % (PW_LABEL, " bf16" if r["dtype"] == "bfloat16"
-                                                else "")]
+        sfx = " bf16" if r["dtype"] == "bfloat16" else ""
+        prof = by13["graphed %s 1 subnet%s" % (PW_LABEL, sfx)]
         r["device_ms"] = sum(k["ms_per_step"] for k in prof["port_kernels"]
                              if any(n in k["kernel"] for n in PW_ROW_KERNELS[r["wrapper"]]))
-        print("  %s: %.4f ms per step on the device (bound %.4f)"
-              % (r["name"], r["device_ms"], r["bound_ms"]), flush=True)
+        lib = cudnn_1x1_device_ms(by13["graphed dw_switch 1 subnet" + sfx], prof)
+        r["library_device_ms"] = lib[r["wrapper"]]
+        r["library_device_split_ms"] = lib
+        r["library_ms_is"] = "one cuDNN call back to back, CUDA events (measure_shape)"
+        r["library_device_ms_is"] = ("cuDNN's 1x1 kernels of this direction, device ms a step: "
+                                     "phase 13's graphed dw_switch step profile less the "
+                                     "expand_switch + dw_switch one")
+        print("  %s: %.4f ms per step on the device (bound %.4f); cuDNN's full-width 1x1 %.4f "
+              "on the device (other %.4f, busy difference %.4f)"
+              % (r["name"], r["device_ms"], r["bound_ms"], r["library_device_ms"], lib["other"],
+                 lib["busy_difference"]), flush=True)
     rows += pw_rows
+    for prof in p13["step_profiles"]:
+        prof.pop("rows", None)
     print("  phase 6 took %.1f s" % (time.perf_counter() - t_phase), flush=True)
     print("phase 10 (b): trace() around two kernel frames", flush=True)
     with tempfile.TemporaryDirectory(prefix="ofa_sr_trace_") as tmp:
@@ -6544,6 +6629,7 @@ def main():
                       "phase13": p13, "phase14": p14,
                       "build_s": build_s,
                       "mbconv_smem_bytes": mb_smem, "dw_masked_smem_bytes": dw_smem,
+                      "pw_masked_smem_bytes": pw_smem,
                       "gpu": smi_line}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,11 @@ autoencoder` the learned downscale and the SR together on the HR frames.
 With `--kd_ratio` > 0, `--kd_teacher` names a checkpoint of this port of a
 ks7/e6/d4/pixel_d 2 X4 net, the KD teacher.
 
-Left out: the JAX package's XLA execution levers (`--remat`,
-`--ks_switch`, `--dw_switch`, `--dw_align`; ROADMAP queue 1 item 14).
+The JAX package's execution levers come through `add_common_args` ->
+`add_perf_args` (cli/common.py): `--compute_dtype`, `--ks_switch`,
+`--dw_switch [dw|project]` and `--dw_align`, mapped to the RunConfig as
+JAX's `perf_config_kw` maps them. Left out is its `--remat` (the steps fit
+the card's memory without rematerialization; ROADMAP queue 1 item 14).
 
 Run: python -m ofa_sr_tpu_torch.cli.train_ofa_net_sr_simple \\
        --task pixelshuffle_depth --phase 2 [--synthetic] [--device cpu]

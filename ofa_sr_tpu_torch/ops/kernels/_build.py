@@ -9,8 +9,8 @@ of its source and flags, so an edited source is rebuilt and an unchanged one
 is reused. `build_all()` starts one nvcc per source, all at once.
 
 Only the sources in this checkout are used: no other library is linked
-beyond the CUDA runtime (csrc/dw_masked.cu looks up libcuda's
-cuTensorMapEncodeTiled at run time).
+beyond the CUDA runtime (csrc/dw_masked.cu and csrc/pw_masked.cu look up
+libcuda's cuTensorMapEncodeTiled at run time).
 """
 
 from __future__ import annotations
@@ -109,8 +109,8 @@ _FUNCTIONS = {
     "ofa_dw_masked_dgrad_bf16": ("dw_masked", [_VP] * 5 + [_INT] * 15 + [_VP]),
     "ofa_dw_masked_wgrad_f32": ("dw_masked", [_VP] * 6 + [_INT] * 15 + [_VP]),
     "ofa_dw_masked_wgrad_bf16": ("dw_masked", [_VP] * 6 + [_INT] * 15 + [_VP]),
-    "ofa_pw_masked_gemm_f32": ("pw_masked", [_VP] * 4 + [_INT] * 5 + [_VP]),
-    "ofa_pw_masked_gemm_bf16": ("pw_masked", [_VP] * 4 + [_INT] * 5 + [_VP]),
+    "ofa_pw_masked_gemm_f32": ("pw_masked", [_VP] * 4 + [_INT] * 6 + [_VP]),
+    "ofa_pw_masked_gemm_bf16": ("pw_masked", [_VP] * 4 + [_INT] * 6 + [_VP]),
     "ofa_pw_masked_wgrad_f32": ("pw_masked", [_VP] * 5 + [_INT] * 6 + [_VP]),
     "ofa_pw_masked_wgrad_bf16": ("pw_masked", [_VP] * 5 + [_INT] * 6 + [_VP]),
 }

@@ -31,8 +31,8 @@ and their gradients are 0 on both paths.
 `masked_pointwise` is a `torch.autograd.Function` whose three directions
 are the kernel's entry points, each a public function with its own launch
 counter: `pw_masked_forward`, `pw_masked_dgrad` and `pw_masked_wgrad`
-(`.launches`, `.launches_bf16`: one a call of either side, the wgrad's two
-launches included). A CUDA tensor launches the kernel or raises; a CPU
+(`.launches`, `.launches_bf16`: one a call of either side, the wgrad's
+finish included). A CUDA tensor launches the kernel or raises; a CPU
 tensor takes the plain version (`masked_pointwise_dgrad_reference` and
 `masked_pointwise_wgrad_reference` for dx and dW, one product each) and
 counts nothing. float32 (3xTF32) or bfloat16 activations and weights of
@@ -40,11 +40,18 @@ one type (bf16 results rounded once from float32 sums). Nothing reads `bound` on
 the host, so a captured CUDA graph replays the same launches for every
 subnet.
 
-The wgrad sums over the rows in two passes with no atomics (fixed runs of
-rows into float32 partials in a workspace this module allocates, then a
-second kernel adding them in order), its partition (`wgrad_partition`)
-chosen from the shapes alone: two calls on the same inputs give the same
-bits on any card.
+The kernel (csrc/pw_masked.cu) is persistent: a forward or dgrad launch
+takes `gemm_grid` blocks over the 64-row tiles, each holding the
+bank in shared memory and streaming its tiles through a TMA ring. The
+wgrad sums over the rows with no atomics: CLUSTER-block clusters of runs
+of rows add their tiles on chip, and with more than one cluster of runs a
+second kernel adds the clusters' float32 partials (in a workspace this
+module allocates) in order; its partition (`wgrad_partition`) comes from
+the shapes alone, so two calls on the same inputs give the same bits on
+any card. These plans and the shared memory a block takes (`smem_bytes`)
+are mirrored here so that the CPU tests can hold them
+(tests/test_torch_pw_masked_tiles.py) and chip_smoke.py phase 1 can hold
+the mirror to the kernel's own sizes.
 """
 
 from __future__ import annotations
@@ -57,12 +64,30 @@ from . import _build
 
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 SIDES = ("expand", "project")
-# the kernel's tiling (csrc/pw_masked.cu): a block owns BM x BN outputs and
-# walks K in chunks of BK; every dimension but the rows a multiple of
-# ALIGN_CH channels, every pointer 16-byte aligned
-BM, BN, BK = 64, 64, 32
+# the kernel's tiling (csrc/pw_masked.cu): 64-row tiles (wgmma's M), N in
+# chunks of BN columns, K in chunks of LINE bytes (one 128-byte-swizzled
+# TMA box of 64 rows); every dimension but the rows a multiple of ALIGN_CH
+# channels, every pointer 16-byte aligned
+BM, BN, LINE = 64, 64, 128
 ALIGN_CH = 8
-WGRAD_BLOCKS = 528        # wgrad pass-1 blocks aimed at: four an SM of 132
+# a forward / dgrad block's shape by (type, bounded on K), csrc/pw_masked.cu
+# `Cfg`: consumer warpgroups, boxes in a warpgroup's ring, output through
+# shared memory and TMA (else stored directly), copies of the bank
+# (float32's held split into big and small for wgmma's operand)
+GEMM_CFG = {(torch.bfloat16, False): dict(wgs=3, stages=4, staged=True, banks=1),
+            (torch.bfloat16, True): dict(wgs=3, stages=4, staged=True, banks=1),
+            (torch.float32, False): dict(wgs=2, stages=2, staged=False, banks=2),
+            (torch.float32, True): dict(wgs=2, stages=8, staged=False, banks=1)}
+GEMM_BLOCKS = 132         # persistent forward / dgrad blocks at most: one an H100 SM
+CLUSTER = 8               # wgrad blocks adding their tiles through distributed shared memory
+WGRAD_BLOCKS = 264        # wgrad blocks at most over the tiles: one wave, two an H100 SM
+# rows a wgrad cluster of runs takes at least, by type: bf16's products are
+# cheap and its blocks stream long runs best; float32's 3xTF32 wants more blocks
+CLUSTER_ROWS = {torch.float32: 2048, torch.bfloat16: 18432}
+WGRAD_STAGES = {torch.float32: 3, torch.bfloat16: 6}
+PARTIAL_SHARE = 0.1       # the wgrad partials' traffic at most this share of the bf16 operands'
+HEAD = ALIGN = 1024       # a block's mbarriers; the slack that aligns its buffers
+SMEM_MAX = 232448         # an H100 block's shared memory
 
 
 def _w2d(w):
@@ -116,15 +141,69 @@ def masked_pointwise_grads_reference(x, w, bound, dy, *, side):
         return torch.autograd.grad(y, (x, w), dy)
 
 
-def wgrad_partition(rows, p, q):
-    """(rows a pass-1 block sums, blocks G along the rows) for a wgrad of
-    [rows, p] by [rows, q]: about WGRAD_BLOCKS blocks over the p x q tiles,
-    each run a multiple of BK rows; from the shapes alone (the partials are
-    added in this partition's order)."""
+def chunk_k(dtype):
+    """K a chunk: one 128-byte line of `dtype`."""
+    return LINE * 8 // torch.finfo(dtype).bits
+
+
+def smem_bytes(direction, dtype, k=None, n=None):
+    """Dynamic shared memory of a block (bytes): a forward or dgrad bounded
+    on N ("bound_n") or on K ("bound_k"), of a product with K `k` and N `n`,
+    holds its warpgroups' rings, in bf16 their output staging (two 64 x 64
+    chunks each) and a zero panel, all in 64-row x LINE panels, then its
+    copies of the bank as [N rounded up to BN][K in chunks]; a wgrad
+    ("wgrad") holds its ring of A and B boxes of 64 rows."""
+    panel, ck = BM * LINE, chunk_k(dtype)
+    if direction == "wgrad":
+        return ALIGN + HEAD + WGRAD_STAGES[dtype] * 2 * (BM // ck) * panel
+    cfg = GEMM_CFG[dtype, direction == "bound_k"]
+    panels = cfg["wgs"] * (cfg["stages"] + (2 * (BN // ck) if cfg["staged"] else 0))
+    panels += 1 if cfg["staged"] else 0
+    bank = -(-n // BN) * BN * -(-k // ck) * LINE
+    return ALIGN + HEAD + panels * panel + cfg["banks"] * bank
+
+
+def gemm_supported(k, n, dtype, bound_k):
+    """Whether the forward / dgrad kernel takes a product of K `k` and N `n`
+    bounded on K (`bound_k`) or on N: its bank fits beside the rings, and a
+    tile's K chunks fit in a warpgroup's ring where they are held across
+    more than one N chunk."""
+    return (smem_bytes("bound_k" if bound_k else "bound_n", dtype, k, n) <= SMEM_MAX
+            and (n <= BN or -(-k // chunk_k(dtype)) <= GEMM_CFG[dtype, bound_k]["stages"]))
+
+
+def gemm_grid(rows, dtype, bound_k):
+    """(blocks, tiles a warpgroup walks at most) of a forward or dgrad over
+    `rows` rows: a block a 64-row tile, at most GEMM_BLOCKS; from the
+    shapes alone."""
+    tiles = -(-rows // BM)
+    blocks = max(1, min(tiles, GEMM_BLOCKS))
+    return blocks, -(-(-(-tiles // blocks)) // GEMM_CFG[dtype, bound_k]["wgs"])
+
+
+def tile_owner(tile, blocks, wgs):
+    """(block, warpgroup) that computes 64-row tile `tile` of a launch of
+    `blocks` blocks of `wgs` consumer warpgroups: block b walks tiles b, b +
+    blocks, ..., its j-th going to warpgroup j % wgs."""
+    return tile % blocks, tile // blocks % wgs
+
+
+def wgrad_partition(rows, p, q, dtype):
+    """(rows a block sums, clusters G along the rows) for a wgrad of [rows,
+    p] by [rows, q] in `dtype`: CLUSTER * G runs of a multiple of BM rows
+    cover the rows (the last runs may be empty), a cluster at least
+    CLUSTER_ROWS[dtype] rows, at most WGRAD_BLOCKS blocks over the 64 x 64
+    tiles (one wave), with G > 1 only where the float32 partials' traffic
+    (G written and read back, p x q each) is at most PARTIAL_SHARE of the
+    bf16 operands' bytes; from the shapes alone (the partials are added in
+    this partition's order)."""
     tiles = -(-p // BM) * -(-q // BN)
-    want = max(1, -(-WGRAD_BLOCKS // tiles))
-    per = -(-(-(-rows // want)) // BK) * BK
-    return per, -(-rows // per)
+    want = min(WGRAD_BLOCKS // (CLUSTER * tiles), rows // CLUSTER_ROWS[dtype])
+    affordable = int(PARTIAL_SHARE * rows * (p + q) * 2 // (2 * 4 * p * q))
+    g = max(1, min(want, affordable))
+    runs = CLUSTER * g
+    per = -(-(-(-rows // runs)) // BM) * BM
+    return per, g
 
 
 def _check(a, b, bound, *mats):
@@ -158,11 +237,16 @@ def _count(wrapper, suffix):
 
 
 def _gemm(a2, b2, bound, n, b_kn, bound_k, suffix):
-    """C [R, n] = a2 [R, K] . op(b2) through the gemm entry point."""
+    """C [R, n] = a2 [R, K] . B^T through the gemm entry point (B = b2, or
+    b2 transposed with `b_kn`)."""
     r, k = a2.shape
+    if not gemm_supported(k, n, a2.dtype, bound_k):
+        raise ValueError("the masked 1x1 kernel holds the bank in shared memory beside its "
+                         "rings; K %d, N %d in %s (bounded on %s) do not fit"
+                         % (k, n, a2.dtype, "K" if bound_k else "N"))
     c = torch.empty(r, n, device=a2.device, dtype=a2.dtype)
     _build.launch("ofa_pw_masked_gemm_" + suffix, a2.device, a2, b2, bound, c, r, k, n,
-                  int(b_kn), int(bound_k))
+                  int(b_kn), int(bound_k), gemm_grid(r, a2.dtype, bound_k)[0])
     return c
 
 
@@ -203,8 +287,8 @@ def pw_masked_dgrad(dy, w, bound, *, side):
 
 def pw_masked_wgrad(x, dy, bound, *, side):
     """dW [O, I, 1, 1] of the masked 1x1 conv for the output cotangent dy:
-    the kernel's two passes for CUDA tensors, in x's type; for CPU ones the
-    plain version."""
+    the kernel for CUDA tensors (and its finish where G > 1), in x's type;
+    for CPU ones the plain version."""
     if x.device.type == "cpu":
         return masked_pointwise_wgrad_reference(x, dy, bound, side=side)
     o, i = dy.shape[-1], x.shape[-1]
@@ -222,8 +306,8 @@ def pw_masked_wgrad(x, dy, bound, *, side):
     dw = torch.empty(o, i, 1, 1, device=x.device, dtype=x.dtype)
     if rows == 0:
         return dw.zero_()
-    per, g = wgrad_partition(rows, p, q)
-    part = torch.empty(g * p * q, device=x.device, dtype=torch.float32)
+    per, g = wgrad_partition(rows, p, q, x.dtype)
+    part = torch.empty(g * p * q, device=x.device, dtype=torch.float32) if g > 1 else None
     _build.launch("ofa_pw_masked_wgrad_" + suffix, x.device, a, b, bound, part, dw, rows, p, q,
                   int(project), per, g)
     _count(pw_masked_wgrad, suffix)

@@ -389,12 +389,15 @@ def test_wrappers_on_cpu_launch_nothing():
 
 
 def test_wgrad_partition_covers_the_rows_once():
-    """The wgrad's partition (shapes alone): runs of a multiple of 32 rows
-    covering every row once, about WGRAD_BLOCKS blocks over the 64 x 64
-    tiles, at the S4 step's rows and a few ragged ones."""
-    for rows in (1, 31, 1000, 9216, 36864, 147456):
-        for p, q in ((384, 64), (72, 40)):
-            per, g = tpw.wgrad_partition(rows, p, q)
-            assert per % tpw.BK == 0 and (g - 1) * per < rows <= g * per
-            tiles = -(-p // tpw.BM) * -(-q // tpw.BN)
-            assert g * tiles <= tpw.WGRAD_BLOCKS + tiles or per == tpw.BK
+    """The wgrad's partition (shapes alone): CLUSTER * G runs of a multiple
+    of 64 rows covering every row once (the last runs may be empty), at most
+    WGRAD_BLOCKS blocks over the 64 x 64 tiles unless G is 1, at the S4
+    step's rows and a few ragged ones, in both types."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in (1, 31, 1000, 9216, 36864, 147456):
+            for p, q in ((384, 64), (72, 40)):
+                per, g = tpw.wgrad_partition(rows, p, q, dtype)
+                runs = tpw.CLUSTER * g
+                assert per % tpw.BM == 0 and runs * per >= rows > (per - tpw.BM) * runs
+                tiles = -(-p // tpw.BM) * -(-q // tpw.BN)
+                assert runs * tiles <= tpw.WGRAD_BLOCKS or g == 1

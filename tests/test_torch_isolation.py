@@ -1,5 +1,5 @@
-"""The port (ofa_sr_tpu_torch), chip_smoke.py, bn_path_times.py and
-rank_launch.py never
+"""The port (ofa_sr_tpu_torch), chip_smoke.py, bn_path_times.py,
+pw_path_times.py and rank_launch.py never
 import JAX or the JAX package: at run time (a fresh interpreter that
 imports every module) and in the source."""
 
@@ -39,7 +39,7 @@ def test_importing_the_port_loads_no_jax():
         assert "ofa_sr_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
-        "for m in %r + ['chip_smoke', 'bn_path_times', 'rank_launch']:\n"
+        "for m in %r + ['chip_smoke', 'bn_path_times', 'pw_path_times', 'rank_launch']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ofa_sr_tpu', 'PIL'))\n"
@@ -55,7 +55,7 @@ def test_importing_the_port_loads_no_jax():
 
 def test_no_jax_imports_in_port_sources():
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "bn_path_times.py",
-                                                     "rank_launch.py")]
+                                                     "pw_path_times.py", "rank_launch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
